@@ -1,0 +1,510 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (core_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, one result line each:
+  1. build   — compile csrc/*.cu with nvcc for sm_90a into build/core_tpu_torch/
+  2. kernels — each CUDA kernel against its plain PyTorch version on the card
+               (identical prim / occlusion bits, t/u/v within rtol 1e-6), on
+               >= 1M rays of the Cornell box and at each shape the main path
+               gives it (65,536 primary and 524,288 bounce lanes, K=8 for
+               the NEE bundle); both timed at the bounce shape
+  3. render  — the main path: render_image on the 256^2 Cornell box at the
+               bench configuration (light_samples=4, path_samples=8,
+               bounces=5), one warm-up and one timed request of aa_samples=4
+               in 1-spp chunks; rays counted at the scene entry points;
+               launch counters prove the kernels ran and the plain versions
+               did not; image checks; PNG under build/
+  4. slice   — a 64^2 render through the kernels and through the plain
+               versions on the card must give identical images
+The line before the last is the card's name and power limit (nvidia-smi),
+the one before that the kernel table as JSON, and the last line is
+{"ok": true, "device": {...}}.  Any failure raises (non-zero exit).  Imports
+nothing of jax or core_tpu.
+"""
+from __future__ import annotations
+
+import json
+import re
+import struct
+import subprocess
+import sys
+import time
+import zlib
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+BUILD = ROOT / "build"
+
+# main-path configuration (the Cornell bench of the JAX package)
+RES = 256
+LIGHT_SAMPLES = 4
+PATH_SAMPLES = 8
+BOUNCES = 5
+AA_SAMPLES = 4
+# image-mean band: the port's CPU render of the same configuration at 64^2
+# (aa_samples=4, path_samples=8, bounces=5) gave a mean RGB of 0.65279; the
+# band allows for the resolution change and sample noise
+MEAN_REF = 0.65279
+MEAN_BAND = 0.05
+RTOL = 1e-6
+
+
+def fail(msg):
+    raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def cuda_time_ms(fn, reps: int, warmup: int = 2):
+    """Median device time of fn() in ms over reps launches (CUDA events),
+    and the output of the last launch."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2], out
+
+
+# --------------------------------------------------------------------------
+# phase 1
+# --------------------------------------------------------------------------
+
+def phase_build():
+    from core_tpu_torch import _build
+    path, secs = _build.build()
+    _build.load_library()
+    print(f"build: {path.relative_to(ROOT)} nvcc {secs:.3f} s "
+          f"(0 = already built)")
+    # ptxas -v: registers / shared memory / spills per kernel instantiation
+    log = path.with_suffix(".log")
+    kernel = "?"
+    for ln in log.read_text().splitlines() if log.exists() else []:
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            k = re.search(r"any_hit_nee_kernelILi(\d+)E", m.group(1))
+            kernel = (f"any_hit_nee<K={k.group(1)}>" if k else
+                      "closest_hit" if "closest_hit" in m.group(1)
+                      else m.group(1))
+        elif "Used" in ln or "spill" in ln:
+            print(f"build: ptxas {kernel}: {ln.split(':', 1)[-1].strip()}")
+    return secs
+
+
+# --------------------------------------------------------------------------
+# phase 2
+# --------------------------------------------------------------------------
+
+def _unit(v):
+    return v / v.norm(dim=-1, keepdim=True)
+
+
+def _rays(scene, n_cam, n_int, gen):
+    """Camera rays plus random interior rays of the Cornell box, with mixed
+    open and bounded caps and exclusion ids."""
+    import torch
+    from core_tpu_torch import vec
+    from core_tpu_torch.cameras import shoot_ray
+    dev = scene.device
+    cam = scene.camera
+    px = torch.rand(n_cam, generator=gen, device=dev) * cam.resx
+    py = torch.rand(n_cam, generator=gen, device=dev) * cam.resy
+    crays, _ = shoot_ray(cam, px, py)
+    lo = torch.tensor([10.0, 10.0, 10.0], device=dev)
+    hi = torch.tensor([546.0, 538.0, 549.0], device=dev)
+    o = lo + torch.rand((n_int, 3), generator=gen, device=dev) * (hi - lo)
+    d = _unit(torch.randn((n_int, 3), generator=gen, device=dev))
+    o = torch.cat([crays.o, o])
+    d = torch.cat([crays.d, d])
+    n = n_cam + n_int
+    tmax = torch.where(torch.rand(n, generator=gen, device=dev) < 0.5,
+                       torch.rand(n, generator=gen, device=dev) * 800.0,
+                       torch.full((n,), -1.0, device=dev))
+    T = scene.geom.n_tris
+    ex = torch.randint(-2, T, (n,), generator=gen, device=dev,
+                       dtype=torch.int32)
+    rs = vec.RaysS(o=vec.v3(o), d=vec.v3(d),
+                   tmin=torch.full((n,), 5e-5, device=dev), tmax=tmax)
+    return rs, ex
+
+
+def _nee_bundle(scene, n, K, gen):
+    """K shadow rays per lane from surface points: light-bound (bounded
+    caps), random open, random bounded and dead (0 < tcap <= tmin) rays,
+    with the hit prim as exclusion."""
+    import torch
+    from core_tpu_torch import scene as scene_mod
+    from core_tpu_torch import vec
+    dev = scene.device
+    rs, _ = _rays(scene, 0, n, gen)
+    rs = rs._replace(tmax=torch.full((n,), -1.0, device=dev))
+    hits = scene_mod.closest_hit_s(scene, rs)
+    sp = scene_mod.surface_points_s(scene, rs, hits)
+    light = scene.lights[0]
+    dirs, tcaps = [], []
+    for k in range(K):
+        kind = k % 4
+        if kind == 0:      # toward a random point on the light
+            s1 = torch.rand(n, generator=gen, device=dev)
+            s2 = torch.rand(n, generator=gen, device=dev)
+            tgt = light.corner + s1[:, None] * light.to_x \
+                + s2[:, None] * light.to_y
+            p = torch.stack([sp.p.x, sp.p.y, sp.p.z], dim=1)
+            dv = tgt - p
+            dist = dv.norm(dim=1)
+            dirs.append(vec.v3(dv / dist[:, None].clamp_min(1e-12)))
+            tcaps.append(dist - 5e-4)
+        else:
+            dirs.append(vec.v3(_unit(torch.randn((n, 3), generator=gen,
+                                                 device=dev))))
+            if kind == 1:
+                tcaps.append(torch.full((n,), -1.0, device=dev))
+            elif kind == 2:
+                tcaps.append(torch.rand(n, generator=gen, device=dev) * 600)
+            else:
+                tcaps.append(torch.full((n,), 2.5e-4, device=dev))
+    tmin = torch.full((n,), 5e-4, device=dev)
+    ex1 = torch.randint(-2, scene.geom.n_tris, (n,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    return sp.p, tmin, dirs, tcaps, sp.prim, ex1
+
+
+def _rel_err(a, b):
+    return float(((a - b).abs() / b.abs().clamp_min(1.0)).max()) \
+        if a.numel() else 0.0
+
+
+def check_closest(hk, hp, what):
+    """Kernel hits hk against plain hits hp: identical prim, t/u/v within
+    rtol 1e-6.  Returns the max abs error of t/u/v."""
+    import torch
+    sync()
+    n = hp.prim.numel()
+    if not torch.equal(hk.prim, hp.prim):
+        bad = int((hk.prim != hp.prim).sum())
+        fail(f"closest hit ({what}): prim differs on {bad} of {n} rays")
+    errs = [_rel_err(getattr(hk, f), getattr(hp, f)) for f in "tuv"]
+    if max(errs) > RTOL:
+        fail(f"closest hit ({what}): t/u/v rel err {errs} > {RTOL}")
+    err = max(float((getattr(hk, f) - getattr(hp, f)).abs().max())
+              for f in "tuv")
+    print(f"kernels: closest_hit parity, {what}: {n} rays, prim identical, "
+          f"hit {float(hk.valid.float().mean()):.4f}, max abs err t/u/v "
+          f"{err}")
+    return err
+
+
+def check_nee(ok_, op, what, K):
+    """Kernel occlusion bits against plain bits: identical, and no dead
+    ray (every 4th sample of _nee_bundle) occluded.  Returns the max abs
+    error of the bits."""
+    import torch
+    sync()
+    if not torch.equal(ok_, op):
+        fail(f"NEE bundle ({what}): occlusion differs on "
+             f"{int((ok_ != op).sum())} of {ok_.numel()} rays")
+    if bool(ok_.view(K, -1)[3::4].any()):
+        fail(f"NEE bundle ({what}): a dead ray (tcap <= tmin) reported "
+             "occlusion")
+    err = float((ok_.float() - op.float()).abs().max())
+    print(f"kernels: any_hit_nee parity, {what}: {ok_.numel() // K} lanes "
+          f"x K={K} = {ok_.numel()} rays, bits identical, occluded "
+          f"{float(ok_.float().mean()):.4f}")
+    return err
+
+
+def phase_kernels(scene, K=8):
+    """Each kernel against its plain version on >= 1M mixed rays and at
+    every shape the main path gives it (65,536 primary lanes and 524,288
+    bounce lanes of the 256^2 render at path_samples=8; closest hit with no
+    exclusion on primary rays and one on bounces, NEE with one), then both
+    timed at the bounce shape, where the timed outputs are compared too."""
+    import torch
+    from core_tpu_torch.geometry import cuda_intersect as ck
+    from core_tpu_torch.geometry import intersect as isect
+    gen = torch.Generator(device=scene.device).manual_seed(1234)
+    tri = scene.tri
+    primary, bounce = RES * RES, RES * RES * PATH_SAMPLES
+
+    # closest hit: 1M mixed rays with two exclusions, then the primary shape
+    rs, ex = _rays(scene, 262_144, 786_432, gen)
+    ch_err = [check_closest(
+        ck.closest_hit_cuda(tri, rs, ex, ex.flip(0)),
+        isect.closest_hit_torch(tri, rs, ex, ex.flip(0)),
+        "1M camera + interior rays, two exclusions")]
+    rs_p, _ = _rays(scene, primary, 0, gen)
+    rs_p = rs_p._replace(tmax=torch.full((primary,), -1.0,
+                                         device=scene.device))
+    ch_err.append(check_closest(ck.closest_hit_cuda(tri, rs_p),
+                                isect.closest_hit_torch(tri, rs_p),
+                                "primary shape, camera rays, no exclusion"))
+    # the bounce shape, timed; the last timed outputs are compared
+    rs_b, ex_b = _rays(scene, primary, bounce - primary, gen)
+    ch_ms, hk = cuda_time_ms(lambda: ck.closest_hit_cuda(tri, rs_b, ex_b), 20)
+    ch_plain, hp = cuda_time_ms(
+        lambda: isect.closest_hit_torch(tri, rs_b, ex_b), 5, warmup=1)
+    ch_err.append(check_closest(hk, hp, "bounce shape, timed"))
+
+    # NEE: 1M rays with two exclusions, then the primary shape
+    o3, tmin, dirs, tcaps, ex0, ex1 = _nee_bundle(scene, 131_072, K, gen)
+    nee_err = [check_nee(
+        ck.any_hit_nee_cuda(tri, o3, tmin, dirs, tcaps, ex0, ex1),
+        isect.any_hit_nee_torch(tri, o3, tmin, dirs, tcaps, ex0, ex1),
+        "1M rays, two exclusions", K)]
+    o3, tmin, dirs, tcaps, ex0, _ = _nee_bundle(scene, primary, K, gen)
+    nee_err.append(check_nee(
+        ck.any_hit_nee_cuda(tri, o3, tmin, dirs, tcaps, ex0),
+        isect.any_hit_nee_torch(tri, o3, tmin, dirs, tcaps, ex0),
+        "primary shape", K))
+    o3, tmin, dirs, tcaps, ex0, _ = _nee_bundle(scene, bounce, K, gen)
+    nee_ms, ok_ = cuda_time_ms(lambda: ck.any_hit_nee_cuda(
+        tri, o3, tmin, dirs, tcaps, ex0), 20)
+    nee_plain, op = cuda_time_ms(lambda: isect.any_hit_nee_torch(
+        tri, o3, tmin, dirs, tcaps, ex0), 5, warmup=1)
+    nee_err.append(check_nee(ok_, op, "bounce shape, timed", K))
+
+    print(f"kernels: closest_hit {bounce} lanes: kernel {ch_ms:.4f} ms, "
+          f"plain {ch_plain:.4f} ms")
+    print(f"kernels: any_hit_nee {bounce} lanes x K={K}: kernel "
+          f"{nee_ms:.4f} ms, plain {nee_plain:.4f} ms")
+    return {
+        "closest_hit": {"max_abs_err": max(ch_err), "ms": ch_ms,
+                        "plain_ms": ch_plain},
+        "any_hit_nee": {"max_abs_err": max(nee_err), "ms": nee_ms,
+                        "plain_ms": nee_plain},
+    }
+
+
+# --------------------------------------------------------------------------
+# phase 3
+# --------------------------------------------------------------------------
+
+def counted_rays(fn):
+    """Run fn() with the scene-level trace entry points wrapped, counting
+    every wavefront lane of every closest-hit and NEE shadow query (the way
+    the JAX package's bench counts rays).  Returns (fn(), lanes)."""
+    from core_tpu_torch import scene as sm
+    counts = {"n": 0}
+    orig_ch, orig_nee = sm.closest_hit_s, sm.any_hit_nee_s
+
+    def ch(scene, rays, *a, **k):
+        counts["n"] += rays.o.x.numel()
+        return orig_ch(scene, rays, *a, **k)
+
+    def nee(scene, origin, tmin, dirs, tcaps, *a, **k):
+        counts["n"] += origin.x.numel() * len(dirs)
+        return orig_nee(scene, origin, tmin, dirs, tcaps, *a, **k)
+
+    sm.closest_hit_s, sm.any_hit_nee_s = ch, nee
+    try:
+        out = fn()
+    finally:
+        sm.closest_hit_s, sm.any_hit_nee_s = orig_ch, orig_nee
+    return out, counts["n"]
+
+
+def write_png(path: Path, img):
+    """[H,W,>=3] float image -> 8-bit sRGB-ish PNG (gamma 2.2)."""
+    import numpy as np
+    rgb = (np.clip(img[..., :3], 0.0, 1.0) ** (1 / 2.2) * 255 + 0.5)
+    rgb = rgb.astype(np.uint8)
+    h, w, _ = rgb.shape
+    raw = b"".join(b"\x00" + rgb[y].tobytes() for y in range(h))
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(b"\x89PNG\r\n\x1a\n"
+                     + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2,
+                                                  0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(raw, 6))
+                     + chunk(b"IEND", b""))
+
+
+def check_image(scene, img):
+    """The repo's own means: finite, mean in band, walls coloured, the
+    light the brightest region."""
+    import torch
+    from core_tpu_torch import scene as sm
+    from core_tpu_torch import vec
+    from core_tpu_torch.cameras import shoot_ray
+    h, w = scene.camera.resy, scene.camera.resx
+    if tuple(img.shape) != (h, w, 4):
+        fail(f"image shape {tuple(img.shape)} != {(h, w, 4)}")
+    if not bool(torch.isfinite(img).all()):
+        fail("image has non-finite values")
+    rgb = img[..., :3]
+    mean = float(rgb.mean())
+    if abs(mean - MEAN_REF) > MEAN_BAND * MEAN_REF:
+        fail(f"image mean {mean} outside {MEAN_REF} +- {MEAN_BAND:.0%}")
+    # primary hit material per pixel centre
+    ys, xs = torch.meshgrid(torch.arange(h, device=img.device),
+                            torch.arange(w, device=img.device),
+                            indexing="ij")
+    rays, _ = shoot_ray(scene.camera, xs.reshape(-1).float() + 0.5,
+                        ys.reshape(-1).float() + 0.5)
+    rs = vec.rays_to_soa(rays)
+    hits = sm.closest_hit_s(scene, rs)
+    mat = scene.geom.tri_mat[hits.prim.clamp_min(0).long()]
+    mat = torch.where(hits.valid, mat, -1).reshape(h, w)
+    red, green, light = 1, 2, 3                 # cornell_box material ids
+    lum = rgb.mean(dim=-1)
+    r_px = rgb[mat == red]
+    g_px = rgb[mat == green]
+    l_px = lum[mat == light]
+    if r_px.numel() == 0 or g_px.numel() == 0 or l_px.numel() == 0:
+        fail("red wall, green wall or light not visible")
+    r_mean, g_mean = r_px.mean(dim=0), g_px.mean(dim=0)
+    if not (r_mean[0] > r_mean[1] and r_mean[0] > r_mean[2]):
+        fail(f"red wall not red-dominant: {r_mean.tolist()}")
+    if not (g_mean[1] > g_mean[0] and g_mean[1] > g_mean[2]):
+        fail(f"green wall not green-dominant: {g_mean.tolist()}")
+    # the red wall is on the image's left, the green on its right
+    cols = torch.arange(w, device=img.device).expand(h, w)
+    if not (cols[mat == red].float().mean() < w / 2
+            < cols[mat == green].float().mean()):
+        fail("red wall not left of the green wall")
+    brightest = int(lum.reshape(-1).argmax())
+    if int(mat.reshape(-1)[brightest]) != light:
+        fail("the brightest pixel is not on the light")
+    if float(l_px.mean()) < 10 * float(lum.mean()):
+        fail("the light is not the brightest region")
+    return mean, r_mean.tolist(), g_mean.tolist(), float(l_px.mean())
+
+
+def phase_render():
+    import torch
+    from core_tpu_torch.geometry import cuda_intersect as ck
+    from core_tpu_torch.geometry import intersect as isect
+    from core_tpu_torch.integrators.path import PathOptions
+    from core_tpu_torch.render import RenderOptions, render_image
+    from core_tpu_torch.scenes import cornell_box
+
+    scene = cornell_box(resx=RES, resy=RES, light_samples=LIGHT_SAMPLES,
+                        device="cuda")
+    if scene.intersector != "cuda":
+        fail(f"scene on the card resolved intersector {scene.intersector!r}")
+    opts = RenderOptions(
+        aa_samples=AA_SAMPLES, spp_chunk=1, integrator="pathtracing",
+        integrator_opts=PathOptions(path_samples=PATH_SAMPLES,
+                                    bounces=BOUNCES, raydepth=2))
+    ck.reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    (img0, _), rays = counted_rays(lambda: render_image(scene, opts))
+    sync()
+    t_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    img, _ = render_image(scene, opts)
+    sync()
+    dt = time.perf_counter() - t0
+    counts = {"closest_hit": ck.closest_hit_cuda.launches,
+              "any_hit_nee": ck.any_hit_nee_cuda.launches}
+    plain_calls = (isect.closest_hit_torch.calls
+                   + isect.any_hit_nee_torch.calls)
+    if min(counts.values()) <= 0:
+        fail(f"a kernel of the main path never launched: {counts}")
+    if plain_calls:
+        fail(f"the plain versions ran {plain_calls} times in the render")
+    if not torch.equal(img0, img):
+        fail("two identical requests rendered different images")
+    mean, r_mean, g_mean, l_mean = check_image(scene, img)
+    write_png(BUILD / "chip_smoke_cornell.png", img.cpu().numpy())
+    chunks = AA_SAMPLES
+    print(f"render: {RES}x{RES} cornell, light_samples={LIGHT_SAMPLES}, "
+          f"path_samples={PATH_SAMPLES}, bounces={BOUNCES}, "
+          f"aa_samples={AA_SAMPLES} in {chunks} chunks")
+    print(f"render: rays per request {rays}, warm-up {t_warm:.4f} s, "
+          f"timed {dt:.4f} s, {rays / dt / 1e6:.3f} Mrays/s forward, "
+          f"{dt * 1e3 / chunks:.3f} ms/chunk")
+    print(f"render: launches {counts} (two requests), plain calls 0, "
+          f"image mean {mean:.6f}, red wall {r_mean}, green wall {g_mean}, "
+          f"light {l_mean:.3f}, png build/chip_smoke_cornell.png")
+    return counts
+
+
+# --------------------------------------------------------------------------
+# phase 4
+# --------------------------------------------------------------------------
+
+def phase_slice():
+    import torch
+    from core_tpu_torch.integrators.path import PathOptions
+    from core_tpu_torch.render import RenderOptions, render_image
+    from core_tpu_torch.scenes import cornell_box
+    opts = RenderOptions(
+        aa_samples=1, spp_chunk=1, integrator="pathtracing",
+        integrator_opts=PathOptions(path_samples=PATH_SAMPLES,
+                                    bounces=BOUNCES, raydepth=2))
+    imgs = {}
+    for isec in ("cuda", "torch"):
+        scene = cornell_box(resx=64, resy=64, light_samples=LIGHT_SAMPLES,
+                            intersector=isec, device="cuda")
+        imgs[isec], _ = render_image(scene, opts)
+    sync()
+    a, b = imgs["cuda"], imgs["torch"]
+    if not torch.equal(a, b):
+        fail(f"64^2 kernel and plain renders differ: max abs "
+             f"{float((a - b).abs().max())}")
+    print(f"slice: 64x64 render through the kernels == through the plain "
+          f"versions (bit-identical), mean {float(a[..., :3].mean()):.6f}")
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this run needs a CUDA GPU")
+    # the port must come from this checkout, not from anywhere on sys.path
+    if not (ROOT / "core_tpu_torch" / "__init__.py").is_file():
+        fail(f"no core_tpu_torch/ beside {Path(__file__).name}: run it from "
+             "the root of a checkout")
+    sys.path.insert(0, str(ROOT))
+    from core_tpu_torch.scenes import cornell_box
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"cuda {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    phase_build()
+    scene = cornell_box(resx=RES, resy=RES, light_samples=LIGHT_SAMPLES,
+                        device="cuda")
+    kt = phase_kernels(scene)
+    sync()
+    counts = phase_render()
+    sync()
+    phase_slice()
+    sync()
+
+    src = "core_tpu_torch/csrc/intersect.cu"
+    replaces = {"closest_hit": "core_tpu/geometry/pallas_intersect.py:55",
+                "any_hit_nee": "core_tpu/geometry/pallas_intersect.py:174"}
+    table = [{"name": name, "route": "cuda", "source": src,
+              "replaces": replaces[name], "launches": counts[name],
+              **kt[name]} for name in ("closest_hit", "any_hit_nee")]
+    print(json.dumps({"kernels": table}))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    print(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,13 @@
+"""core_tpu_torch: the PyTorch + CUDA port of core_tpu.
+
+The package mirrors core_tpu's layout and module names, so each module here
+has a counterpart of the same name there.  It is written in PyTorch, never
+imports jax, and runs its intersection queries in hand-written CUDA kernels
+(csrc/intersect.cu) when the scene lives on a CUDA device.  On the CPU the
+same entry points run the kernels' plain PyTorch versions
+(geometry/intersect.py).
+
+Scope so far: the forward path-traced render of the default Cornell box
+(scenes.cornell_box -> render.render_image).  Anything outside that slice
+raises NotImplementedError by name.
+"""

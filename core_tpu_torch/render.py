@@ -1,0 +1,117 @@
+"""Render orchestration: sample chunks and film accumulation
+(counterpart of core_tpu/render.py).
+
+Every pixel of the image gets its samples generated and traced in one
+wavefront per chunk.  Pixel-sample QMC matches the reference's renderTile
+(integrator.cc:269-306):
+  sampling_offs = fnv(i * fnv(j))
+  single-pass:   dx = (0.5+s)/n, dy = RI_LP(s + offs)
+
+Scope: one AA pass (aa_passes == 1), the path tracer, the full-raster
+chunk; other integrators, adaptive passes and row blocks raise
+NotImplementedError.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import torch
+
+from core_tpu_torch import film as film_mod
+from core_tpu_torch.cameras import shoot_ray
+from core_tpu_torch.film import Film, FilterType
+from core_tpu_torch.integrators import path as path_mod
+from core_tpu_torch.integrators.path import PathOptions
+from core_tpu_torch.sampling import qmc
+
+
+@dataclass(frozen=True)
+class RenderOptions:
+    """Same fields as core_tpu's RenderOptions where ported.  The path
+    tracer is the only integrator so far, so it is the default here."""
+    aa_passes: int = 1
+    aa_samples: int = 1
+    filter_type: FilterType = FilterType.BOX
+    filter_size: float = 1.5
+    gamma: float = 1.0
+    clamp_rgb: bool = False
+    premult: bool = False         # premultiply alpha at flush (reference)
+    spp_chunk: int = 4            # samples per wavefront (memory bound)
+    integrator: str = "pathtracing"
+    integrator_opts: PathOptions = field(default_factory=PathOptions)
+
+
+def _check_supported(opts: RenderOptions):
+    if opts.integrator != "pathtracing":
+        raise NotImplementedError(f"integrator {opts.integrator!r} is not "
+                                  "ported to core_tpu_torch yet")
+    if opts.aa_passes != 1:
+        raise NotImplementedError("adaptive AA passes (aa_passes > 1) are "
+                                  "not ported to core_tpu_torch yet")
+
+
+def _pixel_grid_raster(h, w, spp, device):
+    """(s, y, x)-ordered full-raster grid for the dense film splat."""
+    ss, ys, xs = torch.meshgrid(
+        torch.arange(spp, dtype=torch.int64, device=device),
+        torch.arange(h, dtype=torch.int64, device=device),
+        torch.arange(w, dtype=torch.int64, device=device), indexing="ij")
+    return xs.reshape(-1), ys.reshape(-1), ss.reshape(-1)
+
+
+def render_chunk(scene, types_present, opts: RenderOptions, film: Film,
+                 pass_offs: int, spp: int, sample0: int) -> Film:
+    """Trace spp samples for every pixel and splat them into film."""
+    _check_supported(opts)
+    cam = scene.camera
+    h, w = cam.resy, cam.resx
+    x, y, s = _pixel_grid_raster(h, w, spp, scene.device)
+    s = s + sample0
+    sampling_offs = qmc.fnv32a((y * qmc.fnv32a(x)) & qmc.MASK32)
+    pixel_sample = (pass_offs + s) & qmc.MASK32
+
+    n_total = opts.aa_samples  # for single-pass stratification
+    if n_total > 1:
+        dx = (0.5 + s.to(torch.float32)) / n_total
+        dy = qmc.ri_lp((s + sampling_offs) & qmc.MASK32)
+    else:
+        dx = torch.full(x.shape, 0.5, dtype=torch.float32, device=x.device)
+        dy = torch.full(x.shape, 0.5, dtype=torch.float32, device=x.device)
+
+    px = x.to(torch.float32) + dx
+    py = y.to(torch.float32) + dy
+    rays, wt = shoot_ray(cam, px, py)
+    rgba = path_mod.integrate(scene, types_present, rays, pixel_sample,
+                              sampling_offs, opts.integrator_opts)
+    rgba = rgba * wt[..., None]
+    filterw = film_mod.effective_filterw(opts.filter_size, opts.filter_type)
+    return film_mod.add_samples_grid(film, dx, dy, rgba, spp,
+                                     filterw=filterw, ftype=opts.filter_type,
+                                     sample_mask=wt > 0.0,
+                                     clamp_rgb=opts.clamp_rgb)
+
+
+def scene_material_types(scene) -> tuple:
+    """Static tuple of material families the dispatcher evaluates."""
+    from core_tpu_torch.materials.base import MatType
+    return tuple(t for t in scene.mat_types
+                 if t not in (int(MatType.BLEND), int(MatType.MASK)))
+
+
+def render_image(scene, opts: RenderOptions):
+    """Full render; returns (image [H,W,4], Film).  Forward only: runs under
+    torch.no_grad()."""
+    _check_supported(opts)
+    types_present = scene_material_types(scene)
+    cam = scene.camera
+    with torch.no_grad():
+        film = film_mod.make_film(cam.resy, cam.resx, device=scene.device)
+        done = 0
+        while done < opts.aa_samples:
+            spp = min(opts.spp_chunk, opts.aa_samples - done)
+            film = render_chunk(scene, types_present, opts, film, 0, spp,
+                                done)
+            done += spp
+        img = film_mod.flush(film, gamma=opts.gamma, clamp=opts.clamp_rgb,
+                             premult=opts.premult)
+    return img, film
