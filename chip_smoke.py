@@ -3,21 +3,37 @@
 
     python3 chip_smoke.py
 
-Phases, one result line each:
-  1. build   — compile csrc/*.cu with nvcc for sm_90a into build/core_tpu_torch/
-  2. kernels — each CUDA kernel against its plain PyTorch version on the card
-               (identical prim / occlusion bits, t/u/v within rtol 1e-6), on
-               >= 1M rays of the Cornell box and at each shape the main path
-               gives it (65,536 primary and 524,288 bounce lanes, K=8 for
-               the NEE bundle); both timed at the bounce shape
-  3. render  — the main path: render_image on the 256^2 Cornell box at the
-               bench configuration (light_samples=4, path_samples=8,
+Phases, with their seconds:
+  1. build   — compile csrc/*.cu with nvcc for sm_90a (one nvcc per source,
+               all started together) into build/core_tpu_torch/; ptxas
+               registers / shared memory / spills per kernel
+  2. kernels — kernels 1 and 2 (brute closest hit, NEE bundle) against their
+               plain PyTorch versions on the card (identical prim /
+               occlusion bits, t/u/v within rtol 1e-6), on >= 1M rays of the
+               Cornell box and at each shape the Cornell path gives them
+               (65,536 primary and 524,288 bounce lanes, K=8); both timed
+               at the bounce shape
+  3. render  — the Cornell path: render_image on the 256^2 Cornell box at
+               the bench configuration (light_samples=4, path_samples=8,
                bounces=5), one warm-up and one timed request of aa_samples=4
                in 1-spp chunks; rays counted at the scene entry points;
-               launch counters prove the kernels ran and the plain versions
-               did not; image checks; PNG under build/
-  4. slice   — a 64^2 render through the kernels and through the plain
-               versions on the card must give identical images
+               launch counters prove kernels 1 and 2 ran and the plain
+               versions did not; image checks; PNG under build/
+  4. slice   — a 64^2 Cornell render through the kernels and through the
+               plain versions on the card must give identical images
+  5. big     — the 1M-triangle direct-light path (core_tpu's bench_big_scene
+               configuration): big_scene(1024^2, ibl_samples=4,
+               sun_samples=2) built by the port alone; the inputs of kernels
+               7 and 8 (grouped closest hit, grouped any hit) captured from
+               one chunk: camera and glossy-chain closest hits, one IBL and
+               one sun NEE bundle after re-bucketing; each kernel run on the
+               whole input and timed, every lane of a fixed random subset of
+               65,536 held against the plain version (which also counts the
+               triangle tests behind the bound); the re-bucketing timed on
+               its own; then one warm-up and three timed 1-spp chunks with
+               rays counted, launch counters and image checks
+  6. big slice — a 64^2 render of the same 1M-triangle scene through the
+               kernels and through the plain versions must be identical
 The line before the last is the card's name and power limit (nvidia-smi),
 the one before that the kernel table as JSON, and the last line is
 {"ok": true, "device": {...}}.  Any failure raises (non-zero exit).  Imports
@@ -49,6 +65,33 @@ AA_SAMPLES = 4
 MEAN_REF = 0.65279
 MEAN_BAND = 0.05
 RTOL = 1e-6
+
+# the 1M-triangle configuration (core_tpu bench.py bench_big_scene)
+BIG_RES = 1024
+BIG_IBL = 4
+BIG_SUN = 2
+BIG_TIMED = 3
+BIG_TRIS = 1_017_202
+SUBSET = 65_536          # lanes held against the plain versions
+
+# peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
+PEAK_F32 = 67e12         # float32 operations/s outside the tensor cores
+PEAK_BYTES = 3.35e12     # HBM bytes/s
+# float operations per ray-triangle test, counted from the kernels' code:
+# Moller-Trumbore with the reciprocal (closest hit), the division-free test
+# (any hit), and for the shared-origin NEE bundle 35 per lane and triangle
+# (origin terms) plus 29 per direction
+OPS_CLOSEST = 57
+OPS_ANY = 56
+OPS_NEE_LANE = 35
+OPS_NEE_DIR = 29
+
+
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the larger of the operation and byte times."""
+    t_ops = ops / PEAK_F32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def fail(msg):
@@ -96,9 +139,10 @@ def phase_build():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
             k = re.search(r"any_hit_nee_kernelILi(\d+)E", m.group(1))
+            name = re.search(r"(grouped_closest_hit|grouped_any_hit|"
+                             r"closest_hit)_kernel", m.group(1))
             kernel = (f"any_hit_nee<K={k.group(1)}>" if k else
-                      "closest_hit" if "closest_hit" in m.group(1)
-                      else m.group(1))
+                      name.group(1) if name else m.group(1))
         elif "Used" in ln or "spill" in ln:
             print(f"build: ptxas {kernel}: {ln.split(':', 1)[-1].strip()}")
     return secs
@@ -276,15 +320,26 @@ def phase_kernels(scene, K=8):
         tri, o3, tmin, dirs, tcaps, ex0), 5, warmup=1)
     nee_err.append(check_nee(ok_, op, "bounce shape, timed", K))
 
+    # bounds at the timed bounce shape: every lane tests every triangle;
+    # bytes: the ray fields and exclusions in, the triangle table, outputs
+    T = tri.shape[0]
+    ch_bound = bound(bounce * T * OPS_CLOSEST,
+                     bounce * (8 * 4 + 4) + T * 36 + bounce * 16)
+    nee_bound = bound(bounce * T * (OPS_NEE_LANE + OPS_NEE_DIR * K),
+                      bounce * (4 * 4 + 4 + K * 16) + T * 36 + K * bounce)
     print(f"kernels: closest_hit {bounce} lanes: kernel {ch_ms:.4f} ms, "
-          f"plain {ch_plain:.4f} ms")
+          f"plain {ch_plain:.4f} ms, bound {ch_bound[0]:.4f} ms "
+          f"({ch_bound[1]})")
     print(f"kernels: any_hit_nee {bounce} lanes x K={K}: kernel "
-          f"{nee_ms:.4f} ms, plain {nee_plain:.4f} ms")
+          f"{nee_ms:.4f} ms, plain {nee_plain:.4f} ms, bound "
+          f"{nee_bound[0]:.4f} ms ({nee_bound[1]})")
     return {
         "closest_hit": {"max_abs_err": max(ch_err), "ms": ch_ms,
-                        "plain_ms": ch_plain},
+                        "plain_ms": ch_plain, "bound_ms": ch_bound[0],
+                        "bound_by": ch_bound[1], "library_ms": None},
         "any_hit_nee": {"max_abs_err": max(nee_err), "ms": nee_ms,
-                        "plain_ms": nee_plain},
+                        "plain_ms": nee_plain, "bound_ms": nee_bound[0],
+                        "bound_by": nee_bound[1], "library_ms": None},
     }
 
 
@@ -298,21 +353,25 @@ def counted_rays(fn):
     the JAX package's bench counts rays).  Returns (fn(), lanes)."""
     from core_tpu_torch import scene as sm
     counts = {"n": 0}
-    orig_ch, orig_nee = sm.closest_hit_s, sm.any_hit_nee_s
+    orig = (sm.closest_hit_s, sm.any_hit_s, sm.any_hit_nee_s)
 
     def ch(scene, rays, *a, **k):
         counts["n"] += rays.o.x.numel()
-        return orig_ch(scene, rays, *a, **k)
+        return orig[0](scene, rays, *a, **k)
+
+    def anyh(scene, rays, *a, **k):
+        counts["n"] += rays.o.x.numel()
+        return orig[1](scene, rays, *a, **k)
 
     def nee(scene, origin, tmin, dirs, tcaps, *a, **k):
         counts["n"] += origin.x.numel() * len(dirs)
-        return orig_nee(scene, origin, tmin, dirs, tcaps, *a, **k)
+        return orig[2](scene, origin, tmin, dirs, tcaps, *a, **k)
 
-    sm.closest_hit_s, sm.any_hit_nee_s = ch, nee
+    sm.closest_hit_s, sm.any_hit_s, sm.any_hit_nee_s = ch, anyh, nee
     try:
         out = fn()
     finally:
-        sm.closest_hit_s, sm.any_hit_nee_s = orig_ch, orig_nee
+        sm.closest_hit_s, sm.any_hit_s, sm.any_hit_nee_s = orig
     return out, counts["n"]
 
 
@@ -387,10 +446,23 @@ def check_image(scene, img):
     return mean, r_mean.tolist(), g_mean.tolist(), float(l_px.mean())
 
 
+def reset_counts():
+    from core_tpu_torch.geometry import cuda_cluster, cuda_intersect
+    cuda_intersect.reset_counts()
+    cuda_cluster.reset_counts()
+
+
+def plain_calls():
+    from core_tpu_torch.geometry import cluster_intersect as ci
+    from core_tpu_torch.geometry import intersect as isect
+    return (isect.closest_hit_torch.calls + isect.any_hit_nee_torch.calls
+            + ci.closest_hit_grouped_torch.calls
+            + ci.any_hit_grouped_torch.calls)
+
+
 def phase_render():
     import torch
     from core_tpu_torch.geometry import cuda_intersect as ck
-    from core_tpu_torch.geometry import intersect as isect
     from core_tpu_torch.integrators.path import PathOptions
     from core_tpu_torch.render import RenderOptions, render_image
     from core_tpu_torch.scenes import cornell_box
@@ -403,7 +475,7 @@ def phase_render():
         aa_samples=AA_SAMPLES, spp_chunk=1, integrator="pathtracing",
         integrator_opts=PathOptions(path_samples=PATH_SAMPLES,
                                     bounces=BOUNCES, raydepth=2))
-    ck.reset_counts()
+    reset_counts()
     sync()
     t0 = time.perf_counter()
     (img0, _), rays = counted_rays(lambda: render_image(scene, opts))
@@ -415,12 +487,10 @@ def phase_render():
     dt = time.perf_counter() - t0
     counts = {"closest_hit": ck.closest_hit_cuda.launches,
               "any_hit_nee": ck.any_hit_nee_cuda.launches}
-    plain_calls = (isect.closest_hit_torch.calls
-                   + isect.any_hit_nee_torch.calls)
     if min(counts.values()) <= 0:
         fail(f"a kernel of the main path never launched: {counts}")
-    if plain_calls:
-        fail(f"the plain versions ran {plain_calls} times in the render")
+    if plain_calls():
+        fail(f"the plain versions ran {plain_calls()} times in the render")
     if not torch.equal(img0, img):
         fail("two identical requests rendered different images")
     mean, r_mean, g_mean, l_mean = check_image(scene, img)
@@ -465,6 +535,252 @@ def phase_slice():
           f"versions (bit-identical), mean {float(a[..., :3].mean()):.6f}")
 
 
+# --------------------------------------------------------------------------
+# phase 5: the 1M-triangle direct-light path
+# --------------------------------------------------------------------------
+
+def _big_opts():
+    from core_tpu_torch.integrators.direct import DirectOptions
+    from core_tpu_torch.render import RenderOptions
+    return RenderOptions(aa_samples=1, spp_chunk=1, integrator="directlight",
+                         integrator_opts=DirectOptions(raydepth=1))
+
+
+def phase_big_build(res):
+    from core_tpu_torch.scenes import big_scene
+    t0 = time.perf_counter()
+    scene = big_scene(resx=res, resy=res, ibl_samples=BIG_IBL,
+                      sun_samples=BIG_SUN, device="cuda")
+    sync()
+    dt = time.perf_counter() - t0
+    acc = scene.accel
+    if scene.geom.n_tris != BIG_TRIS or acc is None:
+        fail(f"big_scene has {scene.geom.n_tris} triangles, accel {acc}")
+    print(f"big: {res}x{res} big_scene built in {dt:.3f} s (host build, "
+          f"accel and IBL CDFs): {scene.geom.n_tris} triangles, "
+          f"{acc.g_aabb.shape[0]} groups of {acc.group} clusters of <= "
+          f"{acc.leaf}, intersector {scene.intersector}")
+    return scene, dt
+
+
+def _capture_chunk(scene):
+    """Run one 1-spp chunk of the big scene with the grouped kernels'
+    wrappers recorded at the scene's dispatch point: every closest-hit call
+    and every NEE bundle (before and after re-bucketing).  Returns the
+    calls in order."""
+    from core_tpu_torch import film as film_mod
+    from core_tpu_torch import scene as sm
+    from core_tpu_torch.geometry import cuda_cluster as cc
+    from core_tpu_torch.render import render_chunk, scene_material_types
+    route = sm._ROUTES["grouped", "cuda"]
+    orig = dict(route)
+    calls = []
+
+    def closest(acc, rays, exclude_prim=None, exclude_prim2=None):
+        calls.append(("closest", rays, exclude_prim, exclude_prim2))
+        return orig["closest"](acc, rays, exclude_prim=exclude_prim,
+                               exclude_prim2=exclude_prim2)
+
+    def any_hit(acc, rays, ex0=None, ex1=None):
+        calls.append(("any", rays, ex0, ex1))
+        return cc.any_hit_grouped_cuda(acc, rays, ex0, ex1)
+
+    rebucketed = sm._nee_rebucketed(any_hit)
+
+    def nee(acc, o3, tmin, dirs, tcaps, exclude_prim=None,
+            exclude_prim2=None):
+        calls.append(("nee", o3, tmin, dirs, tcaps, exclude_prim,
+                      exclude_prim2))
+        return rebucketed(acc, o3, tmin, dirs, tcaps, exclude_prim,
+                          exclude_prim2)
+
+    route.update(closest=closest, nee=nee)
+    try:
+        import torch
+        with torch.no_grad():
+            render_chunk(scene, scene_material_types(scene), _big_opts(),
+                         film_mod.make_film(BIG_RES, BIG_RES, device="cuda"),
+                         0, 1, 0)
+        sync()
+    finally:
+        route.update(orig)
+    return calls
+
+
+def _subset(rays, ex0, ex1, idx):
+    from core_tpu_torch import vec
+    sub = vec.RaysS(o=vec.V3(*[c[idx] for c in rays.o]),
+                    d=vec.V3(*[c[idx] for c in rays.d]),
+                    tmin=rays.tmin[idx], tmax=rays.tmax[idx])
+    return sub, (None if ex0 is None else ex0[idx]), \
+        (None if ex1 is None else ex1[idx])
+
+
+def _accel_bytes(acc):
+    return sum(t.numel() * t.element_size() for t in acc)
+
+
+def _check_big_kernel(acc, what, kind, rays, ex0, ex1, gen):
+    """One captured kernel input: the kernel on all lanes (timed), the
+    plain version on a fixed random subset (timed, counting the triangle
+    tests), every subset lane compared.  Returns the kernel's row."""
+    import torch
+    from core_tpu_torch.geometry import cluster_intersect as ci
+    from core_tpu_torch.geometry import cuda_cluster as cc
+    n = rays.tmin.shape[0]
+    kern = (cc.closest_hit_grouped_cuda if kind == "closest"
+            else cc.any_hit_grouped_cuda)
+    plain = (ci.closest_hit_grouped_torch if kind == "closest"
+             else ci.any_hit_grouped_torch)
+    ms, out = cuda_time_ms(lambda: kern(acc, rays, ex0, ex1), 3, warmup=1)
+    idx = torch.randperm(n, generator=gen, device="cuda")[:SUBSET] \
+        .sort().values
+    sub, s0, s1 = _subset(rays, ex0, ex1, idx)
+    plain_ms, (want, tests) = cuda_time_ms(
+        lambda: plain(acc, sub, s0, s1, count_tests=True), 1, warmup=0)
+    sync()
+    m = idx.numel()
+    if kind == "closest":
+        got = type(out)(*[a[idx] for a in out])
+        err = check_closest(got, want, f"{what}, {m} of {n} lanes")
+        ops_per_test, out_bytes = OPS_CLOSEST, 16
+        frac = float(got.valid.float().mean())
+    else:
+        got = out[idx]
+        if not torch.equal(got, want):
+            fail(f"grouped any hit ({what}): occlusion differs on "
+                 f"{int((got != want).sum())} of {m} lanes")
+        err = float((got.float() - want.float()).abs().max())
+        ops_per_test, out_bytes = OPS_ANY, 1
+        frac = float(out.float().mean())
+    tests_est = float(tests.sum()) * n / m
+    b = bound(tests_est * ops_per_test,
+              n * (8 * 4 + 2 * 4) + _accel_bytes(acc) + n * out_bytes)
+    print(f"big: {what}: {n} lanes, kernel {ms:.4f} ms "
+          f"({n / ms / 1e3:.3f} Mrays/s), plain {plain_ms:.4f} ms on "
+          f"{m} lanes; {'hit' if kind == 'closest' else 'occluded'} "
+          f"{frac:.4f}; triangle tests {tests_est / n:.1f} per lane "
+          f"(plain count on the subset), bound {b[0]:.4f} ms ({b[1]})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
+            "lanes": n, "plain_lanes": m}
+
+
+def phase_big_kernels(scene):
+    """Kernels 7 and 8 at the big path's own shapes (see the header)."""
+    import torch
+    from core_tpu_torch.geometry import cluster_intersect as ci
+    acc = scene.accel
+    calls = _capture_chunk(scene)
+    closest = [c for c in calls if c[0] == "closest"]
+    anys = [c for c in calls if c[0] == "any"]
+    nees = [c for c in calls if c[0] == "nee"]
+    n_pix = BIG_RES * BIG_RES
+    ibl = next(c for c in anys if c[1].tmin.numel() == 2 * BIG_IBL * n_pix)
+    sun = next(c for c in anys if c[1].tmin.numel() == 2 * BIG_SUN * n_pix)
+    print(f"big: one chunk made {len(closest)} closest-hit calls and "
+          f"{len(nees)} NEE bundles")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = {
+        "grouped_closest_hit": _check_big_kernel(
+            acc, "camera closest hit", "closest", *closest[0][1:], gen),
+        "grouped_any_hit": _check_big_kernel(
+            acc, f"IBL bundle (K={2 * BIG_IBL}, re-bucketed)", "any",
+            *ibl[1:], gen)}
+    chain = _check_big_kernel(acc, "glossy-chain closest hit", "closest",
+                              *closest[1][1:], gen)
+    sun_row = _check_big_kernel(acc, f"sun bundle (K={2 * BIG_SUN}, "
+                                "re-bucketed)", "any", *sun[1:], gen)
+    for k, extra in (("grouped_closest_hit", chain),
+                     ("grouped_any_hit", sun_row)):
+        rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"],
+                                     extra["max_abs_err"])
+    # the re-bucketing alone (key, sort, gathers, scatter) on the IBL bundle
+    _, o3, tmin, dirs, tcaps, e0, e1 = next(
+        c for c in nees if len(c[3]) == 2 * BIG_IBL)
+
+    def no_sweep(acc_, rays, *a):
+        return torch.zeros(rays.tmin.shape[0], dtype=torch.bool,
+                           device="cuda")
+
+    sort_ms, _ = cuda_time_ms(lambda: ci.any_hit_nee_clusters_s(
+        acc, o3, tmin, dirs, tcaps, e0, e1, no_sweep), 3, warmup=1)
+    print(f"big: re-bucketing of the IBL bundle ({tmin.numel()} lanes x "
+          f"K={len(dirs)}): {sort_ms:.4f} ms")
+    return rows
+
+
+def phase_big_render(scene):
+    import torch
+    from core_tpu_torch import film as film_mod
+    from core_tpu_torch.geometry import cuda_cluster as cc
+    from core_tpu_torch.render import render_chunk, scene_material_types
+    opts = _big_opts()
+    types = scene_material_types(scene)
+
+    def chunk(film):
+        with torch.no_grad():
+            return render_chunk(scene, types, opts, film, 0, 1, 0)
+
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    film, rays = counted_rays(lambda: chunk(
+        film_mod.make_film(BIG_RES, BIG_RES, device="cuda")))
+    sync()
+    t_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(BIG_TIMED):
+        film = chunk(film)
+    sync()
+    dt = time.perf_counter() - t0
+    counts = {"grouped_closest_hit": cc.closest_hit_grouped_cuda.launches,
+              "grouped_any_hit": cc.any_hit_grouped_cuda.launches}
+    if min(counts.values()) <= 0:
+        fail(f"a kernel of the big path never launched: {counts}")
+    if plain_calls():
+        fail(f"the plain versions ran {plain_calls()} times in the render")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    img = film_mod.flush(film)
+    if not bool(torch.isfinite(img).all()):
+        fail("big-scene image has non-finite values")
+    mean = float(img[..., :3].mean())
+    sky = float(img[:4, :, 2].mean())
+    if mean <= 0.05 or sky <= 0.05:
+        fail(f"big-scene image mean {mean} or sky rows' blue {sky} <= 0.05")
+    write_png(BUILD / "chip_smoke_big.png", img.cpu().numpy())
+    per = dt / BIG_TIMED
+    print(f"big: render {BIG_RES}x{BIG_RES} directlight raydepth=1, "
+          f"ibl_samples={BIG_IBL}, sun_samples={BIG_SUN}: rays per chunk "
+          f"{rays}, warm-up chunk {t_warm:.4f} s, {BIG_TIMED} timed chunks "
+          f"{dt:.4f} s: {per:.4f} s/chunk, {rays / per / 1e6:.3f} Mrays/s "
+          f"forward; peak device memory {peak:.3f} GiB")
+    print(f"big: launches {counts} over {BIG_TIMED + 1} chunks, plain calls "
+          f"0, image mean {mean:.6f}, sky rows blue {sky:.6f}, png "
+          f"build/chip_smoke_big.png")
+    return counts
+
+
+def phase_big_slice():
+    import dataclasses
+    import torch
+    from core_tpu_torch.render import render_image
+    scene, _ = phase_big_build(64)
+    imgs = {}
+    for isec in ("cuda", "torch"):
+        imgs[isec], _ = render_image(
+            dataclasses.replace(scene, intersector=isec), _big_opts())
+    sync()
+    a, b = imgs["cuda"], imgs["torch"]
+    if not torch.equal(a, b):
+        fail(f"64^2 big-scene kernel and plain renders differ: max abs "
+             f"{float((a - b).abs().max())}")
+    print(f"big slice: 64x64 render of the 1M-triangle scene through the "
+          f"kernels == through the plain versions (bit-identical), mean "
+          f"{float(a[..., :3].mean()):.6f}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -480,22 +796,38 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_build()
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        sync()
+        print(f"phase {name}: {time.perf_counter() - t0:.3f} s")
+        return out
+
+    timed("build", phase_build)
     scene = cornell_box(resx=RES, resy=RES, light_samples=LIGHT_SAMPLES,
                         device="cuda")
-    kt = phase_kernels(scene)
-    sync()
-    counts = phase_render()
-    sync()
-    phase_slice()
-    sync()
+    kt = timed("kernels", phase_kernels, scene)
+    counts = timed("render", phase_render)
+    timed("slice", phase_slice)
+    big, _ = timed("big build", phase_big_build, BIG_RES)
+    kt.update(timed("big kernels", phase_big_kernels, big))
+    counts.update(timed("big render", phase_big_render, big))
+    del big
+    torch.cuda.empty_cache()
+    timed("big slice", phase_big_slice)
 
-    src = "core_tpu_torch/csrc/intersect.cu"
-    replaces = {"closest_hit": "core_tpu/geometry/pallas_intersect.py:55",
-                "any_hit_nee": "core_tpu/geometry/pallas_intersect.py:174"}
+    replaces = {
+        "closest_hit": ("core_tpu/geometry/pallas_intersect.py:55",
+                        "core_tpu_torch/csrc/intersect.cu"),
+        "any_hit_nee": ("core_tpu/geometry/pallas_intersect.py:174",
+                        "core_tpu_torch/csrc/intersect.cu"),
+        "grouped_closest_hit": ("core_tpu/geometry/cluster_intersect.py:912",
+                                "core_tpu_torch/csrc/cluster.cu"),
+        "grouped_any_hit": ("core_tpu/geometry/cluster_intersect.py:1129",
+                            "core_tpu_torch/csrc/cluster.cu")}
     table = [{"name": name, "route": "cuda", "source": src,
-              "replaces": replaces[name], "launches": counts[name],
-              **kt[name]} for name in ("closest_hit", "any_hit_nee")]
+              "replaces": rep, "launches": counts[name], **kt[name]}
+             for name, (rep, src) in replaces.items()]
     print(json.dumps({"kernels": table}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-The sources under csrc/ are compiled with nvcc into a shared library with a
-plain C interface and loaded with ctypes (no PyTorch headers, so a build
-takes seconds).  The build runs at first use, from the sources in the
-checkout only, into build/core_tpu_torch/ beside the package.  The library's
-name carries a hash of the sources and flags, so an edit rebuilds.  A failed
-build raises with nvcc's output.
+The sources under csrc/ are compiled with nvcc into one shared library with
+a plain C interface and loaded with ctypes (no PyTorch headers, so a build
+takes seconds).  Each .cu file is compiled by its own nvcc process, all
+started together, and the objects are then linked.  The build runs at first
+use, from the sources in the checkout only, into build/core_tpu_torch/
+beside the package.  The library's name carries a hash of the sources and
+flags, so an edit rebuilds.  A failed build raises with nvcc's output.
 """
 from __future__ import annotations
 
@@ -25,14 +26,16 @@ BUILD_DIR = _PKG.parent / "build" / "core_tpu_torch"
 # --fmad=false: no FMA contraction, so the kernels round every product like
 # their plain PyTorch versions (see the note in csrc/intersect.cu)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas=-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xptxas=-v", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "cti_closest_hit": ([_P, _I] + [_P] * 14 + [_I, _P], _I),
     "cti_any_hit_nee": ([_P, _I] + [_P] * 6 + [_I, _P, _P, _I, _P], _I),
+    "cti_grouped_closest_hit": ([_P] * 6 + [_I] * 3 + [_P] * 14 + [_I, _P],
+                                _I),
+    "cti_grouped_any_hit": ([_P] * 6 + [_I] * 3 + [_P] * 11 + [_I, _P], _I),
     "cti_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -67,23 +70,30 @@ def build() -> tuple[Path, float]:
     if lib.exists():
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    # compile to a temporary name and rename, so concurrent builders never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    cu = [s for s in _sources() if s.suffix == ".cu"]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    # compile into a private directory and rename the library into place,
+    # so concurrent builders never load a half-written one
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, src.stem + ".o") for src in cu]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(cu, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        link = subprocess.run([nvcc, "-shared", "-o",
+                               os.path.join(tmp, "lib.so"), *objs],
+                              capture_output=True, text=True) \
+            if all(p.returncode == 0 for p in procs) else None
+        if link is None or link.returncode != 0:
+            codes = [p.returncode for p in procs]
+            raise RuntimeError(f"nvcc failed (exits {codes}):\n"
+                               + "\n".join(logs)
+                               + ("" if link is None else link.stderr))
+        lib.with_suffix(".log").write_text("".join(
+            f"== {src.name}\n{log}" for src, log in zip(cu, logs)))
+        os.replace(os.path.join(tmp, "lib.so"), lib)
     return lib, time.perf_counter() - t0
 
 

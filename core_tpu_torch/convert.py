@@ -2,30 +2,94 @@
 
 scene_to_numpy flattens a scene into (leaves, static): `leaves` maps dotted
 field paths ("geom.verts", "materials.diffuse_color", "lights.0.corner",
-"camera.vto", ...) to numpy arrays, and `static` holds the plain Python
-settings.  It reads fields by name only, so it accepts this package's Scene
-and any scene object with the same field names, such as core_tpu's (whose
-arrays np.asarray converts).  scene_from_numpy rebuilds this package's
-Scene on a device from the two.  Both packages then compute on identical
-inputs.  This module imports no jax.
+"accel.tris", ...) to numpy arrays, and `static` holds the plain Python
+settings (texture defs, light kinds and sample counts, camera sizes).  It
+reads fields by name only, so it accepts this package's Scene and any scene
+object with the same field names, such as core_tpu's (whose arrays
+np.asarray converts).  scene_from_numpy rebuilds this package's Scene on a
+device from the two, so both packages compute on identical inputs.
+
+The grouped cluster accel crosses as core_tpu's GroupedData with the
+triangle block [C, L, 10] (v0, e1, e2, id); core_tpu's field-major
+[C, 16, L] block is transposed on the way.  A scene without an accel gets
+one by environment.accel_for's triangle-count rule.  This module imports
+no jax.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from core_tpu_torch.backgrounds import TextureBackground
 from core_tpu_torch.cameras import Camera, check_supported
+from core_tpu_torch.geometry import cluster_intersect as ci
 from core_tpu_torch.geometry.mesh import GeomData
 from core_tpu_torch.lights.area import AreaLight
+from core_tpu_torch.lights.bg import BgLight
+from core_tpu_torch.lights.sun import SunLight
 from core_tpu_torch.materials.base import MaterialTable
-from core_tpu_torch.scene import Scene, resolve_intersector
+from core_tpu_torch.scene import Scene, check_device, resolve_intersector
+from core_tpu_torch.textures import base as tex_base
 
-_LIGHT_ARRAYS = ("corner", "to_x", "to_y", "color", "area", "fnormal")
+_LIGHTS = {  # type name -> (class, array fields, static fields)
+    "AreaLight": (AreaLight, ("corner", "to_x", "to_y", "color", "area",
+                              "fnormal"), ("samples", "obj_id")),
+    "SunLight": (SunLight, ("direction", "col_pdf", "cos_angle", "pdf",
+                            "du", "dv"), ("samples",)),
+    "BgLight": (BgLight, ("u_pdf", "u_cdf", "v_pdf", "v_cdf"),
+                ("samples", "abs_intersect")),
+}
 _CAMERA_ARRAYS = ("pos", "cam_x", "cam_y", "cam_z", "vto", "vup", "vright")
 _CAMERA_STATIC = ("cam_type", "resx", "resy", "aspect_ratio", "focal",
                   "aperture")
+_BG_ARRAYS = ("power", "rot_cos", "rot_sin")
 # scene features this package does not port yet: must be absent
-_ABSENT = ("background", "accel", "textures", "volumes", "node_programs")
+_ABSENT = ("volumes", "node_programs")
+
+
+def _np(a) -> np.ndarray:
+    """A leaf as numpy, from a torch tensor on any device or an array."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
+def _texture_static(ctex) -> list:
+    """The texture defs as plain dicts of the ported fields."""
+    out = []
+    for d in ctex.defs:
+        if getattr(d, "image", None) is not None:
+            raise NotImplementedError("image textures are not ported to "
+                                      "core_tpu_torch yet")
+        rec = {f: getattr(d, f) for f in tex_base.FIELDS}
+        rec["ttype"] = int(rec["ttype"])
+        out.append(rec)
+    return out
+
+
+def _textures(recs):
+    return tex_base.build_texture_set(
+        [tex_base.TextureDef(**{**r, "ttype": tex_base.TexType(r["ttype"])})
+         for r in recs])
+
+
+def _grouped_numpy(acc) -> ci.GroupedData:
+    """GroupedData (tris [C, L, 10]) of this package's GroupedAccel or of
+    core_tpu's ClusterData."""
+    if isinstance(acc, ci.GroupedAccel):
+        tris = torch.cat([acc.tris, acc.tri_id[..., None].float()], dim=-1)
+        return ci.GroupedData(*[_np(a) for a in (
+            acc.g_aabb, acc.c_aabb, acc.o_aabb, tris)])
+    gd = getattr(acc, "grouped", None)
+    if gd is None:
+        raise NotImplementedError(
+            f"a {type(acc).__name__} accel without grouped data (the flat "
+            "cluster sweep or a BVH) is not ported to core_tpu_torch yet")
+    return ci.GroupedData(
+        g_aabb=np.asarray(gd.g_aabb), c_aabb=np.asarray(gd.c_aabb),
+        o_aabb=np.asarray(gd.o_aabb),
+        tris=np.ascontiguousarray(np.swapaxes(np.asarray(gd.tris), 1, 2)
+                                  [:, :, :10]))
 
 
 def scene_to_numpy(scene) -> tuple[dict, dict]:
@@ -36,23 +100,44 @@ def scene_to_numpy(scene) -> tuple[dict, dict]:
                                       "core_tpu_torch yet")
     leaves = {}
     for f in GeomData._fields:
-        leaves[f"geom.{f}"] = np.asarray(getattr(scene.geom, f))
+        leaves[f"geom.{f}"] = _np(getattr(scene.geom, f))
     for f in MaterialTable._fields:
-        leaves[f"materials.{f}"] = np.asarray(getattr(scene.materials, f))
+        leaves[f"materials.{f}"] = _np(getattr(scene.materials, f))
     lights = []
     for i, light in enumerate(scene.lights):
-        if type(light).__name__ != "AreaLight":
-            raise NotImplementedError(f"light type {type(light).__name__} "
-                                      "is not ported to core_tpu_torch yet")
-        for f in _LIGHT_ARRAYS:
-            leaves[f"lights.{i}.{f}"] = np.asarray(getattr(light, f))
-        lights.append({"samples": int(light.samples),
-                       "obj_id": int(light.obj_id)})
+        kind = type(light).__name__
+        if kind not in _LIGHTS:
+            raise NotImplementedError(f"light type {kind} is not ported to "
+                                      "core_tpu_torch yet")
+        _, arrays, statics = _LIGHTS[kind]
+        for f in arrays:
+            leaves[f"lights.{i}.{f}"] = _np(getattr(light, f))
+        lights.append({"type": kind,
+                       **{f: getattr(light, f) for f in statics}})
     for f in _CAMERA_ARRAYS:
-        leaves[f"camera.{f}"] = np.asarray(getattr(scene.camera, f))
+        leaves[f"camera.{f}"] = _np(getattr(scene.camera, f))
+    bg = getattr(scene, "background", None)
+    bg_static = None
+    if bg is not None:
+        if type(bg).__name__ != "TextureBackground":
+            raise NotImplementedError(f"background {type(bg).__name__} is "
+                                      "not ported to core_tpu_torch yet")
+        for f in _BG_ARRAYS:
+            leaves[f"background.{f}"] = _np(getattr(bg, f))
+        bg_static = {"textures": _texture_static(bg.ctex),
+                     "tex_id": int(bg.tex_id), "projection": bg.projection,
+                     "ibl": bool(bg.ibl), "ibl_samples": int(bg.ibl_samples)}
+    acc = getattr(scene, "accel", None)
+    if acc is not None:
+        for f, a in zip(ci.GroupedData._fields, _grouped_numpy(acc)):
+            leaves[f"accel.{f}"] = a
+    tex = getattr(scene, "textures", None)
     static = {
         "lights": lights,
         "camera": {f: getattr(scene.camera, f) for f in _CAMERA_STATIC},
+        "background": bg_static,
+        "textures": None if tex is None else _texture_static(tex),
+        "accel": acc is not None,
         "has_specular": bool(scene.has_specular),
         "has_transparency": bool(scene.has_transparency),
         "mat_types": tuple(int(t) for t in scene.mat_types),
@@ -60,19 +145,29 @@ def scene_to_numpy(scene) -> tuple[dict, dict]:
     return leaves, static
 
 
-def scene_from_numpy(leaves: dict, static: dict, *, device="cpu",
+def scene_from_numpy(leaves: dict, static: dict, *, device="cuda",
                      intersector: str = "auto") -> Scene:
     """This package's Scene on `device` from scene_to_numpy's output."""
+    device = check_device(device)
+
     def t(key):
         return torch.tensor(np.asarray(leaves[key]), device=device)
 
     geom = GeomData(*[t(f"geom.{f}") for f in GeomData._fields])
     materials = MaterialTable(*[t(f"materials.{f}")
                                 for f in MaterialTable._fields])
-    lights = tuple(
-        AreaLight(**{f: t(f"lights.{i}.{f}") for f in _LIGHT_ARRAYS},
-                  samples=int(ls["samples"]), obj_id=int(ls["obj_id"]))
-        for i, ls in enumerate(static["lights"]))
+    bs = static["background"]
+    background = None if bs is None else TextureBackground(
+        ctex=_textures(bs["textures"]), tex_id=bs["tex_id"],
+        **{f: t(f"background.{f}") for f in _BG_ARRAYS},
+        projection=bs["projection"], ibl=bs["ibl"],
+        ibl_samples=bs["ibl_samples"])
+    lights = []
+    for i, ls in enumerate(static["lights"]):
+        cls, arrays, statics = _LIGHTS[ls["type"]]
+        extra = {"background": background} if cls is BgLight else {}
+        lights.append(cls(**{f: t(f"lights.{i}.{f}") for f in arrays},
+                          **{f: ls[f] for f in statics}, **extra))
     cs = static["camera"]
     camera = Camera(**{f: t(f"camera.{f}") for f in _CAMERA_ARRAYS},
                     cam_type=int(cs["cam_type"]), resx=int(cs["resx"]),
@@ -80,11 +175,21 @@ def scene_from_numpy(leaves: dict, static: dict, *, device="cpu",
                     aspect_ratio=float(cs["aspect_ratio"]),
                     focal=float(cs["focal"]), aperture=float(cs["aperture"]))
     check_supported(camera)
+    if static["accel"]:
+        accel = ci.to_device(ci.GroupedData(
+            *[np.asarray(leaves[f"accel.{f}"])
+              for f in ci.GroupedData._fields]), device)
+    else:
+        from core_tpu_torch.environment import accel_for
+        accel = accel_for(leaves["geom.verts"], leaves["geom.tri_vidx"],
+                          leaves["camera.pos"], device)
     # an empty mat_types means "derive from the table" (core_tpu/scene.py)
     mat_types = tuple(static["mat_types"]) or tuple(
         sorted(set(materials.mtype.tolist())))
-    return Scene(geom=geom, materials=materials, lights=lights,
-                 camera=camera,
+    return Scene(geom=geom, materials=materials, lights=tuple(lights),
+                 camera=camera, background=background, accel=accel,
+                 textures=None if static["textures"] is None
+                 else _textures(static["textures"]),
                  has_specular=bool(static["has_specular"]),
                  has_transparency=bool(static["has_transparency"]),
                  mat_types=mat_types,

@@ -9,8 +9,9 @@ and ONE shadow-kernel launch for all its samples: the light-side and
 BSDF-side shadow rays of a lane share its origin and go to the NEE bundle
 kernel together.
 
-Scope: area lights with opaque shadow rays (the scenes the port renders
-have no transparency); dirac lights raise NotImplementedError.
+Scope: the area, sun and background (IBL) lights with opaque shadow rays
+(the scenes the port renders have no transparency); dirac lights raise
+NotImplementedError.
 """
 from __future__ import annotations
 

@@ -3,8 +3,8 @@
 
 Reference contract: light_t (include/core_api/light.h:52-113).  Lights are
 few, so the integrator unrolls a Python loop over the scene's light list.
-Only the area light is ported so far; any other light type raises
-NotImplementedError by name.
+Ported: the area, sun and background (IBL) lights; any other light type
+raises NotImplementedError by name.
 """
 from __future__ import annotations
 
@@ -33,9 +33,11 @@ class LightHitS(NamedTuple):
 
 def _mod(light):
     """The module implementing a light's functions."""
-    from core_tpu_torch.lights import area
-    if isinstance(light, area.AreaLight):
-        return area
+    from core_tpu_torch.lights import area, bg, sun
+    for mod, cls in ((area, area.AreaLight), (sun, sun.SunLight),
+                     (bg, bg.BgLight)):
+        if isinstance(light, cls):
+            return mod
     raise NotImplementedError(
         f"light type {type(light).__name__} is not ported to core_tpu_torch "
         "yet")
@@ -59,3 +61,8 @@ def illum_sample_s(light, sps, s1, s2) -> LightSampleS:
 
 def intersect_light_s(light, rays_s) -> LightHitS:
     return _mod(light).intersect_light_s(light, rays_s)
+
+
+def illum_pdf_s(light, sps, p_light: V3):
+    """pdf of illum_sample_s choosing p_light from sps.p (sun and bg)."""
+    return _mod(light).illum_pdf_s(light, sps, p_light)

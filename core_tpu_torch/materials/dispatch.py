@@ -3,18 +3,19 @@
 
 Each material family present in the scene is evaluated on the whole
 wavefront and its results are selected by type mask.  `types_present` is a
-static tuple of MatType values.  Only the shiny-diffuse family is ported so
-far; any other family raises NotImplementedError by name.
+static tuple of MatType values.  The shiny-diffuse and glossy families are
+ported; any other family raises NotImplementedError by name.
 """
 from __future__ import annotations
 
 import torch
 
-from core_tpu_torch.materials import shinydiffuse
+from core_tpu_torch.materials import glossy, shinydiffuse
 from core_tpu_torch.materials.base import BSDF, MatType
 from core_tpu_torch.vec import V3, where3, zeros3
 
-_FAMILIES = {int(MatType.SHINY_DIFFUSE): shinydiffuse}
+_FAMILIES = {int(MatType.SHINY_DIFFUSE): shinydiffuse,
+             int(MatType.GLOSSY): glossy}
 
 
 def _modules(types_present):

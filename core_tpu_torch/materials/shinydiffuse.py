@@ -121,6 +121,16 @@ class SampleResultS(NamedTuple):
     w: torch.Tensor        # [N] reference's W throughput factor
 
 
+class SpecularResultS(NamedTuple):
+    """Perfect specular reflect/refract branches (getSpecular)."""
+    refl_valid: torch.Tensor
+    refl_dir: V3
+    refl_col: V3
+    refr_valid: torch.Tensor
+    refr_dir: V3
+    refr_col: V3
+
+
 def _component_widths(p: MatParamsS, accum, req_flags: int, exact: bool):
     """CDF widths of the 4 layers under requested flags.
     exact=True uses sample()'s full-subset match, else pdf()'s any-overlap."""

@@ -1,10 +1,12 @@
-"""Profile one 1-spp chunk of the Cornell bench configuration on the GPU.
+"""Profile one 1-spp chunk of a configuration chip_smoke.py drives, on the GPU.
 
-    python3 -m core_tpu_torch.profile_chunk
+    python3 -m core_tpu_torch.profile_chunk            # the Cornell bench
+    python3 -m core_tpu_torch.profile_chunk big        # the 1M-tri scene
 
-Run from the root of a checkout on a machine with a CUDA card.  It renders
-the configuration chip_smoke.py drives (cornell_box(light_samples=4),
-PathOptions(path_samples=8, bounces=5, raydepth=2)) at RES^2, times RUNS
+Run from the root of a checkout on a machine with a CUDA card.  "cornell"
+renders cornell_box(light_samples=4) with PathOptions(path_samples=8,
+bounces=5, raydepth=2) at 256^2; "big" renders big_scene(ibl_samples=4,
+sun_samples=2) with DirectOptions(raydepth=1) at 1024^2.  It times RUNS
 unprofiled chunks on the host clock (each ending in a synchronise), then
 profiles one chunk under torch.profiler and prints: the unprofiled median
 wall, the profiled wall, device kernel time and launch count per chunk, the
@@ -15,35 +17,52 @@ from __future__ import annotations
 
 import statistics
 import subprocess
+import sys
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from core_tpu_torch import film as film_mod
+from core_tpu_torch.integrators.direct import DirectOptions
 from core_tpu_torch.integrators.path import PathOptions
 from core_tpu_torch.render import (RenderOptions, render_chunk,
                                    scene_material_types)
-from core_tpu_torch.scenes import cornell_box
+from core_tpu_torch.scenes import big_scene, cornell_box
 
-RES = 256
 RUNS = 5
 TOP = 18
 
 
-def main():
+def _config(name):
+    """(scene, options) of a named configuration."""
+    if name == "cornell":
+        return (cornell_box(resx=256, resy=256, light_samples=4,
+                            device="cuda"),
+                RenderOptions(aa_samples=4, spp_chunk=1,
+                              integrator_opts=PathOptions(
+                                  path_samples=8, bounces=5, raydepth=2)))
+    if name == "big":
+        return (big_scene(resx=1024, resy=1024, ibl_samples=4,
+                          sun_samples=2, device="cuda"),
+                RenderOptions(aa_samples=1, spp_chunk=1,
+                              integrator="directlight",
+                              integrator_opts=DirectOptions(raydepth=1)))
+    raise SystemExit(f"profile_chunk: unknown configuration {name!r} "
+                     "(cornell or big)")
+
+
+def main(name="cornell"):
     if not torch.cuda.is_available():
         raise SystemExit("profile_chunk: needs a CUDA card")
 
-    scene = cornell_box(resx=RES, resy=RES, light_samples=4, device="cuda")
-    opts = RenderOptions(aa_samples=4, spp_chunk=1,
-                         integrator_opts=PathOptions(path_samples=8,
-                                                     bounces=5, raydepth=2))
+    scene, opts = _config(name)
     types = scene_material_types(scene)
+    res_y, res_x = scene.camera.resy, scene.camera.resx
 
     def chunk():
         with torch.no_grad():
-            film = film_mod.make_film(RES, RES, device="cuda")
+            film = film_mod.make_film(res_y, res_x, device="cuda")
             return render_chunk(scene, types, opts, film, 0, 1, 0)
 
     for _ in range(2):
@@ -56,8 +75,9 @@ def main():
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     med = statistics.median(walls)
-    print(f"chunk {RES}x{RES}: unprofiled wall ms median {med:.3f} over "
-          f"{RUNS} runs, all {sorted(round(w, 3) for w in walls)}")
+    print(f"{name} chunk {res_x}x{res_y}: unprofiled wall ms median "
+          f"{med:.3f} over {RUNS} runs, all "
+          f"{sorted(round(w, 3) for w in walls)}")
 
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
@@ -96,4 +116,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(*sys.argv[1:2])

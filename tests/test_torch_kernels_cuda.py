@@ -102,3 +102,87 @@ def test_render_through_kernels_equals_plain(device):
                             intersector=isec, device=device)
         imgs.append(render_image(scene, opts)[0])
     assert torch.equal(imgs[0], imgs[1])
+
+
+# ---- the grouped cluster kernels (7 and 8) ----
+
+def _grouped_scene(device, intersector="cuda"):
+    """The small mesh scene with the grouped accel forced (group=8, 32-tri
+    clusters: 8 groups of 8), as tests/test_torch_cluster.py builds it."""
+    import dataclasses
+    from core_tpu_torch.geometry import cluster_intersect as ci
+    from core_tpu_torch.scenes import mesh_scene
+    sc = mesh_scene(resx=32, resy=32, n_grid=24, torus_u=24, torus_v=12,
+                    ibl_samples=2, sun_samples=1, device=device)
+    cl = ci.build_clusters(sc.geom.verts.cpu().numpy(),
+                           sc.geom.tri_vidx.cpu().numpy(), max_leaf=32)
+    acc = ci.to_device(ci.group_clusters(
+        cl, group=8, sort_origin=sc.camera.pos.cpu().numpy()), device)
+    return dataclasses.replace(sc, accel=acc, intersector=intersector)
+
+
+def _mesh_rays(device, n, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    lo = torch.tensor([-3.0, 0.2, -3.0], device=device)
+    o = lo + torch.rand((n, 3), generator=g, device=device) * torch.tensor(
+        [6.0, 2.8, 6.0], device=device)
+    d = _unit(torch.randn((n, 3), generator=g, device=device))
+    tmax = torch.where(torch.rand(n, generator=g, device=device) < 0.5,
+                       torch.rand(n, generator=g, device=device) * 6.0,
+                       torch.full((n,), -1.0, device=device))
+    ex = torch.randint(-2, 1634, (n,), generator=g, device=device,
+                       dtype=torch.int32)
+    return vec.RaysS(o=vec.v3(o), d=vec.v3(d),
+                     tmin=torch.full((n,), 5e-4, device=device),
+                     tmax=tmax), ex, g
+
+
+@pytest.mark.parametrize("n", [1, 5000])
+def test_grouped_closest_hit_kernel_matches_plain(device, n):
+    from core_tpu_torch.geometry import cluster_intersect as ci
+    from core_tpu_torch.geometry import cuda_cluster as cc
+    acc = _grouped_scene(device).accel
+    rays, ex, _ = _mesh_rays(device, n, seed=n)
+    launches = cc.closest_hit_grouped_cuda.launches
+    got = cc.closest_hit_grouped_cuda(acc, rays, ex, ex.flip(0))
+    want = ci.closest_hit_grouped_torch(acc, rays, ex, ex.flip(0))
+    torch.cuda.synchronize()
+    assert cc.closest_hit_grouped_cuda.launches == launches + 1
+    assert torch.equal(got.prim, want.prim)
+    for f in ("t", "u", "v"):
+        torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_grouped_any_hit_and_nee_kernels_match_plain(device):
+    from core_tpu_torch.geometry import cluster_intersect as ci
+    from core_tpu_torch.geometry import cuda_cluster as cc
+    acc = _grouped_scene(device).accel
+    n = 5000
+    rays, ex, g = _mesh_rays(device, n, seed=3)
+    rays = rays._replace(tmax=torch.where(rays.tmax < 0.5, 2.5e-4,
+                                          rays.tmax))       # some dead
+    got = cc.any_hit_grouped_cuda(acc, rays, ex)
+    assert torch.equal(got, ci.any_hit_grouped_torch(acc, rays, ex))
+    K = 4
+    dirs = [vec.v3(_unit(torch.randn((n, 3), generator=g, device=device)))
+            for _ in range(K)]
+    caps = [torch.full((n,), c, device=device)
+            for c in (-1.0, 3.0, 0.5, 2.5e-4)]
+    kern = ci.any_hit_nee_clusters_s(acc, rays.o, rays.tmin, dirs, caps, ex,
+                                     None, cc.any_hit_grouped_cuda)
+    plain = ci.any_hit_nee_clusters_s(acc, rays.o, rays.tmin, dirs, caps, ex,
+                                      None, ci.any_hit_grouped_torch)
+    torch.cuda.synchronize()
+    assert torch.equal(kern, plain)
+    assert not bool(kern[3 * n:].any()) and 0.05 < float(
+        kern[:n].float().mean()) < 0.95
+
+
+def test_grouped_render_through_kernels_equals_plain(device):
+    from core_tpu_torch.integrators.direct import DirectOptions
+    opts = RenderOptions(aa_samples=1, integrator="directlight",
+                         integrator_opts=DirectOptions(raydepth=1))
+    imgs = [render_image(_grouped_scene(device, isec), opts)[0]
+            for isec in ("cuda", "torch")]
+    assert torch.equal(imgs[0], imgs[1])

@@ -34,7 +34,8 @@ PATH = dict(path_samples=2, bounces=2, raydepth=2)
 @pytest.fixture(scope="module")
 def scenes():
     js = cornell_box(resx=RES, resy=RES, light_samples=2, intersector="brute")
-    return js, convert.scene_from_numpy(*convert.scene_to_numpy(js))
+    return js, convert.scene_from_numpy(*convert.scene_to_numpy(js),
+                                        device="cpu")
 
 
 # (aa_samples, spp in the chunk): one centred sample per pixel, and a

@@ -32,7 +32,7 @@ RES = 16
 def scenes():
     js = j_cornell_box(resx=RES, resy=RES, light_samples=3,
                        intersector="brute")
-    ts = t_cornell_box(resx=RES, resy=RES, light_samples=3)
+    ts = t_cornell_box(resx=RES, resy=RES, light_samples=3, device="cpu")
     return js, ts
 
 
@@ -51,13 +51,13 @@ def test_cornell_box_equals_core_tpu_leaf_by_leaf(scenes):
 def test_convert_round_trip(scenes):
     js, ts = scenes
     leaves, static = convert.scene_to_numpy(js)
-    back = convert.scene_from_numpy(leaves, static)
+    back = convert.scene_from_numpy(leaves, static, device="cpu")
     bl, bst = convert.scene_to_numpy(back)
     for k in leaves:
         np.testing.assert_array_equal(leaves[k], bl[k], err_msg=k)
     assert bst == static
     assert back.intersector == "torch"
-    assert convert.scene_from_numpy(leaves, static,
+    assert convert.scene_from_numpy(leaves, static, device="cpu",
                                     intersector="cuda").intersector == "cuda"
 
 
@@ -177,6 +177,24 @@ def test_port_imports_without_jax():
     assert int(out.stdout.split()[-1]) > 20
 
 
+def test_entry_points_default_to_the_card():
+    """cornell_box, mesh_scene and scene_from_numpy build on the card unless
+    told otherwise; without a card that raises instead of falling back."""
+    from core_tpu_torch.scenes import mesh_scene
+    builders = [lambda: t_cornell_box(resx=4, resy=4, light_samples=1),
+                lambda: mesh_scene(resx=4, resy=4, n_grid=4, torus_u=4,
+                                   torus_v=3, ibl_samples=1, sun_samples=1),
+                lambda: convert.scene_from_numpy(*convert.scene_to_numpy(
+                    t_cornell_box(resx=4, resy=4, light_samples=1,
+                                  device="cpu")))]
+    for build in builders:
+        if torch.cuda.is_available():
+            assert build().device.type == "cuda"
+        else:
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                build()
+
+
 def test_resolve_intersector():
     assert tscene.resolve_intersector("auto", "cpu") == "torch"
     assert tscene.resolve_intersector("auto", torch.device("cuda", 0)) \
@@ -200,10 +218,11 @@ def test_unported_features_raise_by_name(scenes):
     # a mirror block converts (it is a shiny-diffuse row) but its
     # specular chain is not ported
     with pytest.raises(NotImplementedError, match="chains"):
-        render_image(convert.scene_from_numpy(*convert.scene_to_numpy(mirror)),
+        render_image(convert.scene_from_numpy(*convert.scene_to_numpy(mirror),
+                                              device="cpu"),
                      RenderOptions())
     with pytest.raises(NotImplementedError, match="folding"):
         render_image(ts, RenderOptions(
             integrator_opts=PathOptions(fold_interval=2)))
-    with pytest.raises(NotImplementedError, match="directlight"):
-        render_image(ts, RenderOptions(integrator="directlight"))
+    with pytest.raises(NotImplementedError, match="photonmapping"):
+        render_image(ts, RenderOptions(integrator="photonmapping"))
