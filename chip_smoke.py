@@ -34,6 +34,26 @@ Phases, with their seconds:
                rays counted, launch counters and image checks
   6. big slice — a 64^2 render of the same 1M-triangle scene through the
                kernels and through the plain versions must be identical
+  7. mesh    — the 73.6k-triangle flat-cluster path (mesh256_dl_fwd):
+               mesh_scene() at its defaults (256^2, ibl_samples=8,
+               sun_samples=4; 512 clusters) built by the port alone; the
+               inputs of kernels 4 and 6 (flat closest hit, flat NEE bundle)
+               captured from one chunk: camera and glossy-chain closest
+               hits, one IBL (K=16) and one sun (K=8) bundle; each kernel run
+               on the whole input and timed, every lane held against the
+               plain version (which counts the triangle tests behind the
+               bound); then one warm-up and three timed 1-spp chunks with
+               rays counted, launch counters and image checks
+  8. dirac   — the dirac variant of mesh_scene (the background without IBL;
+               a point, a spot and a directional light instead of the sun)
+               at 73,602 triangles (flat: kernels 4 and 5) and at 1,634
+               (brute: kernels 1 and 3), 256^2: each light's shadow
+               wavefront captured from one chunk, kernels 5 and 3 held
+               against their plain versions on every lane and timed; one
+               timed chunk each with launch counters and image checks
+  9. mesh slice — 64^2 renders of mesh_scene and of both dirac sizes
+               through the kernels and through the plain versions must be
+               identical
 The line before the last is the card's name and power limit (nvidia-smi),
 the one before that the kernel table as JSON, and the last line is
 {"ok": true, "device": {...}}.  Any failure raises (non-zero exit).  Imports
@@ -138,11 +158,11 @@ def phase_build():
     for ln in log.read_text().splitlines() if log.exists() else []:
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            k = re.search(r"any_hit_nee_kernelILi(\d+)E", m.group(1))
-            name = re.search(r"(grouped_closest_hit|grouped_any_hit|"
-                             r"closest_hit)_kernel", m.group(1))
-            kernel = (f"any_hit_nee<K={k.group(1)}>" if k else
-                      name.group(1) if name else m.group(1))
+            k = re.search(r"\d+((?:cluster_|grouped_)?(?:closest_hit|"
+                          r"any_hit_nee|any_hit))_kernel(?:ILi(\d+)E)?",
+                          m.group(1))
+            kernel = (m.group(1) if not k else k.group(1) if not k.group(2)
+                      else f"{k.group(1)}<K={k.group(2)}>")
         elif "Used" in ln or "spill" in ln:
             print(f"build: ptxas {kernel}: {ln.split(':', 1)[-1].strip()}")
     return secs
@@ -453,11 +473,11 @@ def reset_counts():
 
 
 def plain_calls():
-    from core_tpu_torch.geometry import cluster_intersect as ci
+    from core_tpu_torch.geometry import cuda_cluster
     from core_tpu_torch.geometry import intersect as isect
-    return (isect.closest_hit_torch.calls + isect.any_hit_nee_torch.calls
-            + ci.closest_hit_grouped_torch.calls
-            + ci.any_hit_grouped_torch.calls)
+    return sum(f.calls for f in (isect.closest_hit_torch, isect.any_hit_torch,
+                                 isect.any_hit_nee_torch)
+               + cuda_cluster.PLAIN)
 
 
 def phase_render():
@@ -781,6 +801,268 @@ def phase_big_slice():
           f"{float(a[..., :3].mean()):.6f}")
 
 
+# --------------------------------------------------------------------------
+# phases 7-9: the 73.6k-triangle flat-cluster path and the dirac lights
+# --------------------------------------------------------------------------
+
+MESH_RES = 256
+MESH_TIMED = 3
+MESH_TRIS = 73_602
+DIRAC_SMALL = dict(n_grid=24, torus_u=24, torus_v=12)   # 1,634 tris: brute
+# image-mean references: the port's CPU renders of the same scenes at 64^2
+# (aa_samples=1, directlight raydepth=1); the band allows for the
+# resolution change
+MEAN_REFS = {"mesh": 0.563554, "dirac flat": 0.577937, "dirac brute": 0.589587}
+MESH_BAND = 0.10
+
+
+def phase_mesh_build(res, variant="mesh"):
+    """mesh_scene() at its defaults, or its dirac variant ("dirac flat",
+    or "dirac brute" at 1,634 triangles), built by the port alone."""
+    from core_tpu_torch import scene as sm
+    from core_tpu_torch.scenes import add_dirac_lights, mesh_builder, \
+        mesh_scene
+    t0 = time.perf_counter()
+    if variant == "mesh":
+        scene = mesh_scene(resx=res, resy=res, device="cuda")
+    else:
+        b = mesh_builder(res, res, device="cuda",
+                         **(DIRAC_SMALL if variant == "dirac brute" else {}))
+        scene = add_dirac_lights(b).compile_scene()
+    sync()
+    dt = time.perf_counter() - t0
+    kind = sm.accel_kind(scene.accel)
+    want = ("brute", 1634) if variant == "dirac brute" else ("flat",
+                                                             MESH_TRIS)
+    if (kind, scene.geom.n_tris) != want:
+        fail(f"{variant}: {scene.geom.n_tris} triangles on the {kind} path, "
+             f"expected {want}")
+    clusters = "" if scene.accel is None else \
+        f", {scene.accel.aabb.shape[0]} clusters of <= {scene.accel.leaf}"
+    print(f"{variant}: {res}x{res} scene built in {dt:.3f} s (host build, "
+          f"accel and IBL CDFs): {scene.geom.n_tris} triangles{clusters}, "
+          f"lights {[type(x).__name__ for x in scene.lights]}")
+    return scene, dt
+
+
+def _capture_calls(scene, res):
+    """Run one 1-spp chunk of a flat or brute scene with its route's kernel
+    wrappers recorded at the scene's dispatch point.  Returns every call
+    as (query, args, kwargs), in order."""
+    import torch
+    from core_tpu_torch import film as film_mod
+    from core_tpu_torch import scene as sm
+    from core_tpu_torch.render import render_chunk, scene_material_types
+    route = sm._ROUTES[sm.accel_kind(scene.accel), scene.intersector]
+    orig = dict(route)
+    calls = []
+
+    def recorded(q):
+        def fn(*args, **kw):
+            calls.append((q, args, kw))
+            return orig[q](*args, **kw)
+        return fn
+
+    route.update({q: recorded(q) for q in orig})
+    try:
+        with torch.no_grad():
+            render_chunk(scene, scene_material_types(scene), _big_opts(),
+                         film_mod.make_film(res, res, device="cuda"), 0, 1, 0)
+        sync()
+    finally:
+        route.update(orig)
+    return calls
+
+
+def _check_captured(what, q, args, kw):
+    """One captured input of kernel 3, 4, 5 or 6: the kernel on every lane
+    (timed with CUDA events), the plain version on every lane (timed once,
+    counting the triangle tests), compared lane by lane.  Returns the
+    kernel's row."""
+    import torch
+    from core_tpu_torch.geometry import cluster_intersect as ci
+    from core_tpu_torch.geometry import cuda_cluster as cc
+    from core_tpu_torch.geometry import cuda_intersect as ck
+    from core_tpu_torch.geometry import intersect as isect
+    data = args[0]
+    ex0, ex1 = kw.get("exclude_prim"), kw.get("exclude_prim2")
+    ex_bytes = 4 * sum(e is not None for e in (ex0, ex1))
+    data_bytes = data.numel() * 4 if isinstance(data, torch.Tensor) \
+        else _accel_bytes(data)
+    if q == "nee":
+        _, o3, tmin, dirs, tcaps = args
+        n, K = tmin.shape[0], len(dirs)
+        ms, out = cuda_time_ms(lambda: cc.any_hit_nee_flat_cuda(
+            data, o3, tmin, dirs, tcaps, ex0, ex1), 5, warmup=1)
+        plain_ms, (want, lane_t, dir_t) = cuda_time_ms(
+            lambda: ci.any_hit_nee_flat_torch(data, o3, tmin, dirs, tcaps,
+                                              ex0, ex1, count_tests=True),
+            1, warmup=0)
+        ops = float(lane_t.sum()) * OPS_NEE_LANE \
+            + float(dir_t.sum()) * OPS_NEE_DIR
+        nbytes = n * (4 * 4 + ex_bytes + K * 16) + data_bytes + K * n
+        tests = f"{float(lane_t.sum()) / n:.1f} lane and " \
+            f"{float(dir_t.sum()) / n:.1f} direction"
+        lanes = f"{n} lanes x K={K}"
+    else:
+        rays = args[1]
+        n = rays.tmin.shape[0]
+        brute = isinstance(data, torch.Tensor)
+        kern, plain = {
+            "closest": (cc.closest_hit_flat_cuda, ci.closest_hit_flat_torch),
+            "any": ((ck.any_hit_cuda, isect.any_hit_torch) if brute else
+                    (cc.any_hit_flat_cuda, ci.any_hit_flat_torch))}[q]
+        ms, out = cuda_time_ms(lambda: kern(data, rays, ex0, ex1), 5,
+                               warmup=1)
+        plain_ms, (want, tests_n) = cuda_time_ms(
+            lambda: plain(data, rays, ex0, ex1, count_tests=True), 1,
+            warmup=0)
+        per_test = OPS_CLOSEST if q == "closest" else OPS_ANY
+        ops = float(tests_n.sum()) * per_test
+        nbytes = n * (8 * 4 + ex_bytes + (16 if q == "closest" else 1)) \
+            + data_bytes
+        tests = f"{float(tests_n.sum()) / n:.1f}"
+        lanes = f"{n} lanes"
+    sync()
+    if q == "closest":
+        err = check_closest(out, want, what)
+        frac = f"hit {float(out.valid.float().mean()):.4f}"
+    else:
+        if not torch.equal(out, want):
+            fail(f"{what}: occlusion differs on {int((out != want).sum())} "
+                 f"of {out.numel()} rays")
+        err = float((out.float() - want.float()).abs().max())
+        frac = f"occluded {float(out.float().mean()):.4f}"
+    b = bound(ops, nbytes)
+    print(f"{what}: {lanes}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bits identical on every lane, {frac}; triangle tests per lane "
+          f"{tests}, bound {b[0]:.4f} ms ({b[1]})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+
+
+def _merge(row, extra):
+    row["max_abs_err"] = max(row["max_abs_err"], extra["max_abs_err"])
+
+
+def phase_mesh_kernels(scene):
+    """Kernels 4 and 6 at the mesh path's own shapes (see the header)."""
+    calls = _capture_calls(scene, MESH_RES)
+    closest = [c for c in calls if c[0] == "closest"]
+    nees = [c for c in calls if c[0] == "nee"]
+    print(f"mesh: one chunk made {len(closest)} closest-hit calls and "
+          f"{len(nees)} NEE bundles (K = {[len(c[1][3]) for c in nees]})")
+    ibl = next(c for c in nees if len(c[1][3]) == 16)
+    sun = next(c for c in nees if len(c[1][3]) == 8)
+    rows = {"cluster_closest_hit": _check_captured(
+                "mesh: camera closest hit", *closest[0]),
+            "cluster_any_hit_nee": _check_captured(
+                "mesh: IBL bundle (K=16)", *ibl)}
+    _merge(rows["cluster_closest_hit"], _check_captured(
+        "mesh: glossy-chain closest hit", *closest[1]))
+    _merge(rows["cluster_any_hit_nee"], _check_captured(
+        "mesh: sun bundle (K=8)", *sun))
+    return rows
+
+
+def phase_dirac_kernels(flat, brute):
+    """Kernels 5 and 3 on every dirac light's captured shadow wavefronts
+    (three lights, at the camera hit and at the glossy-chain hit); the row
+    is the point light's camera-hit wavefront."""
+    rows = {}
+    for name, scene, kernel in (("dirac flat", flat, "cluster_any_hit"),
+                                ("dirac brute", brute, "any_hit")):
+        anys = [c for c in _capture_calls(scene, MESH_RES) if c[0] == "any"]
+        if len(anys) != 6:
+            fail(f"{name}: {len(anys)} shadow wavefronts in a chunk, not 6")
+        lights = ("point", "spot", "directional")
+        for i, call in enumerate(anys):
+            row = _check_captured(
+                f"{name}: {lights[i % 3]} light shadow rays "
+                f"({'camera' if i < 3 else 'glossy-chain'} hit)", *call)
+            if i == 0:
+                rows[kernel] = row
+            else:
+                _merge(rows[kernel], row)
+    return rows
+
+
+def phase_mesh_render(scene, name, kernels, timed):
+    """Counts at 0, one warm-up and `timed` 1-spp chunks (rays counted on
+    the warm-up), the counts read: every kernel of `kernels` (name ->
+    wrapper) launched and no plain version ran; image checks."""
+    import torch
+    from core_tpu_torch import film as film_mod
+    from core_tpu_torch.render import render_chunk, scene_material_types
+    opts = _big_opts()
+    types = scene_material_types(scene)
+    res = scene.camera.resx
+
+    def chunk(film):
+        with torch.no_grad():
+            return render_chunk(scene, types, opts, film, 0, 1, 0)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    film, rays = counted_rays(lambda: chunk(
+        film_mod.make_film(res, res, device="cuda")))
+    sync()
+    t_warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        film = chunk(film)
+    sync()
+    dt = time.perf_counter() - t0
+    counts = {k: f.launches for k, f in kernels.items()}
+    if min(counts.values()) <= 0:
+        fail(f"{name}: a kernel of the path never launched: {counts}")
+    if plain_calls():
+        fail(f"{name}: the plain versions ran {plain_calls()} times")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    img = film_mod.flush(film)
+    if not bool(torch.isfinite(img).all()):
+        fail(f"{name}: image has non-finite values")
+    mean = float(img[..., :3].mean())
+    sky = float(img[:4, :, 2].mean())
+    ref = MEAN_REFS[name]
+    if abs(mean - ref) > MESH_BAND * ref or sky <= 0.5:
+        fail(f"{name}: image mean {mean} outside {ref} +- {MESH_BAND:.0%}, "
+             f"or sky rows' blue {sky} <= 0.5")
+    png = f"chip_smoke_{name.replace(' ', '_')}.png"
+    write_png(BUILD / png, img.cpu().numpy())
+    per = dt / timed
+    print(f"{name}: render {res}x{res} directlight raydepth=1: rays per "
+          f"chunk {rays}, warm-up chunk {t_warm:.4f} s, {timed} timed "
+          f"chunks {dt:.4f} s: {per * 1e3:.3f} ms/chunk, "
+          f"{rays / per / 1e6:.3f} Mrays/s forward; peak device memory "
+          f"{peak:.3f} GiB")
+    print(f"{name}: launches {counts} over {timed + 1} chunks, plain calls "
+          f"0, image mean {mean:.6f}, sky rows blue {sky:.6f}, png "
+          f"build/{png}")
+    return counts
+
+
+def phase_mesh_slice():
+    """64^2 renders of mesh_scene and both dirac sizes, through the kernels
+    and through the plain versions on the card: identical images."""
+    import dataclasses
+    import torch
+    from core_tpu_torch.render import render_image
+    for variant in ("mesh", "dirac flat", "dirac brute"):
+        scene, _ = phase_mesh_build(64, variant)
+        imgs = [render_image(dataclasses.replace(scene, intersector=isec),
+                             _big_opts())[0] for isec in ("cuda", "torch")]
+        sync()
+        if not torch.equal(*imgs):
+            fail(f"64^2 {variant} kernel and plain renders differ: max abs "
+                 f"{float((imgs[0] - imgs[1]).abs().max())}")
+        print(f"mesh slice: 64x64 {variant} render through the kernels == "
+              f"through the plain versions (bit-identical), mean "
+              f"{float(imgs[0][..., :3].mean()):.6f}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -816,11 +1098,44 @@ def main():
     torch.cuda.empty_cache()
     timed("big slice", phase_big_slice)
 
-    replaces = {
+    from core_tpu_torch.geometry import cuda_cluster as cc
+    from core_tpu_torch.geometry import cuda_intersect as ck
+    mesh, _ = timed("mesh build", phase_mesh_build, MESH_RES)
+    kt.update(timed("mesh kernels", phase_mesh_kernels, mesh))
+    counts.update(timed("mesh render", phase_mesh_render, mesh, "mesh", {
+        "cluster_closest_hit": cc.closest_hit_flat_cuda,
+        "cluster_any_hit_nee": cc.any_hit_nee_flat_cuda}, MESH_TIMED))
+    del mesh
+    flat, _ = timed("dirac build", phase_mesh_build, MESH_RES, "dirac flat")
+    brute, _ = timed("dirac build", phase_mesh_build, MESH_RES,
+                     "dirac brute")
+    kt.update(timed("dirac kernels", phase_dirac_kernels, flat, brute))
+    # each path's own launches: kernel 5 on the flat dirac path (beside
+    # kernel 4), kernel 3 on the brute one (beside kernel 1)
+    counts["cluster_any_hit"] = timed(
+        "dirac render", phase_mesh_render, flat, "dirac flat",
+        {"cluster_closest_hit": cc.closest_hit_flat_cuda,
+         "cluster_any_hit": cc.any_hit_flat_cuda}, 1)["cluster_any_hit"]
+    counts["any_hit"] = timed(
+        "dirac render", phase_mesh_render, brute, "dirac brute",
+        {"closest_hit": ck.closest_hit_cuda,
+         "any_hit": ck.any_hit_cuda}, 1)["any_hit"]
+    del flat, brute
+    timed("mesh slice", phase_mesh_slice)
+
+    replaces = {     # kernels 1 to 8
         "closest_hit": ("core_tpu/geometry/pallas_intersect.py:55",
                         "core_tpu_torch/csrc/intersect.cu"),
         "any_hit_nee": ("core_tpu/geometry/pallas_intersect.py:174",
                         "core_tpu_torch/csrc/intersect.cu"),
+        "any_hit": ("core_tpu/geometry/pallas_intersect.py:122",
+                    "core_tpu_torch/csrc/intersect.cu"),
+        "cluster_closest_hit": ("core_tpu/geometry/cluster_intersect.py:204",
+                                "core_tpu_torch/csrc/cluster.cu"),
+        "cluster_any_hit": ("core_tpu/geometry/cluster_intersect.py:279",
+                            "core_tpu_torch/csrc/cluster.cu"),
+        "cluster_any_hit_nee": ("core_tpu/geometry/cluster_intersect.py:342",
+                                "core_tpu_torch/csrc/cluster.cu"),
         "grouped_closest_hit": ("core_tpu/geometry/cluster_intersect.py:912",
                                 "core_tpu_torch/csrc/cluster.cu"),
         "grouped_any_hit": ("core_tpu/geometry/cluster_intersect.py:1129",

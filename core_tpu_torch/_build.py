@@ -32,7 +32,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "cti_closest_hit": ([_P, _I] + [_P] * 14 + [_I, _P], _I),
+    "cti_any_hit": ([_P, _I] + [_P] * 11 + [_I, _P], _I),
     "cti_any_hit_nee": ([_P, _I] + [_P] * 6 + [_I, _P, _P, _I, _P], _I),
+    "cti_cluster_closest_hit": ([_P] * 4 + [_I] * 2 + [_P] * 14 + [_I, _P],
+                                _I),
+    "cti_cluster_any_hit": ([_P] * 4 + [_I] * 2 + [_P] * 11 + [_I, _P], _I),
+    "cti_cluster_any_hit_nee": ([_P] * 4 + [_I] * 2 + [_P] * 6
+                                + [_I, _P, _P, _I, _P], _I),
     "cti_grouped_closest_hit": ([_P] * 6 + [_I] * 3 + [_P] * 14 + [_I, _P],
                                 _I),
     "cti_grouped_any_hit": ([_P] * 6 + [_I] * 3 + [_P] * 11 + [_I, _P], _I),

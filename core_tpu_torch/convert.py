@@ -9,9 +9,10 @@ object with the same field names, such as core_tpu's (whose arrays
 np.asarray converts).  scene_from_numpy rebuilds this package's Scene on a
 device from the two, so both packages compute on identical inputs.
 
-The grouped cluster accel crosses as core_tpu's GroupedData with the
-triangle block [C, L, 10] (v0, e1, e2, id); core_tpu's field-major
-[C, 16, L] block is transposed on the way.  A scene without an accel gets
+The flat cluster accel crosses as core_tpu's ClusterData (aabb, and the
+triangle block [C, L, 10]: v0, e1, e2, id), the grouped one as its
+GroupedData with the same triangle block (core_tpu's field-major
+[C, 16, L] block is transposed on the way).  A scene without an accel gets
 one by environment.accel_for's triangle-count rule.  This module imports
 no jax.
 """
@@ -26,7 +27,9 @@ from core_tpu_torch.geometry import cluster_intersect as ci
 from core_tpu_torch.geometry.mesh import GeomData
 from core_tpu_torch.lights.area import AreaLight
 from core_tpu_torch.lights.bg import BgLight
-from core_tpu_torch.lights.sun import SunLight
+from core_tpu_torch.lights.point import PointLight
+from core_tpu_torch.lights.spot import SpotLight
+from core_tpu_torch.lights.sun import DirectionalLight, SunLight
 from core_tpu_torch.materials.base import MaterialTable
 from core_tpu_torch.scene import Scene, check_device, resolve_intersector
 from core_tpu_torch.textures import base as tex_base
@@ -38,6 +41,12 @@ _LIGHTS = {  # type name -> (class, array fields, static fields)
                             "du", "dv"), ("samples",)),
     "BgLight": (BgLight, ("u_pdf", "u_cdf", "v_pdf", "v_cdf"),
                 ("samples", "abs_intersect")),
+    "PointLight": (PointLight, ("pos", "color"), ("samples",)),
+    "SpotLight": (SpotLight, ("pos", "ndir", "color", "cos_start",
+                              "cos_end"), ("samples", "photon_only")),
+    "DirectionalLight": (DirectionalLight, ("direction", "color", "pos",
+                                            "radius"),
+                         ("infinite", "samples")),
 }
 _CAMERA_ARRAYS = ("pos", "cam_x", "cam_y", "cam_z", "vto", "vup", "vright")
 _CAMERA_STATIC = ("cam_type", "resx", "resy", "aspect_ratio", "focal",
@@ -73,19 +82,25 @@ def _textures(recs):
          for r in recs])
 
 
-def _grouped_numpy(acc) -> ci.GroupedData:
-    """GroupedData (tris [C, L, 10]) of this package's GroupedAccel or of
-    core_tpu's ClusterData."""
-    if isinstance(acc, ci.GroupedAccel):
-        tris = torch.cat([acc.tris, acc.tri_id[..., None].float()], dim=-1)
-        return ci.GroupedData(*[_np(a) for a in (
-            acc.g_aabb, acc.c_aabb, acc.o_aabb, tris)])
+def _accel_numpy(acc):
+    """("flat", ClusterData) or ("grouped", GroupedData), with the triangle
+    block [C, L, 10], of this package's accel or of core_tpu's
+    ClusterData."""
+    if isinstance(acc, (ci.ClusterAccel, ci.GroupedAccel)):
+        tris = _np(torch.cat([acc.tris, acc.tri_id[..., None].float()],
+                             dim=-1))
+        if isinstance(acc, ci.ClusterAccel):
+            return "flat", ci.ClusterData(aabb=_np(acc.aabb), tris=tris)
+        return "grouped", ci.GroupedData(*[_np(a) for a in (
+            acc.g_aabb, acc.c_aabb, acc.o_aabb)], tris=tris)
+    if not hasattr(acc, "aabb"):
+        raise NotImplementedError(f"a {type(acc).__name__} accel is not "
+                                  "ported to core_tpu_torch yet")
     gd = getattr(acc, "grouped", None)
     if gd is None:
-        raise NotImplementedError(
-            f"a {type(acc).__name__} accel without grouped data (the flat "
-            "cluster sweep or a BVH) is not ported to core_tpu_torch yet")
-    return ci.GroupedData(
+        return "flat", ci.ClusterData(aabb=np.asarray(acc.aabb),
+                                      tris=np.asarray(acc.tris))
+    return "grouped", ci.GroupedData(
         g_aabb=np.asarray(gd.g_aabb), c_aabb=np.asarray(gd.c_aabb),
         o_aabb=np.asarray(gd.o_aabb),
         tris=np.ascontiguousarray(np.swapaxes(np.asarray(gd.tris), 1, 2)
@@ -128,8 +143,10 @@ def scene_to_numpy(scene) -> tuple[dict, dict]:
                      "tex_id": int(bg.tex_id), "projection": bg.projection,
                      "ibl": bool(bg.ibl), "ibl_samples": int(bg.ibl_samples)}
     acc = getattr(scene, "accel", None)
+    kind = None
     if acc is not None:
-        for f, a in zip(ci.GroupedData._fields, _grouped_numpy(acc)):
+        kind, data = _accel_numpy(acc)
+        for f, a in zip(data._fields, data):
             leaves[f"accel.{f}"] = a
     tex = getattr(scene, "textures", None)
     static = {
@@ -137,7 +154,7 @@ def scene_to_numpy(scene) -> tuple[dict, dict]:
         "camera": {f: getattr(scene.camera, f) for f in _CAMERA_STATIC},
         "background": bg_static,
         "textures": None if tex is None else _texture_static(tex),
-        "accel": acc is not None,
+        "accel": kind,
         "has_specular": bool(scene.has_specular),
         "has_transparency": bool(scene.has_transparency),
         "mat_types": tuple(int(t) for t in scene.mat_types),
@@ -176,9 +193,9 @@ def scene_from_numpy(leaves: dict, static: dict, *, device="cuda",
                     focal=float(cs["focal"]), aperture=float(cs["aperture"]))
     check_supported(camera)
     if static["accel"]:
-        accel = ci.to_device(ci.GroupedData(
-            *[np.asarray(leaves[f"accel.{f}"])
-              for f in ci.GroupedData._fields]), device)
+        cls = ci.ClusterData if static["accel"] == "flat" else ci.GroupedData
+        accel = ci.to_device(cls(*[np.asarray(leaves[f"accel.{f}"])
+                                   for f in cls._fields]), device)
     else:
         from core_tpu_torch.environment import accel_for
         accel = accel_for(leaves["geom.verts"], leaves["geom.tri_vidx"],

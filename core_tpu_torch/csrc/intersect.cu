@@ -1,8 +1,9 @@
 // Ray-triangle intersection kernels for Hopper (sm_90a), plain C interface.
 //
-// Two kernels, each the port of one Pallas TPU kernel of core_tpu:
+// Three kernels, each the port of one Pallas TPU kernel of core_tpu:
 //
 //   cti_closest_hit  <- core_tpu/geometry/pallas_intersect.py:_intersect_kernel
+//   cti_any_hit      <- core_tpu/geometry/pallas_intersect.py:_any_hit_kernel
 //   cti_any_hit_nee  <- core_tpu/geometry/pallas_intersect.py:_any_hit_nee_kernel
 //
 // Each computes what its TPU kernel computes: the same Möller-Trumbore
@@ -16,19 +17,25 @@
 // identical prim and occlusion bits.  A later change may turn contraction on
 // under a measured tolerance.
 //
-// Design.  One thread per ray (closest hit) or per shading-point lane (NEE
-// bundle); ray components arrive as separate contiguous [N] arrays, and the
-// ragged tail is masked with a `live` flag rather than padded to a tile.
+// Design.  One thread per ray (closest hit, any hit) or per shading-point
+// lane (NEE bundle); ray components arrive as separate contiguous [N]
+// arrays, and the ragged tail is masked with a `live` flag rather than
+// padded to a tile.
 // The [T, 9] triangle table (v0, e1, e2) is staged through shared memory in
 // chunks of kTriChunk rows (9 KB), so any T runs without the >48 KB opt-in;
 // every thread of a warp reads the same row, which shared memory broadcasts.
+// The occlusion kernels stop testing a lane at its first occluder (the
+// any-hit kernel) or once all its K rays are occluded (the NEE bundle); the
+// thread keeps taking part in the staging barriers.
 //
 // What bounds them on the H100: the Cornell box has 36 triangles, so a ray
 // costs ~36 * ~60 flops and 40 bytes of I/O; at the main path's 0.5M-lane
 // launches the kernels are bound by launch latency and the tail of a short
-// grid, not by FLOPs or bytes.  The design keeps each launch a single pass
-// over the rays with no intermediate in device memory, which is what the
-// plain version (dozens of [N, T] tensors) cannot do.
+// grid, not by FLOPs or bytes.  At the brute path's 4,096-triangle limit a
+// ray costs ~230k flops, and the kernels are bound by operations.  The
+// design keeps each launch a single pass over the rays with no
+// intermediate in device memory, which is what the plain version (dozens
+// of [N, T] tensors) cannot do.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -121,6 +128,68 @@ __global__ void __launch_bounds__(kBlock) closest_hit_kernel(
     u_out[i] = bu;
     v_out[i] = bv;
   }
+}
+
+// Occlusion of one ray per lane: the division-free, sign-folded test of
+// _any_hit_kernel (pallas_intersect.py:148-166); the exclusions compare the
+// triangle index.
+__global__ void __launch_bounds__(kBlock) any_hit_kernel(
+    const float* __restrict__ tri, int n_tris,
+    const float* __restrict__ ox_, const float* __restrict__ oy_,
+    const float* __restrict__ oz_, const float* __restrict__ dx_,
+    const float* __restrict__ dy_, const float* __restrict__ dz_,
+    const float* __restrict__ tmin_, const float* __restrict__ tmax_,
+    const int* __restrict__ ex0_, const int* __restrict__ ex1_,
+    uint8_t* __restrict__ hit_out, int n) {
+  __shared__ float s_tri[kTriChunk * 9];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = i < n;
+  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
+  float tmin = 0.f, tcap = 0.f;
+  int ex0 = -2, ex1 = -2;
+  if (live) {
+    ox = ox_[i]; oy = oy_[i]; oz = oz_[i];
+    dx = dx_[i]; dy = dy_[i]; dz = dz_[i];
+    tmin = tmin_[i];
+    const float tmax = tmax_[i];
+    tcap = tmax > 0.f ? tmax : kBig;
+    if (ex0_) ex0 = ex0_[i];
+    if (ex1_) ex1 = ex1_[i];
+  }
+  bool hit = false;
+  for (int base = 0; base < n_tris; base += kTriChunk) {
+    const int count = min(kTriChunk, n_tris - base);
+    stage_tris(s_tri, tri, base, count);
+    if (!live || hit) continue;
+    for (int j = 0; j < count; ++j) {
+      const float* r = s_tri + j * 9;
+      const float v0x = r[0], v0y = r[1], v0z = r[2];
+      const float e1x = r[3], e1y = r[4], e1z = r[5];
+      const float e2x = r[6], e2y = r[7], e2z = r[8];
+      const float px = dy * e2z - dz * e2y;
+      const float py = dz * e2x - dx * e2z;
+      const float pz = dx * e2y - dy * e2x;
+      const float det = e1x * px + e1y * py + e1z * pz;
+      const float s = det < 0.f ? -1.f : 1.f;
+      const float dd = fabsf(det);
+      const float tx = ox - v0x;
+      const float ty = oy - v0y;
+      const float tz = oz - v0z;
+      const float un = (tx * px + ty * py + tz * pz) * s;
+      const float qx = ty * e1z - tz * e1y;
+      const float qy = tz * e1x - tx * e1z;
+      const float qz = tx * e1y - ty * e1x;
+      const float vn = (dx * qx + dy * qy + dz * qz) * s;
+      const float tn = (e2x * qx + e2y * qy + e2z * qz) * s;
+      const int idx = base + j;
+      if (dd > 1e-12f && un >= 0.f && vn >= 0.f && un + vn <= dd &&
+          tn > tmin * dd && tn < tcap * dd && idx != ex0 && idx != ex1) {
+        hit = true;
+        break;
+      }
+    }
+  }
+  if (live) hit_out[i] = static_cast<uint8_t>(hit);
 }
 
 // K shadow rays per lane sharing one origin (all 2 * light_samples MIS
@@ -254,6 +323,18 @@ int cti_closest_hit(const float* tri, int n_tris, const float* ox,
   closest_hit_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       tri, n_tris, ox, oy, oz, dx, dy, dz, tmin, tmax, ex0, ex1, t_out,
       prim_out, u_out, v_out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// hit_out: [n] bytes, 1 = occluded.
+int cti_any_hit(const float* tri, int n_tris, const float* ox,
+                const float* oy, const float* oz, const float* dx,
+                const float* dy, const float* dz, const float* tmin,
+                const float* tmax, const int* ex0, const int* ex1,
+                uint8_t* hit_out, int n, void* stream) {
+  const int grid = (n + kBlock - 1) / kBlock;
+  any_hit_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+      tri, n_tris, ox, oy, oz, dx, dy, dz, tmin, tmax, ex0, ex1, hit_out, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,16 +7,15 @@ builds the Scene on a device.  Element types keep the reference's names:
   material    shinydiffusemat, glossy
   background  textureback (its ibl=True adds the importance-sampled
               background light at compile time)
-  light       sunlight
+  light       sunlight, pointlight, spotlight, directional
 Any other type raises NotImplementedError by name.
 
 compile_scene picks the intersection path by core_tpu's rule
 (scene.py:57,78 and cluster_intersect.py:139-141,179): at most 4,096
-triangles go to the brute kernels 1 and 2 (no accel); above that the
-clusters are built, and 1,024 clusters or more (every scene of 131,584
-triangles or more: the median split into <= 256-tri leaves gives 1,024)
-go to the grouped cluster kernels 7 and 8; fewer clusters need the flat
-cluster kernels 4-6 and raise.
+triangles go to the brute kernels 1-3 (no accel); above that the clusters
+are built, and 1,024 clusters or more (every scene of 131,584 triangles or
+more: the median split into <= 256-tri leaves gives 1,024) go to the
+grouped cluster kernels 7 and 8, fewer to the flat cluster kernels 4-6.
 """
 from __future__ import annotations
 
@@ -35,24 +34,18 @@ from core_tpu_torch.textures import noise as nz
 from core_tpu_torch.textures.base import (TexType, TextureDef,
                                           build_texture_set)
 
-BRUTE_MAX_TRIS = 4096                                  # kernels 1 and 2
+BRUTE_MAX_TRIS = 4096                                  # kernels 1-3
 
 
 def accel_for(verts, tri_vidx, sort_origin, device):
-    """None (brute) or the grouped accel: by the triangle count, then by
-    the cluster count, as core_tpu decides."""
-    n = int(tri_vidx.shape[0])
-    if n <= BRUTE_MAX_TRIS:
+    """None (brute), the flat or the grouped accel: by the triangle count,
+    then by the cluster count, as core_tpu decides."""
+    if int(tri_vidx.shape[0]) <= BRUTE_MAX_TRIS:
         return None
     cl = ci.build_clusters(verts, tri_vidx)
     if cl.aabb.shape[0] >= ci.GROUPED_MIN_CLUSTERS:
-        return ci.to_device(ci.group_clusters(cl, sort_origin=sort_origin),
-                            device)
-    raise NotImplementedError(
-        f"a scene of {n} triangles ({cl.aabb.shape[0]} clusters) takes the "
-        "flat cluster sweep (kernels 4-6: cluster_intersect.py _kernel, "
-        "_any_kernel, _any_nee_kernel), which is not ported to "
-        "core_tpu_torch yet")
+        cl = ci.group_clusters(cl, sort_origin=sort_origin)
+    return ci.to_device(cl, device)
 
 
 class SceneBuilder:
@@ -238,9 +231,46 @@ def _light_sun(b: SceneBuilder, name, p: ParamMap):
     return light
 
 
+def _light_point(b: SceneBuilder, name, p: ParamMap):
+    from core_tpu_torch.lights.point import make_point_light
+    light = make_point_light(pos=p.get_point("from"),
+                             color=p.get_color("color", (1, 1, 1)),
+                             power=p.get_float("power", 1.0),
+                             device=b.device)
+    b.lights.append(light)
+    return light
+
+
+def _light_spot(b: SceneBuilder, name, p: ParamMap):
+    from core_tpu_torch.lights.spot import make_spot_light
+    light = make_spot_light(pos=p.get_point("from"), to=p.get_point("to"),
+                            color=p.get_color("color", (1, 1, 1)),
+                            power=p.get_float("power", 1.0),
+                            cone_angle=p.get_float("cone_angle", 45.0),
+                            falloff=p.get_float("blend", 0.15),
+                            photon_only=p.get_bool("photon_only", False),
+                            device=b.device)
+    b.lights.append(light)
+    return light
+
+
+def _light_directional(b: SceneBuilder, name, p: ParamMap):
+    from core_tpu_torch.lights.sun import make_directional_light
+    light = make_directional_light(
+        direction=p.get_point("direction", (0, 0, 1)),
+        color=p.get_color("color", (1, 1, 1)),
+        power=p.get_float("power", 1.0),
+        infinite=p.get_bool("infinite", True),
+        pos=p.get_point("from"), radius=p.get_float("radius", 1.0),
+        device=b.device)
+    b.lights.append(light)
+    return light
+
+
 _FACTORIES: dict[str, dict[str, Callable]] = {
     "material": {"shinydiffusemat": _mat_shinydiffuse, "glossy": _mat_glossy},
     "texture": {"clouds": _texture, "marble": _texture, "voronoi": _texture},
     "background": {"textureback": _bg_texture},
-    "light": {"sunlight": _light_sun},
+    "light": {"sunlight": _light_sun, "pointlight": _light_point,
+              "spotlight": _light_spot, "directional": _light_directional},
 }

@@ -1,54 +1,67 @@
-"""Two-level clustered intersection for large scenes
-(counterpart of core_tpu/geometry/cluster_intersect.py, its grouped path).
+"""Clustered intersection for scenes above 4,096 triangles
+(counterpart of core_tpu/geometry/cluster_intersect.py).
 
 Host build (numpy, as core_tpu's): triangles are split by recursive axis
-median into clusters of at most 256 triangles (128 at grouped scale), and
-the clusters into groups of GROUP consecutive siblings, ordered near to far
-from the camera; each group carries its AABB, its OCTET-cluster union
-AABBs ("octets") and its clusters' AABBs.  GroupedAccel holds those arrays
-on the device in the layout the CUDA kernels read (csrc/cluster.cu):
+median into clusters of at most 256 triangles (128 at grouped scale).
+Below GROUPED_MIN_CLUSTERS clusters the scene takes the FLAT sweep: every
+ray visits every cluster in build order.  At or above it the clusters are
+put into groups of GROUP consecutive siblings, ordered near to far from the
+camera; each group carries its AABB, its OCTET-cluster union AABBs
+("octets") and its clusters' AABBs.  The accels hold the arrays on the
+device in the layout the CUDA kernels read (csrc/cluster.cu):
 
-    g_aabb [G, 8]  o_aabb [G, GROUP/8, 8]  c_aabb [G, GROUP, 8]
-    tris   [C, L, 9] f32 (v0, e1, e2)   tri_id [C, L] i32 (-1 = pad)
-    count  [C] i32 (real triangles lead each cluster)
+    ClusterAccel  aabb [C, 8]
+    GroupedAccel  g_aabb [G, 8]  o_aabb [G, GROUP/8, 8]  c_aabb [G, GROUP, 8]
+    both          tris [C, L, 9] f32 (v0, e1, e2)   tri_id [C, L] i32
+                  (-1 = pad)   count [C] i32 (real triangles lead each
+                  cluster)
 
 Kernels and their plain versions here compute the same functions, in the
-same visit order (groups, then octets, then clusters, in build order):
+same visit order (flat: clusters in build order; grouped: groups, then
+octets, then clusters, in build order):
 
-- closest_hit_grouped_torch <-> cti_grouped_closest_hit  (Pallas
-  _grouped_kernel, cluster_intersect.py:912): per ray, each level is
+- closest_hit_flat_torch <-> cti_cluster_closest_hit (Pallas _kernel,
+  cluster_intersect.py:204) and closest_hit_grouped_torch <->
+  cti_grouped_closest_hit (_grouped_kernel, :912): per ray, each level is
   gated by _slab_test with tcap = min(tmax cap, best t); a gated cluster's
-  triangles are Möller-Trumbore tested and a hit is kept only if
-  t < best t (strict, so ties keep the first visited).
-- any_hit_grouped_torch <-> cti_grouped_any_hit  (Pallas
-  _grouped_any_kernel, :1129): the same walk with the division-free,
+  triangles are Möller-Trumbore tested and a hit is kept only if t < best
+  t (strict, so ties keep the first visited).
+- any_hit_flat_torch <-> cti_cluster_any_hit (_any_kernel, :279) and
+  any_hit_grouped_torch <-> cti_grouped_any_hit (_grouped_any_kernel,
+  :1129): the same walk gated with the ray's own cap, the division-free,
   sign-folded test, ending at the first hit.
+- any_hit_nee_flat_torch <-> cti_cluster_any_hit_nee (_any_nee_kernel,
+  :342): K shadow rays per lane sharing one origin; each direction is gated
+  with its own cap, and the origin-only Möller-Trumbore terms are shared
+  by the K directions.
 
-The plain versions are vectorised: ray x group, octet and cluster gate
-pairs, the triangle tests of the gated pairs, then (closest hit) a replay
-of the kernel's walk over each ray's gated clusters in visit order, so that
-the best-t gates decide exactly as the kernel's do.  They also count the
-triangle tests the kernel's walk makes (`count_tests=True`), which is the
-data-dependent work behind the kernels' bound.
+The plain versions are vectorised: (ray, cluster) gate pairs, the triangle
+tests of the gated pairs, then (closest hit) a replay of the kernel's walk
+over each ray's gated clusters in visit order, so that the best-t gates
+decide exactly as the kernel's do.  Occlusion is an OR over the gated
+clusters and needs no replay.  With `count_tests=True` they also count the
+triangle tests the kernel's walk makes, the data-dependent work behind the
+kernels' bound.
 
-Every NEE bundle is re-bucketed first (any_hit_nee_clusters_s): all n*K
-shadow rays are sorted by _nee_bucket_key (octahedral direction bin major,
-origin Morton cell minor), swept in that order, and the occlusion bits are
-scattered back.  Bits do not depend on ray order; the sort only makes
-neighbouring lanes coherent, as it does for core_tpu's ray tiles.
+NEE bundles: on the grouped path every bundle is re-bucketed first
+(any_hit_nee_clusters_s): all n*K shadow rays are sorted by _nee_bucket_key
+(octahedral direction bin major, origin Morton cell minor), swept in that
+order, and the occlusion bits are scattered back.  Bits do not depend on
+ray order; the sort only makes neighbouring lanes coherent, as it does for
+core_tpu's ray tiles.  On the flat path the bundle goes straight to kernel
+6, with no re-bucketing, as core_tpu's flat branch does (:677-686).
 
-Entry points, by core_tpu's names: any_hit_nee_clusters_s here; the
-closest-hit and one-ray any-hit entries (core_tpu's closest_hit_clusters_s
-and any_hit_clusters_s) are the kernels' wrappers in cuda_cluster.py, which
-take the same arguments as the plain versions below and run them on CPU
-tensors; scene._backend picks wrapper or plain version by intersector.
+Entry points, by core_tpu's names: core_tpu's closest_hit_clusters_s,
+any_hit_clusters_s and any_hit_nee_clusters_s are, here, the kernels'
+wrappers in cuda_cluster.py (which take the same arguments as the plain
+versions below and run them on CPU tensors) and, for grouped NEE,
+any_hit_nee_clusters_s; scene._backend picks wrapper or plain version by
+intersector and accel.
 
 Not carried over (TPU workarounds): the [rows, 128] padding, the 16-row
 field-major triangle block, the per-tile group order, the SMEM-sized row
 chunking of the re-bucketed sweep, the NEE capture hook, the K-sweep
-branch, and the interpret plumbing.  The flat sweep (kernels 4-6, scenes of
-4,097 to 131,583 triangles, which split into fewer than GROUPED_MIN_CLUSTERS
-clusters) is not ported yet.
+branch, and the interpret plumbing.
 """
 from __future__ import annotations
 
@@ -82,6 +95,18 @@ class GroupedData(NamedTuple):
     c_aabb: np.ndarray    # [G, group, 8] (pads inverted)
     o_aabb: np.ndarray    # [G, group // OCTET, 8]
     tris: np.ndarray      # [G * group, L, 10]
+
+
+class ClusterAccel(NamedTuple):
+    """ClusterData on a device, laid out as the flat kernels read it."""
+    aabb: torch.Tensor    # [C, 8] f32
+    tris: torch.Tensor    # [C, L, 9] f32
+    tri_id: torch.Tensor  # [C, L] i32
+    count: torch.Tensor   # [C] i32
+
+    @property
+    def leaf(self) -> int:
+        return self.tris.shape[1]
 
 
 class GroupedAccel(NamedTuple):
@@ -196,9 +221,11 @@ def group_clusters(cl: ClusterData, group: int = GROUP,
                        tris=tris)
 
 
-def to_device(gd: GroupedData, device) -> GroupedAccel:
-    """The kernels' layout of GroupedData on `device`."""
-    ids = gd.tris[:, :, 9].astype(np.int32)
+def to_device(data: ClusterData | GroupedData, device
+              ) -> ClusterAccel | GroupedAccel:
+    """The kernels' layout of ClusterData (flat) or GroupedData on
+    `device`."""
+    ids = data.tris[:, :, 9].astype(np.int32)
     count = (ids >= 0).sum(axis=1).astype(np.int32)
     if not np.array_equal(ids >= 0,
                           np.arange(ids.shape[1])[None] < count[:, None]):
@@ -207,9 +234,12 @@ def to_device(gd: GroupedData, device) -> GroupedAccel:
     def t(a, dtype=np.float32):
         return torch.tensor(np.asarray(a, dtype), device=device)
 
-    return GroupedAccel(g_aabb=t(gd.g_aabb), o_aabb=t(gd.o_aabb),
-                        c_aabb=t(gd.c_aabb), tris=t(gd.tris[:, :, :9]),
-                        tri_id=t(ids, np.int32), count=t(count, np.int32))
+    tri = dict(tris=t(data.tris[:, :, :9]), tri_id=t(ids, np.int32),
+               count=t(count, np.int32))
+    if isinstance(data, ClusterData):
+        return ClusterAccel(aabb=t(data.aabb), **tri)
+    return GroupedAccel(g_aabb=t(data.g_aabb), o_aabb=t(data.o_aabb),
+                        c_aabb=t(data.c_aabb), **tri)
 
 
 # ---------------------------------------------------------------------------
@@ -287,7 +317,7 @@ def any_hit_nee_clusters_s(acc: GroupedAccel, o3: V3, tmin, dirs, tcaps,
 
 
 # ---------------------------------------------------------------------------
-# plain versions of kernels 7 and 8
+# plain versions of kernels 4 to 8
 # ---------------------------------------------------------------------------
 
 def _inv_dir(d):
@@ -330,12 +360,30 @@ def _take(r, idx, extra_dim=False):
             for k, v in r.items()}
 
 
-def _gated_pairs(acc: GroupedAccel, r):
-    """(ray, cluster) pairs whose group, octet and cluster gates pass with
-    tcap = the ray's cap, sorted by ray then cluster (the visit order)."""
+def _cluster_boxes(acc):
+    """[C, 8] cluster boxes in cluster order."""
+    if isinstance(acc, ClusterAccel):
+        return acc.aabb
+    return acc.c_aabb.reshape(-1, 8)
+
+
+def _levels(acc):
+    """The gate levels above the clusters, outermost first, as (boxes
+    [M, 8], clusters per box): none on the flat path; groups and octets on
+    the grouped one."""
+    if isinstance(acc, ClusterAccel):
+        return ()
+    return ((acc.g_aabb, acc.group), (acc.o_aabb.reshape(-1, 8), OCTET))
+
+
+def _gated_pairs(acc, r):
+    """(ray, cluster) pairs whose gates all pass with tcap = the ray's cap,
+    sorted by ray then cluster (the visit order)."""
+    col = {k: v[:, None] for k, v in r.items()}
+    if isinstance(acc, ClusterAccel):
+        return _slab(acc.aabb[None], col, col["tcap"]).nonzero(as_tuple=True)
     G = acc.g_aabb.shape[0]
     n_oct = acc.o_aabb.shape[1]
-    col = {k: v[:, None] for k, v in r.items()}
     ri, gi = _slab(acc.g_aabb[None], col, col["tcap"]).nonzero(as_tuple=True)
     rr = _take(r, ri, True)
     pi, oi = _slab(acc.o_aabb[gi], rr, rr["tcap"]).nonzero(as_tuple=True)
@@ -384,7 +432,7 @@ def _mt_closest(acc, r, ray, cl):
 
 def _mt_any(acc, r, ray, cl):
     """Per gated pair: (any accepted triangle [P], first accepted slot [P])
-    under the division-free, sign-folded test of kernel 8."""
+    under the division-free, sign-folded test of kernels 5 and 8."""
     rr = _take(r, ray, True)
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = _tri_cols(acc.tris[cl])
     tid = acc.tri_id[cl]
@@ -410,14 +458,50 @@ def _mt_any(acc, r, ray, cl):
     return ok.any(dim=1), ok.to(torch.uint8).argmax(dim=1)
 
 
+def _mt_nee(acc, r, ray, cl):
+    """Per gated pair: any accepted triangle [P] under kernel 6's shared-
+    origin test (the origin-only terms m1 = e2 x e1, w = e2 x tvec,
+    qvec = tvec x e1, tnum = e2 . qvec, then det = d . m1, un = d . w,
+    vn = d . qvec), in the kernel's order of arithmetic."""
+    rr = _take(r, ray, True)
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = _tri_cols(acc.tris[cl])
+    tid = acc.tri_id[cl]
+    tx = rr["ox"] - v0x
+    ty = rr["oy"] - v0y
+    tz = rr["oz"] - v0z
+    m1x = e2y * e1z - e2z * e1y
+    m1y = e2z * e1x - e2x * e1z
+    m1z = e2x * e1y - e2y * e1x
+    wx = e2y * tz - e2z * ty
+    wy = e2z * tx - e2x * tz
+    wz = e2x * ty - e2y * tx
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    tnum = e2x * qx + e2y * qy + e2z * qz
+    dx, dy, dz = rr["dx"], rr["dy"], rr["dz"]
+    det = dx * m1x + dy * m1y + dz * m1z
+    s = torch.where(det < 0.0, -1.0, 1.0)
+    dd = det.abs()
+    un = (dx * wx + dy * wy + dz * wz) * s
+    vn = (dx * qx + dy * qy + dz * qz) * s
+    tn = tnum * s
+    ok = (dd > 1e-12) & (un >= 0.0) & (vn >= 0.0) & (un + vn <= dd) \
+        & (tn > rr["tmin"] * dd) & (tn < rr["tcap"] * dd) & (tid >= 0) \
+        & (tid != rr["ex0"]) & (tid != rr["ex1"])
+    return ok.any(dim=1)
+
+
 def _pair_chunks(n_pairs: int, leaf: int):
     step = max(1, CHUNK_ELEMS // max(leaf, 1))
     for p0 in range(0, n_pairs, step):
         yield p0, min(n_pairs, p0 + step)
 
 
-def _ray_chunks(n: int, n_groups: int):
-    step = max(1, CHUNK_ELEMS // (8 * max(n_groups, 1)))
+def _ray_chunks(n: int, acc):
+    """Ray ranges whose [rays, top-level boxes] gate stays bounded."""
+    top = (acc.aabb if isinstance(acc, ClusterAccel) else acc.g_aabb)
+    step = max(1, CHUNK_ELEMS // (8 * max(top.shape[0], 1)))
     for c0 in range(0, n, step):
         yield c0, min(n, c0 + step)
 
@@ -426,11 +510,8 @@ def _cap(tmax):
     return torch.where(tmax > 0, tmax, BIG)
 
 
-def closest_hit_grouped_torch(acc: GroupedAccel, rays_s, exclude_prim=None,
-                              exclude_prim2=None, count_tests=False):
-    """Closest hit through the grouped accel (kernel 7's function).
-    Returns Hits, or (Hits, triangle tests per ray) with count_tests."""
-    closest_hit_grouped_torch.calls += 1
+def _closest_hit(acc, rays_s, exclude_prim, exclude_prim2, count_tests):
+    """Closest hit through either accel (kernels 4 and 7's function)."""
     n = rays_s.tmin.shape[0]
     dev = rays_s.tmin.device
     r_all = _ray_fields(rays_s, exclude_prim, exclude_prim2,
@@ -440,9 +521,9 @@ def closest_hit_grouped_torch(acc: GroupedAccel, rays_s, exclude_prim=None,
     u = torch.zeros(n, device=dev)
     v = torch.zeros(n, device=dev)
     tests = torch.zeros(n, dtype=torch.int64, device=dev)
-    flat_o = acc.o_aabb.reshape(-1, 8)
-    flat_c = acc.c_aabb.reshape(-1, 8)
-    for c0, c1 in _ray_chunks(n, acc.g_aabb.shape[0]):
+    boxes = _cluster_boxes(acc)
+    levels = _levels(acc)
+    for c0, c1 in _ray_chunks(n, acc):
         r = {k: a[c0:c1] for k, a in r_all.items()}
         ray, cl = _gated_pairs(acc, r)
         parts = [_mt_closest(acc, r, ray[p0:p1], cl[p0:p1])
@@ -450,8 +531,8 @@ def closest_hit_grouped_torch(acc: GroupedAccel, rays_s, exclude_prim=None,
         pt, pp, pu, pv = (torch.cat([p[i] for p in parts]) if parts else
                           torch.empty(0, device=dev) for i in range(4))
         # replay the kernel's walk over each ray's gated clusters, in visit
-        # order: group, octet and cluster gates with the best t at the
-        # moment the kernel tests them
+        # order: the gates of every level with the best t at the moment the
+        # kernel tests them
         m = c1 - c0
         cnt = torch.bincount(ray, minlength=m)
         start = torch.cumsum(cnt, 0) - cnt
@@ -460,26 +541,25 @@ def closest_hit_grouped_torch(acc: GroupedAccel, rays_s, exclude_prim=None,
         bu = torch.zeros(m, device=dev)
         bv = torch.zeros(m, device=dev)
         tc = torch.zeros(m, dtype=torch.int64, device=dev)
-        cur_g = torch.full((m,), -1, dtype=torch.int64, device=dev)
-        cur_o = cur_g.clone()
-        bt_g = bt.clone()
-        bt_o = bt.clone()
-        for rank in range(int(cnt.max())):
+        # per level: the box the walk is in, and the best t on entering it
+        cur = [torch.full((m,), -1, dtype=torch.int64, device=dev)
+               for _ in levels]
+        bt_in = [bt.clone() for _ in levels]
+        for rank in range(int(cnt.max()) if m else 0):
             sel = (cnt > rank).nonzero(as_tuple=True)[0]
             pidx = start[sel] + rank
             c = cl[pidx]
-            g = c // acc.group
-            o = c // OCTET
             b = bt[sel]
-            bt_g[sel] = torch.where(g != cur_g[sel], b, bt_g[sel])
-            bt_o[sel] = torch.where(o != cur_o[sel], b, bt_o[sel])
-            cur_g[sel] = g
-            cur_o[sel] = o
             rr = _take(r, sel)
             cap = rr["tcap"]
-            gate = _slab(acc.g_aabb[g], rr, torch.minimum(cap, bt_g[sel])) \
-                & _slab(flat_o[o], rr, torch.minimum(cap, bt_o[sel])) \
-                & _slab(flat_c[c], rr, torch.minimum(cap, b))
+            gate = _slab(boxes[c], rr, torch.minimum(cap, b))
+            for li, (lboxes, per) in enumerate(levels):
+                j = c // per
+                bt_in[li][sel] = torch.where(j != cur[li][sel], b,
+                                             bt_in[li][sel])
+                cur[li][sel] = j
+                gate = gate & _slab(lboxes[j], rr,
+                                    torch.minimum(cap, bt_in[li][sel]))
             tc[sel] += torch.where(gate, acc.count[c].long(), 0)
             take = gate & (pt[pidx] < b)
             bt[sel] = torch.where(take, pt[pidx], b)
@@ -492,19 +572,30 @@ def closest_hit_grouped_torch(acc: GroupedAccel, rays_s, exclude_prim=None,
     return (hits, tests) if count_tests else hits
 
 
-def any_hit_grouped_torch(acc: GroupedAccel, rays_s, exclude_prim=None,
-                          exclude_prim2=None, count_tests=False):
-    """Occlusion through the grouped accel (kernel 8's function), one ray
-    per lane, tmax <= 0 = open.  Returns [N] bool, or (bits, triangle
-    tests per ray) with count_tests."""
-    any_hit_grouped_torch.calls += 1
+def _stop_counts(acc, ray, cl, has, first, m):
+    """Triangle tests of a walk that ends at the first accepted triangle of
+    the first cluster (in visit order) that has one: every triangle of the
+    clusters before it, and the slots up to the accepted one."""
+    dev = ray.device
+    pos = torch.arange(ray.shape[0], device=dev)
+    stop = torch.full((m,), ray.shape[0], dtype=torch.int64, device=dev)
+    stop.scatter_reduce_(0, ray[has], pos[has], "amin")
+    full = pos < stop[ray]
+    per = torch.where(full, acc.count[cl].long(),
+                      torch.where(pos == stop[ray], first + 1, 0))
+    return torch.zeros(m, dtype=torch.int64, device=dev).index_add(0, ray,
+                                                                    per)
+
+
+def _any_hit(acc, rays_s, exclude_prim, exclude_prim2, count_tests):
+    """Occlusion through either accel (kernels 5 and 8's function)."""
     n = rays_s.tmin.shape[0]
     dev = rays_s.tmin.device
     r_all = _ray_fields(rays_s, exclude_prim, exclude_prim2,
                         _cap(rays_s.tmax))
     hit = torch.zeros(n, dtype=torch.bool, device=dev)
     tests = torch.zeros(n, dtype=torch.int64, device=dev)
-    for c0, c1 in _ray_chunks(n, acc.g_aabb.shape[0]):
+    for c0, c1 in _ray_chunks(n, acc):
         r = {k: a[c0:c1] for k, a in r_all.items()}
         ray, cl = _gated_pairs(acc, r)
         parts = [_mt_any(acc, r, ray[p0:p1], cl[p0:p1])
@@ -512,24 +603,110 @@ def any_hit_grouped_torch(acc: GroupedAccel, rays_s, exclude_prim=None,
         if not parts:
             continue
         has = torch.cat([p[0] for p in parts])
-        first = torch.cat([p[1] for p in parts])
         m = c1 - c0
         hit[c0:c1] = torch.zeros(m, dtype=torch.int32, device=dev) \
             .index_add(0, ray, has.to(torch.int32)) > 0
         if count_tests:
-            # the kernel walks the gated clusters in order and stops at the
-            # first accepted triangle of the first cluster that has one
-            pos = torch.arange(ray.shape[0], device=dev)
-            stop = torch.full((m,), ray.shape[0], dtype=torch.int64,
-                              device=dev)
-            stop.scatter_reduce_(0, ray[has], pos[has], "amin")
-            full = pos < stop[ray]
-            per = torch.where(full, acc.count[cl].long(),
-                              torch.where(pos == stop[ray], first + 1, 0))
-            tests[c0:c1] = torch.zeros(m, dtype=torch.int64, device=dev) \
-                .index_add(0, ray, per)
+            tests[c0:c1] = _stop_counts(acc, ray, cl, has,
+                                        torch.cat([p[1] for p in parts]), m)
     return (hit, tests) if count_tests else hit
 
 
+def closest_hit_flat_torch(acc: ClusterAccel, rays_s, exclude_prim=None,
+                           exclude_prim2=None, count_tests=False):
+    """Closest hit through the flat accel (kernel 4's function).  Returns
+    Hits, or (Hits, triangle tests per ray) with count_tests."""
+    closest_hit_flat_torch.calls += 1
+    return _closest_hit(acc, rays_s, exclude_prim, exclude_prim2,
+                        count_tests)
+
+
+def closest_hit_grouped_torch(acc: GroupedAccel, rays_s, exclude_prim=None,
+                              exclude_prim2=None, count_tests=False):
+    """Closest hit through the grouped accel (kernel 7's function).
+    Returns Hits, or (Hits, triangle tests per ray) with count_tests."""
+    closest_hit_grouped_torch.calls += 1
+    return _closest_hit(acc, rays_s, exclude_prim, exclude_prim2,
+                        count_tests)
+
+
+def any_hit_flat_torch(acc: ClusterAccel, rays_s, exclude_prim=None,
+                       exclude_prim2=None, count_tests=False):
+    """Occlusion through the flat accel (kernel 5's function), one ray per
+    lane, tmax <= 0 = open.  Returns [N] bool, or (bits, triangle tests
+    per ray) with count_tests."""
+    any_hit_flat_torch.calls += 1
+    return _any_hit(acc, rays_s, exclude_prim, exclude_prim2, count_tests)
+
+
+def any_hit_grouped_torch(acc: GroupedAccel, rays_s, exclude_prim=None,
+                          exclude_prim2=None, count_tests=False):
+    """Occlusion through the grouped accel (kernel 8's function), one ray
+    per lane, tmax <= 0 = open.  Returns [N] bool, or (bits, triangle
+    tests per ray) with count_tests."""
+    any_hit_grouped_torch.calls += 1
+    return _any_hit(acc, rays_s, exclude_prim, exclude_prim2, count_tests)
+
+
+def any_hit_nee_flat_torch(acc: ClusterAccel, o3: V3, tmin, dirs, tcaps,
+                           exclude_prim=None, exclude_prim2=None,
+                           count_tests=False):
+    """Occlusion of K shadow rays per lane sharing one origin through the
+    flat accel (kernel 6's function).  o3: V3 of [N]; tmin: [N]; dirs: K V3
+    of [N]; tcaps: K [N] (<= 0 = open).  Returns [K*N] bool, sample-major,
+    or with count_tests (bits, lane tests [N], direction tests [N]).
+
+    The kernel walks the clusters once per lane: direction k is gated by
+    its own slab test while it has no hit yet, and a cluster any direction
+    passes has its triangles' origin terms computed once (a lane test) and
+    the passing directions tested (direction tests).  The bits are an OR
+    over each direction's gated clusters, so they need no replay."""
+    any_hit_nee_flat_torch.calls += 1
+    K = len(dirs)
+    n = tmin.shape[0]
+    dev = tmin.device
+    C = acc.aabb.shape[0]
+    hit = torch.zeros(K * n, dtype=torch.bool, device=dev)
+    lane_tests = torch.zeros(n, dtype=torch.int64, device=dev)
+    dir_tests = torch.zeros(n, dtype=torch.int64, device=dev)
+    fields = [_ray_fields(RaysS(o=o3, d=d, tmin=tmin, tmax=tc),
+                          exclude_prim, exclude_prim2, _cap(tc))
+              for d, tc in zip(dirs, tcaps)]
+    for c0, c1 in _ray_chunks(n, acc):
+        m = c1 - c0
+        walked = []
+        for k in range(K):
+            r = {f: a[c0:c1] for f, a in fields[k].items()}
+            ray, cl = _gated_pairs(acc, r)
+            has = torch.cat([_mt_nee(acc, r, ray[p0:p1], cl[p0:p1])
+                             for p0, p1 in _pair_chunks(ray.shape[0],
+                                                        acc.leaf)]
+                            or [torch.zeros(0, dtype=torch.bool,
+                                            device=dev)])
+            hit[k * n + c0:k * n + c1] = torch.zeros(
+                m, dtype=torch.int32, device=dev).index_add(
+                0, ray, has.to(torch.int32)) > 0
+            if count_tests:
+                # the direction stays live up to its first hit cluster
+                first = torch.full((m,), C, dtype=torch.int64, device=dev)
+                first.scatter_reduce_(0, ray[has], cl[has], "amin")
+                keep = cl <= first[ray]
+                walked.append(ray[keep] * C + cl[keep])
+        if count_tests and walked:
+            pairs = torch.cat(walked)
+            per = acc.count[pairs % C].long()
+            dir_tests[c0:c1] = torch.zeros(
+                m, dtype=torch.int64, device=dev).index_add(0, pairs // C,
+                                                            per)
+            lane = torch.unique(pairs)
+            lane_tests[c0:c1] = torch.zeros(
+                m, dtype=torch.int64, device=dev).index_add(
+                0, lane // C, acc.count[lane % C].long())
+    return (hit, lane_tests, dir_tests) if count_tests else hit
+
+
+closest_hit_flat_torch.calls = 0
 closest_hit_grouped_torch.calls = 0
+any_hit_flat_torch.calls = 0
 any_hit_grouped_torch.calls = 0
+any_hit_nee_flat_torch.calls = 0

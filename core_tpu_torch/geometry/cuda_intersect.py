@@ -3,6 +3,8 @@ core_tpu/geometry/pallas_intersect.py).
 
 closest_hit_cuda  launches cti_closest_hit, the port of
                   pallas_intersect.py:_intersect_kernel.
+any_hit_cuda      launches cti_any_hit, the port of
+                  pallas_intersect.py:_any_hit_kernel.
 any_hit_nee_cuda  launches cti_any_hit_nee, the port of
                   pallas_intersect.py:_any_hit_nee_kernel.
 
@@ -63,6 +65,44 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def ray_ptrs(rays_s, exclude_prim, exclude_prim2, n, dev):
+    """Checked pointers of a RaysS wavefront and its two exclusions, in the
+    kernels' argument order (o, d, tmin, tmax, ex0, ex1)."""
+    f32 = torch.float32
+    comps = [("o.x", rays_s.o.x), ("o.y", rays_s.o.y), ("o.z", rays_s.o.z),
+             ("d.x", rays_s.d.x), ("d.y", rays_s.d.y), ("d.z", rays_s.d.z),
+             ("tmin", rays_s.tmin), ("tmax", rays_s.tmax)]
+    return [_check(name, a, f32, n, dev) for name, a in comps] + [
+        _ex_ptr("exclude_prim", exclude_prim, n, dev),
+        _ex_ptr("exclude_prim2", exclude_prim2, n, dev)]
+
+
+def nee_ptrs(o3, tmin, dirs, tcaps, exclude_prim, exclude_prim2, n, dev):
+    """Checked pointers of a NEE bundle: (origin, tmin and exclusions in
+    the kernels' argument order, the ctypes array of 4*K direction and cap
+    pointers)."""
+    K = len(dirs)
+    if K not in NEE_K or len(tcaps) != K:
+        raise ValueError(f"NEE bundle width K={K} (with {len(tcaps)} caps) "
+                         f"is not one of the compiled widths {NEE_K}")
+    f32 = torch.float32
+    shared = [_check(name, a, f32, n, dev) for name, a in
+              (("o.x", o3.x), ("o.y", o3.y), ("o.z", o3.z), ("tmin", tmin))]
+    shared += [_ex_ptr("exclude_prim", exclude_prim, n, dev),
+               _ex_ptr("exclude_prim2", exclude_prim2, n, dev)]
+    dir_ptrs = ([_check(f"dirs[{k}].x", d.x, f32, n, dev)
+                 for k, d in enumerate(dirs)]
+                + [_check(f"dirs[{k}].y", d.y, f32, n, dev)
+                   for k, d in enumerate(dirs)]
+                + [_check(f"dirs[{k}].z", d.z, f32, n, dev)
+                   for k, d in enumerate(dirs)]
+                + [_check(f"tcaps[{k}]", c, f32, n, dev)
+                   for k, c in enumerate(tcaps)])
+    # the pointer array is read on the host by the C entry point, which
+    # copies it into the kernel's parameter block before returning
+    return shared, (ctypes.c_void_p * (4 * K))(*dir_ptrs)
+
+
 def closest_hit_cuda(tri, rays_s, exclude_prim=None,
                      exclude_prim2=None) -> Hits:
     """Closest hit (see intersect.closest_hit_torch for the semantics)."""
@@ -73,12 +113,7 @@ def closest_hit_cuda(tri, rays_s, exclude_prim=None,
     dev = tri.device
     n = rays_s.tmin.shape[0]
     f32 = torch.float32
-    comps = [("o.x", rays_s.o.x), ("o.y", rays_s.o.y), ("o.z", rays_s.o.z),
-             ("d.x", rays_s.d.x), ("d.y", rays_s.d.y), ("d.z", rays_s.d.z),
-             ("tmin", rays_s.tmin), ("tmax", rays_s.tmax)]
-    ptrs = [_check(name, a, f32, n, dev) for name, a in comps]
-    ex0 = _ex_ptr("exclude_prim", exclude_prim, n, dev)
-    ex1 = _ex_ptr("exclude_prim2", exclude_prim2, n, dev)
+    ptrs = ray_ptrs(rays_s, exclude_prim, exclude_prim2, n, dev)
     t = torch.empty(n, dtype=f32, device=dev)
     prim = torch.empty(n, dtype=torch.int32, device=dev)
     u = torch.empty(n, dtype=f32, device=dev)
@@ -86,12 +121,32 @@ def closest_hit_cuda(tri, rays_s, exclude_prim=None,
     if n:
         lib = _build.load_library()
         err = lib.cti_closest_hit(
-            tri.data_ptr(), tri.shape[0], *ptrs, ex0, ex1, t.data_ptr(),
+            tri.data_ptr(), tri.shape[0], *ptrs, t.data_ptr(),
             prim.data_ptr(), u.data_ptr(), v.data_ptr(), n, _stream(dev))
         _build.check(lib, err, "cti_closest_hit launch")
         closest_hit_cuda.launches += 1
         closest_hit_cuda.lanes += n
     return Hits(t=t, prim=prim, u=u, v=v)
+
+
+def any_hit_cuda(tri, rays_s, exclude_prim=None, exclude_prim2=None):
+    """Occlusion of one ray per lane (see intersect.any_hit_torch).
+    Returns [N] bool."""
+    if _on_cpu(tri):
+        return isect.any_hit_torch(tri, rays_s, exclude_prim, exclude_prim2)
+    _check_tri(tri)
+    dev = tri.device
+    n = rays_s.tmin.shape[0]
+    ptrs = ray_ptrs(rays_s, exclude_prim, exclude_prim2, n, dev)
+    hit = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        lib = _build.load_library()
+        err = lib.cti_any_hit(tri.data_ptr(), tri.shape[0], *ptrs,
+                              hit.data_ptr(), n, _stream(dev))
+        _build.check(lib, err, "cti_any_hit launch")
+        any_hit_cuda.launches += 1
+        any_hit_cuda.lanes += n
+    return hit
 
 
 def any_hit_nee_cuda(tri, o3, tmin, dirs, tcaps, exclude_prim=None,
@@ -102,34 +157,16 @@ def any_hit_nee_cuda(tri, o3, tmin, dirs, tcaps, exclude_prim=None,
         return isect.any_hit_nee_torch(tri, o3, tmin, dirs, tcaps,
                                        exclude_prim, exclude_prim2)
     _check_tri(tri)
-    K = len(dirs)
-    if K not in NEE_K or len(tcaps) != K:
-        raise ValueError(f"NEE bundle width K={K} (with {len(tcaps)} caps) "
-                         f"is not one of the compiled widths {NEE_K}")
     dev = tri.device
     n = tmin.shape[0]
-    f32 = torch.float32
-    shared = [_check(name, a, f32, n, dev) for name, a in
-              (("o.x", o3.x), ("o.y", o3.y), ("o.z", o3.z), ("tmin", tmin))]
-    ex0 = _ex_ptr("exclude_prim", exclude_prim, n, dev)
-    ex1 = _ex_ptr("exclude_prim2", exclude_prim2, n, dev)
-    dir_ptrs = ([_check(f"dirs[{k}].x", d.x, f32, n, dev)
-                 for k, d in enumerate(dirs)]
-                + [_check(f"dirs[{k}].y", d.y, f32, n, dev)
-                   for k, d in enumerate(dirs)]
-                + [_check(f"dirs[{k}].z", d.z, f32, n, dev)
-                   for k, d in enumerate(dirs)]
-                + [_check(f"tcaps[{k}]", c, f32, n, dev)
-                   for k, c in enumerate(tcaps)])
+    shared, ptr_array = nee_ptrs(o3, tmin, dirs, tcaps, exclude_prim,
+                                 exclude_prim2, n, dev)
+    K = len(dirs)
     hit = torch.empty(K * n, dtype=torch.bool, device=dev)
     if n:
         lib = _build.load_library()
-        # the pointer array is read on the host by the C entry point, which
-        # copies it into the kernel's parameter block before returning
-        ptr_array = (ctypes.c_void_p * (4 * K))(*dir_ptrs)
-        err = lib.cti_any_hit_nee(
-            tri.data_ptr(), tri.shape[0], *shared, ex0, ex1, K, ptr_array,
-            hit.data_ptr(), n, _stream(dev))
+        err = lib.cti_any_hit_nee(tri.data_ptr(), tri.shape[0], *shared, K,
+                                  ptr_array, hit.data_ptr(), n, _stream(dev))
         _build.check(lib, err, "cti_any_hit_nee launch")
         any_hit_nee_cuda.launches += 1
         any_hit_nee_cuda.lanes += K * n
@@ -139,11 +176,12 @@ def any_hit_nee_cuda(tri, o3, tmin, dirs, tcaps, exclude_prim=None,
 def reset_counts():
     """Zero the kernels' launch and lane counters and the plain versions'
     call counters."""
-    for f in (closest_hit_cuda, any_hit_nee_cuda):
+    for f in (closest_hit_cuda, any_hit_cuda, any_hit_nee_cuda):
         f.launches = 0
         f.lanes = 0
-    isect.closest_hit_torch.calls = 0
-    isect.any_hit_nee_torch.calls = 0
+    for f in (isect.closest_hit_torch, isect.any_hit_torch,
+              isect.any_hit_nee_torch):
+        f.calls = 0
 
 
 reset_counts()

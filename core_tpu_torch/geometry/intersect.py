@@ -8,6 +8,7 @@ kernel and its plain version agree bit for bit (the kernels are compiled
 with FMA contraction off for that reason):
 
 - closest_hit_torch  <-> cti_closest_hit   (Pallas _intersect_kernel)
+- any_hit_torch      <-> cti_any_hit       (Pallas _any_hit_kernel)
 - any_hit_nee_torch  <-> cti_any_hit_nee   (Pallas _any_hit_nee_kernel)
 
 They serve the CPU path of the renderer, the CPU tests, and the on-card
@@ -116,6 +117,51 @@ def closest_hit_torch(tri, rays_s, exclude_prim=None,
                 u=torch.cat(out_u), v=torch.cat(out_v))
 
 
+def any_hit_torch(tri, rays_s, exclude_prim=None, exclude_prim2=None,
+                  count_tests=False):
+    """Occlusion of one ray per lane (the dirac lights' shadow rays), with
+    the division-free, sign-folded test of the kernel.  Returns [N] bool,
+    or with count_tests (bits, triangle tests per ray): the kernel stops
+    at a ray's first occluder."""
+    any_hit_torch.calls += 1
+    n = rays_s.tmin.shape[0]
+    T = tri.shape[0]
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = _tri_cols(tri)
+    tri_idx = torch.arange(T, device=tri.device)[None, :]
+    out = torch.empty(n, dtype=torch.bool, device=tri.device)
+    tests = torch.empty(n, dtype=torch.int64, device=tri.device)
+    for c0, c1 in _chunks(n, tri.shape[0]):
+        def col(a):
+            return a[c0:c1, None]
+        ox, oy, oz = col(rays_s.o.x), col(rays_s.o.y), col(rays_s.o.z)
+        dx, dy, dz = col(rays_s.d.x), col(rays_s.d.y), col(rays_s.d.z)
+        tmin = col(rays_s.tmin)
+        tmax = col(rays_s.tmax)
+        tcap = torch.where(tmax > 0, tmax, BIG)
+        px = dy * e2z - dz * e2y
+        py = dz * e2x - dx * e2z
+        pz = dx * e2y - dy * e2x
+        det = e1x * px + e1y * py + e1z * pz
+        s = torch.where(det < 0.0, -1.0, 1.0)
+        dd = det.abs()
+        tx = ox - v0x
+        ty = oy - v0y
+        tz = oz - v0z
+        un = (tx * px + ty * py + tz * pz) * s
+        qx = ty * e1z - tz * e1y
+        qy = tz * e1x - tx * e1z
+        qz = tx * e1y - ty * e1x
+        vn = (dx * qx + dy * qy + dz * qz) * s
+        tn = (e2x * qx + e2y * qy + e2z * qz) * s
+        ok = (dd > 1e-12) & (un >= 0.0) & (vn >= 0.0) & (un + vn <= dd) \
+            & (tn > tmin * dd) & (tn < tcap * dd) \
+            & _not_excluded(tri_idx, exclude_prim, exclude_prim2, c0, c1)
+        out[c0:c1] = ok.any(dim=1)
+        tests[c0:c1] = torch.where(out[c0:c1], ok.to(torch.uint8)
+                                   .argmax(dim=1) + 1, T)
+    return (out, tests) if count_tests else out
+
+
 def any_hit_nee_torch(tri, o3, tmin, dirs, tcaps, exclude_prim=None,
                       exclude_prim2=None):
     """Occlusion of K shadow rays per lane that share one origin (the NEE
@@ -172,4 +218,5 @@ def any_hit_nee_torch(tri, o3, tmin, dirs, tcaps, exclude_prim=None,
 
 # call counters: a run can show which path its intersections took
 closest_hit_torch.calls = 0
+any_hit_torch.calls = 0
 any_hit_nee_torch.calls = 0

@@ -9,9 +9,13 @@ and ONE shadow-kernel launch for all its samples: the light-side and
 BSDF-side shadow rays of a lane share its origin and go to the NEE bundle
 kernel together.
 
-Scope: the area, sun and background (IBL) lights with opaque shadow rays
-(the scenes the port renders have no transparency); dirac lights raise
-NotImplementedError.
+Dirac lights (point, spot, directional) take one sample per shading point
+and one occlusion ray each, through scene.any_hit_s (kernel 3 on a brute
+scene, 5 on a flat one, 8 on a grouped one).
+
+Scope: opaque shadow rays only (transparent shadows are no option of the
+ported integrators) and no volume transmittance (the port's scenes carry
+no volumes).
 """
 from __future__ import annotations
 
@@ -56,14 +60,23 @@ def _tile_params(p, n: int):
 
 def do_light_estimation_s(scene, types_present, p, sps, wo: V3, light,
                           loffs, pixel_sample, sampling_offs, active):
-    """One area light's direct contribution (mcintegrator.cc:73-196), SoA.
+    """One light's direct contribution (mcintegrator.cc:73-196), SoA.
 
     pixel_sample, sampling_offs: [N] int64 tensors holding uint32 values.
     active: [N] bool — lanes whose shading is meaningful.  Returns V3 [N].
     """
     if light_base.dirac(light):
-        raise NotImplementedError("dirac lights are not ported to "
-                                  "core_tpu_torch yet")
+        ls = light_base.illuminate_s(light, sps)
+        surf = dispatch.eval_bsdf_s(types_present, p, sps, wo, ls.wi,
+                                    BSDF.ALL)
+        contrib = surf * ls.col * dot3(sps.n, ls.wi).abs()
+        # dead caps on inactive lanes; an infinite directional light's
+        # dist -1 gives an open ray
+        ray = RaysS(o=sps.p, d=ls.wi,
+                    tmin=torch.full_like(ls.dist, SHADOW_BIAS),
+                    tmax=_shadow_tcap(active & ls.valid, ls.dist))
+        shadowed = scene_mod.any_hit_s(scene, ray, exclude_prim=sps.prim)
+        return where3(active & ls.valid & ~shadowed, contrib, 0.0)
     l_offs = (loffs * LOFFS_DELTA) & qmc.MASK32
 
     # batch the light's n samples into one (n*N)-lane wavefront

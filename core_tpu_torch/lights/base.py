@@ -3,8 +3,9 @@
 
 Reference contract: light_t (include/core_api/light.h:52-113).  Lights are
 few, so the integrator unrolls a Python loop over the scene's light list.
-Ported: the area, sun and background (IBL) lights; any other light type
-raises NotImplementedError by name.
+Ported: the area, sun and background (IBL) lights, and the dirac point,
+spot and directional lights (illuminate_s); any other light type raises
+NotImplementedError by name.
 """
 from __future__ import annotations
 
@@ -33,9 +34,11 @@ class LightHitS(NamedTuple):
 
 def _mod(light):
     """The module implementing a light's functions."""
-    from core_tpu_torch.lights import area, bg, sun
+    from core_tpu_torch.lights import area, bg, point, spot, sun
     for mod, cls in ((area, area.AreaLight), (sun, sun.SunLight),
-                     (bg, bg.BgLight)):
+                     (bg, bg.BgLight), (point, point.PointLight),
+                     (spot, spot.SpotLight),
+                     (sun._DirectionalOps, sun.DirectionalLight)):
         if isinstance(light, cls):
             return mod
     raise NotImplementedError(
@@ -57,6 +60,11 @@ def n_samples(light) -> int:
 
 def illum_sample_s(light, sps, s1, s2) -> LightSampleS:
     return _mod(light).illum_sample_s(light, sps, s1, s2)
+
+
+def illuminate_s(light, sps) -> LightSampleS:
+    """The one sample of a dirac light at the shading points."""
+    return _mod(light).illuminate_s(light, sps)
 
 
 def intersect_light_s(light, rays_s) -> LightHitS:

@@ -1,9 +1,12 @@
-"""Sun light (counterpart of core_tpu/lights/sun.py, its SunLight; reference
-src/lights/sunlight.cc:34-76).
+"""Directional and sun lights (counterpart of core_tpu/lights/sun.py;
+reference src/lights/directional.cc, src/lights/sunlight.cc:34-76).
 
-An angular disc around `direction`, sampled as a uniform cone with
-pdf = 1 / (2 pi (1 - cos_angle)); intersectable for MIS, not dirac.  The
-dirac directional light comes with kernel 3 (plain any-hit).
+directional: a dirac parallel light, infinite or bounded to a cylinder of
+`radius` around `pos` (directional.cc:59-78); its functions are the static
+methods of _DirectionalOps, as in core_tpu.  sun: an angular disc around
+`direction`, sampled as a uniform cone with pdf = 1 / (2 pi (1 -
+cos_angle)); intersectable for MIS, not dirac; its functions are this
+module's.
 """
 from __future__ import annotations
 
@@ -14,9 +17,65 @@ import numpy as np
 import torch
 
 from core_tpu_torch.lights.base import LightHitS, LightSampleS
-from core_tpu_torch.vec import V3, dot3, splat3
+from core_tpu_torch.vec import V3, cross3, dot3, splat3
 
 DIRAC = False
+
+
+@dataclass(frozen=True)
+class DirectionalLight:
+    direction: torch.Tensor  # [3] unit, toward the light (wi)
+    color: torch.Tensor      # [3] color * power
+    pos: torch.Tensor        # [3] cylinder anchor (bounded form only)
+    radius: torch.Tensor     # [] cylinder radius
+    infinite: bool = True
+    samples: int = 1
+
+
+def make_directional_light(direction, color, power, infinite=True,
+                           pos=(0, 0, 0), radius=1.0, *,
+                           device) -> DirectionalLight:
+    """Same host math as core_tpu's make_directional_light."""
+    d = np.asarray(direction, np.float64)
+    d = d / max(np.linalg.norm(d), 1e-20)
+
+    def f(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    return DirectionalLight(direction=f(d),
+                            color=f(np.asarray(color, np.float32) * power),
+                            pos=f(pos), radius=f(radius),
+                            infinite=bool(infinite))
+
+
+class _DirectionalOps:
+    """The directional light's functions (core_tpu sun._DirectionalOps)."""
+    DIRAC = True
+
+    @staticmethod
+    def can_intersect(light):
+        return False
+
+    @staticmethod
+    def get_n_samples(light):
+        return 1
+
+    @staticmethod
+    def illuminate_s(light: DirectionalLight, sp) -> LightSampleS:
+        like = sp.p.x
+        wi = splat3(light.direction, like=like)
+        if light.infinite:
+            valid = torch.ones_like(like, dtype=torch.bool)
+            dist = torch.full_like(like, -1.0)    # unbounded shadow ray
+        else:
+            vec = splat3(light.pos) - sp.p
+            c = cross3(wi, vec)
+            perp = torch.sqrt(dot3(c, c))
+            dist = dot3(vec, splat3(light.direction))
+            valid = (perp <= light.radius) & (dist > 0.0)
+        return LightSampleS(valid=valid, wi=wi, dist=dist,
+                            col=splat3(light.color, like=like),
+                            pdf=torch.ones_like(like))
 
 
 @dataclass(frozen=True)

@@ -2,11 +2,14 @@
 
     python3 -m core_tpu_torch.profile_chunk            # the Cornell bench
     python3 -m core_tpu_torch.profile_chunk big        # the 1M-tri scene
+    python3 -m core_tpu_torch.profile_chunk mesh       # the 73.6k-tri scene
 
 Run from the root of a checkout on a machine with a CUDA card.  "cornell"
 renders cornell_box(light_samples=4) with PathOptions(path_samples=8,
 bounces=5, raydepth=2) at 256^2; "big" renders big_scene(ibl_samples=4,
-sun_samples=2) with DirectOptions(raydepth=1) at 1024^2.  It times RUNS
+sun_samples=2) with DirectOptions(raydepth=1) at 1024^2; "mesh" renders
+mesh_scene() at its defaults (256^2, ibl_samples=8, sun_samples=4; the
+flat cluster kernels) with DirectOptions(raydepth=1).  It times RUNS
 unprofiled chunks on the host clock (each ending in a synchronise), then
 profiles one chunk under torch.profiler and prints: the unprofiled median
 wall, the profiled wall, device kernel time and launch count per chunk, the
@@ -28,7 +31,7 @@ from core_tpu_torch.integrators.direct import DirectOptions
 from core_tpu_torch.integrators.path import PathOptions
 from core_tpu_torch.render import (RenderOptions, render_chunk,
                                    scene_material_types)
-from core_tpu_torch.scenes import big_scene, cornell_box
+from core_tpu_torch.scenes import big_scene, cornell_box, mesh_scene
 
 RUNS = 5
 TOP = 18
@@ -42,14 +45,16 @@ def _config(name):
                 RenderOptions(aa_samples=4, spp_chunk=1,
                               integrator_opts=PathOptions(
                                   path_samples=8, bounces=5, raydepth=2)))
+    direct = RenderOptions(aa_samples=1, spp_chunk=1,
+                           integrator="directlight",
+                           integrator_opts=DirectOptions(raydepth=1))
     if name == "big":
         return (big_scene(resx=1024, resy=1024, ibl_samples=4,
-                          sun_samples=2, device="cuda"),
-                RenderOptions(aa_samples=1, spp_chunk=1,
-                              integrator="directlight",
-                              integrator_opts=DirectOptions(raydepth=1)))
+                          sun_samples=2, device="cuda"), direct)
+    if name == "mesh":
+        return mesh_scene(device="cuda"), direct
     raise SystemExit(f"profile_chunk: unknown configuration {name!r} "
-                     "(cornell or big)")
+                     "(cornell, big or mesh)")
 
 
 def main(name="cornell"):

@@ -11,9 +11,10 @@ Scope: one AA pass (aa_passes == 1), the path tracer and the directlight
 integrator, the full-raster chunk; other integrators, adaptive passes and
 row blocks raise NotImplementedError.
 
-Cluster scenes trace their camera wavefront in 32x32 pixel blocks
-(_pixel_grid_blocked), so neighbouring lanes are neighbouring pixels and the
-grouped kernels' warps walk the same clusters; the permutation is undone
+Cluster scenes, flat and grouped, trace their camera wavefront in 32x32
+pixel blocks (_pixel_grid_blocked, as core_tpu's render.py:201 does for
+every cluster scene), so neighbouring lanes are neighbouring pixels and the
+cluster kernels' warps walk the same clusters; the permutation is undone
 before the film splat.  QMC streams key off (x, y, s) only, so the image is
 the same in either order.
 """

@@ -6,9 +6,10 @@ Every integrator reaches geometry through these module functions
 material_params_s), so a caller can count or wrap them in one place.
 
 Intersection: `_backend` is the one dispatch point.  It picks by the
-scene's accel (None = the brute kernels 1 and 2 over the packed triangle
-table; a cluster_intersect.GroupedAccel = the grouped kernels 7 and 8) and
-by its intersector ("cuda" = the hand-written kernels, "torch" = their plain
+scene's accel (None = the brute kernels 1-3 over the packed triangle
+table; a cluster_intersect.ClusterAccel = the flat cluster kernels 4-6; a
+cluster_intersect.GroupedAccel = the grouped kernels 7 and 8) and by its
+intersector ("cuda" = the hand-written kernels, "torch" = their plain
 PyTorch versions).  resolve_intersector picks "cuda" for a scene on a CUDA
 device and "torch" for one on the CPU; nothing else changes the path, and a
 kernel that fails to build or launch raises.
@@ -43,7 +44,7 @@ class Scene:
     lights: tuple                   # tuple of light containers
     camera: Camera
     background: Any = None          # backgrounds.TextureBackground or None
-    accel: Any = None               # cluster_intersect.GroupedAccel or None
+    accel: Any = None               # cluster_intersect accel, None = brute
     textures: Any = None            # textures.base.CompiledTextures or None
     # static capability flags from the material defs at build time
     has_specular: bool = True
@@ -87,10 +88,20 @@ def resolve_intersector(requested: str, device) -> str:
     return requested
 
 
+def _detached(a: torch.Tensor) -> torch.Tensor:
+    """Intersection is not a gradient path (core_tpu/scene.py:81-95), and
+    the kernels read every component as one contiguous array (a dirac
+    light's direction, for one, arrives broadcast)."""
+    return a.detach().contiguous()
+
+
+def _detach_v3(v: V3) -> V3:
+    return V3(_detached(v.x), _detached(v.y), _detached(v.z))
+
+
 def _detach_rays(rays_s: RaysS) -> RaysS:
-    """Intersection is not a gradient path (core_tpu/scene.py:81-95)."""
-    return RaysS(o=rays_s.o.detach(), d=rays_s.d.detach(),
-                 tmin=rays_s.tmin.detach(), tmax=rays_s.tmax.detach())
+    return RaysS(o=_detach_v3(rays_s.o), d=_detach_v3(rays_s.d),
+                 tmin=_detached(rays_s.tmin), tmax=_detached(rays_s.tmax))
 
 
 def _nee_rebucketed(any_hit):
@@ -104,9 +115,17 @@ def _nee_rebucketed(any_hit):
 # (accel kind, intersector) -> query -> function(data, ...)
 _ROUTES = {
     ("brute", "cuda"): {"closest": cuda_intersect.closest_hit_cuda,
+                        "any": cuda_intersect.any_hit_cuda,
                         "nee": cuda_intersect.any_hit_nee_cuda},
     ("brute", "torch"): {"closest": isect.closest_hit_torch,
+                         "any": isect.any_hit_torch,
                          "nee": isect.any_hit_nee_torch},
+    ("flat", "cuda"): {"closest": cuda_cluster.closest_hit_flat_cuda,
+                       "any": cuda_cluster.any_hit_flat_cuda,
+                       "nee": cuda_cluster.any_hit_nee_flat_cuda},
+    ("flat", "torch"): {"closest": ci.closest_hit_flat_torch,
+                        "any": ci.any_hit_flat_torch,
+                        "nee": ci.any_hit_nee_flat_torch},
     ("grouped", "cuda"): {
         "closest": cuda_cluster.closest_hit_grouped_cuda,
         "any": cuda_cluster.any_hit_grouped_cuda,
@@ -118,16 +137,17 @@ _ROUTES = {
 }
 
 
+def accel_kind(accel) -> str:
+    """'brute' (no accel), 'flat' or 'grouped'."""
+    if accel is None:
+        return "brute"
+    return "flat" if isinstance(accel, ci.ClusterAccel) else "grouped"
+
+
 def _backend(scene: Scene, query: str):
     """(data, function) answering `query` ("closest", "any" or "nee") for
     the scene's accel and intersector."""
-    kind = "brute" if scene.accel is None else "grouped"
-    fn = _ROUTES[kind, scene.intersector].get(query)
-    if fn is None:
-        raise NotImplementedError(
-            "one-ray-per-lane any-hit on the brute path needs kernel 3 "
-            "(pallas_intersect._any_hit_kernel), not ported to "
-            "core_tpu_torch yet")
+    fn = _ROUTES[accel_kind(scene.accel), scene.intersector][query]
     return (scene.tri if scene.accel is None else scene.accel), fn
 
 
@@ -151,8 +171,8 @@ def any_hit_nee_s(scene: Scene, origin: V3, tmin, dirs, tcaps,
     bundle).  origin: V3 [N]; dirs: list of K V3 [N]; tcaps: list of K [N].
     Returns [K*N] bool, sample-major."""
     data, fn = _backend(scene, "nee")
-    return fn(data, origin.detach(), tmin.detach(),
-              [d.detach() for d in dirs], [t.detach() for t in tcaps],
+    return fn(data, _detach_v3(origin), _detached(tmin),
+              [_detach_v3(d) for d in dirs], [_detached(t) for t in tcaps],
               exclude_prim=exclude_prim, exclude_prim2=exclude_prim2)
 
 

@@ -5,6 +5,8 @@ walls and blocks.
 mesh_scene: a displaced terrain grid and a smooth torus with marble and
 voronoi textured materials, a clouds environment with importance-sampled
 IBL and a sun light; big_scene is its 1,017,202-triangle size.
+mesh_builder holds mesh_scene's elements but its background and lights;
+add_dirac_lights gives such a builder the dirac variant's lighting.
 
 Each is built host-side in numpy exactly as core_tpu builds it, so the two
 packages' scenes agree leaf by leaf.  Every entry point builds on the card
@@ -186,15 +188,13 @@ def big_scene(resx=1024, resy=1024, ibl_samples=8, sun_samples=4, *,
                       sun_samples=sun_samples, device=device)
 
 
-def mesh_scene(resx=256, resy=256, n_grid=160, torus_u=180, torus_v=64,
-               ibl_samples=8, sun_samples=4, *, device="cuda") -> Scene:
-    """core_tpu's mesh-scene configuration (BASELINE config #3): a
-    displaced terrain grid ((n_grid-1)^2 * 2 tris, shiny-diffuse with a
-    marble diffuse texture) and a smooth torus (torus_u * torus_v * 2 tris, glossy with a voronoi
-    diffuse texture) under a clouds environment with ibl=True and a sun.
-    The intersection path follows core_tpu's rule (environment.accel_for):
-    <= 4,096 tris go brute, else the cluster count decides; the defaults'
-    ~73.6k tris need the flat cluster kernels, not ported yet, and raise."""
+def mesh_builder(resx=256, resy=256, n_grid=160, torus_u=180, torus_v=64, *,
+                 device="cuda"):
+    """An environment.SceneBuilder holding mesh_scene's textures,
+    materials, terrain grid ((n_grid-1)^2 * 2 tris, shiny-diffuse with a
+    marble diffuse texture), torus (torus_u * torus_v * 2 tris, glossy with
+    a voronoi diffuse texture) and camera: everything but its background
+    and lights."""
     from core_tpu_torch.environment import SceneBuilder
 
     b = SceneBuilder(check_device(device))
@@ -228,6 +228,21 @@ def mesh_scene(resx=256, resy=256, n_grid=160, torus_u=180, torus_v=64,
                 (0.0, 1.6, 0.0), b.material_index("torus"))
     b.assembler.smooth_mesh(m2, 80.0)
 
+    b.camera = make_perspective(pos=(5.2, 3.4, -5.6), look=(0.0, 1.2, 0.0),
+                                up=(5.2, 4.4, -5.6), resx=resx, resy=resy,
+                                focal=1.25, device=b.device)
+    return b
+
+
+def mesh_scene(resx=256, resy=256, n_grid=160, torus_u=180, torus_v=64,
+               ibl_samples=8, sun_samples=4, *, device="cuda") -> Scene:
+    """core_tpu's mesh-scene configuration (BASELINE config #3):
+    mesh_builder's elements under a clouds environment with ibl=True and a
+    sun.  The intersection path follows core_tpu's rule
+    (environment.accel_for): <= 4,096 tris go brute, else the cluster count
+    decides; the defaults' 73,602 tris (512 clusters) take the flat cluster
+    kernels 4-6."""
+    b = mesh_builder(resx, resy, n_grid, torus_u, torus_v, device=device)
     b.create("background", "world", ParamMap({
         "type": "textureback", "texture": "skytex", "ibl": True,
         "ibl_samples": ibl_samples, "power": 1.0}))
@@ -235,8 +250,29 @@ def mesh_scene(resx=256, resy=256, n_grid=160, torus_u=180, torus_v=64,
         "type": "sunlight", "direction": (0.45, 0.8, 0.3),
         "color": (1.0, 0.95, 0.85), "power": 1.6, "angle": 0.5,
         "samples": sun_samples}))
-
-    b.camera = make_perspective(pos=(5.2, 3.4, -5.6), look=(0.0, 1.2, 0.0),
-                                up=(5.2, 4.4, -5.6), resx=resx, resy=resy,
-                                focal=1.25, device=b.device)
     return b.compile_scene()
+
+
+# the dirac variant's lights: (name, parameters), one of each dirac type
+DIRAC_LIGHTS = (
+    ("point", {"type": "pointlight", "from": (2.0, 3.5, -2.0),
+               "power": 12.0}),
+    ("spot", {"type": "spotlight", "from": (-2.5, 4.0, -1.5),
+              "to": (0.0, 1.2, 0.0), "cone_angle": 35.0, "blend": 0.15,
+              "power": 20.0}),
+    ("dir", {"type": "directional", "direction": (0.45, 0.8, 0.3),
+             "infinite": True, "power": 1.2}),
+)
+
+
+def add_dirac_lights(b):
+    """Light a mesh_builder's scene as the dirac variant of mesh_scene: the
+    clouds background without IBL (camera rays see it; no background light
+    is made) and, for the sun, DIRAC_LIGHTS.  Every light of it goes
+    through the one-ray any-hit kernels (3 brute, 5 flat)."""
+    b.create("background", "world", ParamMap({
+        "type": "textureback", "texture": "skytex", "ibl": False,
+        "power": 1.0}))
+    for name, params in DIRAC_LIGHTS:
+        b.create("light", name, ParamMap(params))
+    return b

@@ -1,9 +1,9 @@
 """The port's grouped-cluster path against core_tpu on the same numpy inputs:
-the host build (build_clusters, group_clusters) exactly, the NEE bucket key
-exactly, and the plain versions of kernels 7 and 8 (closest hit, any hit,
-the re-bucketed NEE bundle) against core_tpu's jnp brute-force intersector
-(geometry/intersect.py): identical prim and occlusion bits, t/u/v within
-rtol 1e-6.
+the host build (build_clusters, group_clusters) exactly, the choice of
+path by cluster count, the NEE bucket key exactly, and the plain versions
+of kernels 7 and 8 (closest hit, any hit, the re-bucketed NEE bundle)
+against core_tpu's jnp brute-force intersector (geometry/intersect.py):
+identical prim and occlusion bits, t/u/v within rtol 1e-6.
 
 Geometry: the port's small mesh_scene (n_grid=24, torus 24x12, 1,634
 triangles; its leaves equal core_tpu's, see test_torch_mesh_scene.py),
@@ -207,12 +207,13 @@ def test_plain_rebucketed_nee_bundle_matches_brute(geo):
     assert 0.05 < want[:2 * n].mean() < 0.95 and not want[2 * n:].any()
 
 
-@pytest.mark.parametrize("n_tris", [131_583, 131_584])
+@pytest.mark.parametrize("n_tris", [4_097, 131_583, 131_584])
 def test_accel_path_follows_core_tpu(n_tris):
     """Above 4,096 triangles core_tpu takes the grouped path when the
     median split gives >= 1,024 clusters (of <= 256 triangles below
-    262,144): 131,583 triangles give 1,023 (flat, kernels 4-6), 131,584
-    give 1,024 (grouped).  The port decides the same way."""
+    262,144), else the flat sweep: 4,097 triangles give 17 clusters and
+    131,583 give 1,023 (flat, kernels 4-6), 131,584 give 1,024 (grouped).
+    The port decides the same way, with the same boxes and triangles."""
     from core_tpu_torch.environment import accel_for
     rng = np.random.default_rng(n_tris)
     centers = rng.uniform(-5.0, 5.0, (n_tris, 1, 3))
@@ -221,12 +222,17 @@ def test_accel_path_follows_core_tpu(n_tris):
     vidx = np.arange(3 * n_tris, dtype=np.int32).reshape(n_tris, 3)
     cam = np.array([5.0, 3.0, -5.0], np.float32)
     jc = jck.build_clusters(verts, vidx, sort_origin=cam)
-    if jc.grouped is None:
-        assert jc.aabb.shape[0] == 1023
-        with pytest.raises(NotImplementedError, match="kernels 4-6"):
-            accel_for(verts, vidx, cam, "cpu")
-        return
     acc = accel_for(verts, vidx, cam, "cpu")
+    if jc.grouped is None:
+        assert jc.aabb.shape[0] == {4_097: 17, 131_583: 1023}[n_tris]
+        assert isinstance(acc, ci.ClusterAccel) and acc.leaf == 256
+        np.testing.assert_array_equal(acc.aabb.numpy(), np.asarray(jc.aabb))
+        tris = np.asarray(jc.tris)
+        np.testing.assert_array_equal(acc.tris.numpy(), tris[..., :9])
+        np.testing.assert_array_equal(acc.tri_id.numpy(), tris[..., 9])
+        assert int(acc.count.sum()) == n_tris
+        return
+    assert isinstance(acc, ci.GroupedAccel)
     assert acc.g_aabb.shape[0] == 16 and acc.leaf == 256
     for f in ("g_aabb", "c_aabb", "o_aabb"):
         np.testing.assert_array_equal(getattr(acc, f).numpy(),
@@ -234,18 +240,22 @@ def test_accel_path_follows_core_tpu(n_tris):
 
 
 def test_scene_any_hit_routes_by_accel(geo):
-    """scene.any_hit_s answers through kernel 8's path on a grouped scene
-    and names kernel 3 on the brute path, which it would need."""
+    """scene.any_hit_s answers through kernel 3's path on the brute scene
+    and through kernel 8's on a grouped one, and both agree."""
     import dataclasses
     from core_tpu_torch import scene as tscene
+    from core_tpu_torch.geometry import intersect as isect
     sc = mesh_scene(resx=8, resy=8, n_grid=24, torus_u=24, torus_v=12,
                     ibl_samples=2, sun_samples=1, device="cpu")
     o, d = _rays(11, 256)
     tmin = np.full(256, 5e-4, np.float32)
     tmax = np.full(256, 4.0, np.float32)
     rays = _rays_s(o, d, tmin, tmax)
-    with pytest.raises(NotImplementedError, match="kernel 3"):
-        tscene.any_hit_s(sc, rays)
+    calls = isect.any_hit_torch.calls
+    brute = tscene.any_hit_s(sc, rays)
+    assert isect.any_hit_torch.calls == calls + 1
+    assert torch.equal(brute, isect.any_hit_torch(sc.tri, rays))
     acc = _accel(geo, 32)
     got = tscene.any_hit_s(dataclasses.replace(sc, accel=acc), rays)
     assert torch.equal(got, ci.any_hit_grouped_torch(acc, rays))
+    assert torch.equal(got, brute) and 0.05 < float(got.float().mean()) < 0.95

@@ -1,5 +1,9 @@
 """The CUDA intersection kernels against their plain PyTorch versions on
-the card (the small-size twin of chip_smoke.py's kernel phase).
+the card (the small-size twin of chip_smoke.py's kernel phases): kernels
+1-3 on the Cornell box, the flat cluster kernels 4-6 on a 4,274-triangle
+mesh scene, the grouped kernels 7-8 on a forced-grouped small mesh scene,
+and renders through the kernels against renders through the plain
+versions.
 
 Marked `cuda`: each test asks its fixture for a CUDA device and skips
 without one.  Run on a GPU host with
@@ -184,5 +188,89 @@ def test_grouped_render_through_kernels_equals_plain(device):
     opts = RenderOptions(aa_samples=1, integrator="directlight",
                          integrator_opts=DirectOptions(raydepth=1))
     imgs = [render_image(_grouped_scene(device, isec), opts)[0]
+            for isec in ("cuda", "torch")]
+    assert torch.equal(imgs[0], imgs[1])
+
+
+# ---- kernel 3 (brute any hit) and the flat cluster kernels (4-6) ----
+
+def test_any_hit_kernel_matches_plain(device):
+    n = 70_000
+    _, tri, rays, ex, _ = _inputs(device, n, seed=5)
+    rays = rays._replace(tmax=torch.where(rays.tmax < 100.0, 2.5e-5,
+                                          rays.tmax))        # some dead
+    launches = ck.any_hit_cuda.launches
+    got = ck.any_hit_cuda(tri, rays, ex, ex.flip(0))
+    want = isect.any_hit_torch(tri, rays, ex, ex.flip(0))
+    torch.cuda.synchronize()
+    assert ck.any_hit_cuda.launches == launches + 1
+    assert torch.equal(got, want)
+    assert 0.05 < float(got.float().mean()) < 0.95
+
+
+def _flat_scene(device, intersector="cuda", dirac=False):
+    """A small flat mesh scene (4,274 triangles, 32 clusters), optionally
+    with the dirac variant's lights."""
+    import dataclasses
+    from core_tpu_torch.scenes import add_dirac_lights, mesh_builder, \
+        mesh_scene
+    size = dict(n_grid=44, torus_u=24, torus_v=12)
+    if dirac:
+        sc = add_dirac_lights(mesh_builder(32, 32, **size,
+                                           device=device)).compile_scene()
+    else:
+        sc = mesh_scene(resx=32, resy=32, ibl_samples=2, sun_samples=1,
+                        **size, device=device)
+    return dataclasses.replace(sc, intersector=intersector)
+
+
+def test_flat_closest_and_any_kernels_match_plain(device):
+    from core_tpu_torch.geometry import cluster_intersect as ci
+    from core_tpu_torch.geometry import cuda_cluster as cc
+    acc = _flat_scene(device).accel
+    assert isinstance(acc, ci.ClusterAccel)
+    n = 5000
+    rays, ex, _ = _mesh_rays(device, n, seed=11)
+    got = cc.closest_hit_flat_cuda(acc, rays, ex, ex.flip(0))
+    want = ci.closest_hit_flat_torch(acc, rays, ex, ex.flip(0))
+    torch.cuda.synchronize()
+    assert torch.equal(got.prim, want.prim)
+    for f in ("t", "u", "v"):
+        assert torch.equal(getattr(got, f), getattr(want, f))
+    rays = rays._replace(tmax=torch.where(rays.tmax < 0.5, 2.5e-4,
+                                          rays.tmax))       # some dead
+    got = cc.any_hit_flat_cuda(acc, rays, ex)
+    assert torch.equal(got, ci.any_hit_flat_torch(acc, rays, ex))
+    assert 0.05 < float(got.float().mean()) < 0.95
+
+
+@pytest.mark.parametrize("K", ck.NEE_K)
+def test_flat_nee_kernel_matches_plain(device, K):
+    from core_tpu_torch.geometry import cluster_intersect as ci
+    from core_tpu_torch.geometry import cuda_cluster as cc
+    acc = _flat_scene(device).accel
+    n = 3000
+    rays, ex, g = _mesh_rays(device, n, seed=20 + K)
+    dirs = [vec.v3(_unit(torch.randn((n, 3), generator=g, device=device)))
+            for _ in range(K)]
+    caps = [torch.full((n,), (-1.0, 3.0, 0.5, 2.5e-4)[k % 4], device=device)
+            for k in range(K)]
+    launches = cc.any_hit_nee_flat_cuda.launches
+    got = cc.any_hit_nee_flat_cuda(acc, rays.o, rays.tmin, dirs, caps, ex)
+    want = ci.any_hit_nee_flat_torch(acc, rays.o, rays.tmin, dirs, caps, ex)
+    torch.cuda.synchronize()
+    assert cc.any_hit_nee_flat_cuda.launches == launches + 1
+    assert torch.equal(got, want)
+    bits = got.view(K, n)
+    assert not bool(bits[3::4].any()) and 0.05 < float(
+        bits[0].float().mean()) < 0.95
+
+
+@pytest.mark.parametrize("dirac", [False, True])
+def test_flat_render_through_kernels_equals_plain(device, dirac):
+    from core_tpu_torch.integrators.direct import DirectOptions
+    opts = RenderOptions(aa_samples=1, integrator="directlight",
+                         integrator_opts=DirectOptions(raydepth=1))
+    imgs = [render_image(_flat_scene(device, isec, dirac), opts)[0]
             for isec in ("cuda", "torch")]
     assert torch.equal(imgs[0], imgs[1])
