@@ -29,9 +29,10 @@ Phases, with their seconds:
                one sun NEE bundle after re-bucketing; each kernel run on the
                whole input and timed, every lane of a fixed random subset of
                65,536 held against the plain version (which also counts the
-               triangle tests behind the bound); the re-bucketing timed on
-               its own; then one warm-up and three timed 1-spp chunks with
-               rays counted, launch counters and image checks
+               triangle and slab tests behind the bound); the re-bucketing
+               of each of the chunk's four bundles timed on its own; then
+               one warm-up and three timed 1-spp chunks with rays counted,
+               launch counters and image checks
   6. big slice — a 64^2 render of the same 1M-triangle scene through the
                kernels and through the plain versions must be identical
   7. mesh    — the 73.6k-triangle flat-cluster path (mesh256_dl_fwd):
@@ -41,9 +42,9 @@ Phases, with their seconds:
                captured from one chunk: camera and glossy-chain closest
                hits, one IBL (K=16) and one sun (K=8) bundle; each kernel run
                on the whole input and timed, every lane held against the
-               plain version (which counts the triangle tests behind the
-               bound); then one warm-up and three timed 1-spp chunks with
-               rays counted, launch counters and image checks
+               plain version (which counts the triangle and slab tests
+               behind the bound); then one warm-up and three timed 1-spp
+               chunks with rays counted, launch counters and image checks
   8. dirac   — the dirac variant of mesh_scene (the background without IBL;
                a point, a spot and a directional light instead of the sun)
                at 73,602 triangles (flat: kernels 4 and 5) and at 1,634
@@ -105,6 +106,9 @@ OPS_CLOSEST = 57
 OPS_ANY = 56
 OPS_NEE_LANE = 35
 OPS_NEE_DIR = 29
+# and per slab test of a cluster, octet or group box (6 subtractions, 6
+# products, 12 min/max, 1 compare)
+OPS_SLAB = 25
 
 
 def bound(ops, nbytes):
@@ -162,7 +166,7 @@ def phase_build():
                           r"any_hit_nee|any_hit))_kernel(?:ILi(\d+)E)?",
                           m.group(1))
             kernel = (m.group(1) if not k else k.group(1) if not k.group(2)
-                      else f"{k.group(1)}<K={k.group(2)}>")
+                      else f"{k.group(1)}<{k.group(2)}>")
         elif "Used" in ln or "spill" in ln:
             print(f"build: ptxas {kernel}: {ln.split(':', 1)[-1].strip()}")
     return secs
@@ -656,7 +660,7 @@ def _check_big_kernel(acc, what, kind, rays, ex0, ex1, gen):
     idx = torch.randperm(n, generator=gen, device="cuda")[:SUBSET] \
         .sort().values
     sub, s0, s1 = _subset(rays, ex0, ex1, idx)
-    plain_ms, (want, tests) = cuda_time_ms(
+    plain_ms, (want, tests, slabs) = cuda_time_ms(
         lambda: plain(acc, sub, s0, s1, count_tests=True), 1, warmup=0)
     sync()
     m = idx.numel()
@@ -674,13 +678,15 @@ def _check_big_kernel(acc, what, kind, rays, ex0, ex1, gen):
         ops_per_test, out_bytes = OPS_ANY, 1
         frac = float(out.float().mean())
     tests_est = float(tests.sum()) * n / m
-    b = bound(tests_est * ops_per_test,
+    slabs_est = float(slabs.sum()) * n / m
+    b = bound(tests_est * ops_per_test + slabs_est * OPS_SLAB,
               n * (8 * 4 + 2 * 4) + _accel_bytes(acc) + n * out_bytes)
     print(f"big: {what}: {n} lanes, kernel {ms:.4f} ms "
           f"({n / ms / 1e3:.3f} Mrays/s), plain {plain_ms:.4f} ms on "
           f"{m} lanes; {'hit' if kind == 'closest' else 'occluded'} "
-          f"{frac:.4f}; triangle tests {tests_est / n:.1f} per lane "
-          f"(plain count on the subset), bound {b[0]:.4f} ms ({b[1]})")
+          f"{frac:.4f}; triangle tests {tests_est / n:.1f} and slab tests "
+          f"{slabs_est / n:.1f} per lane (plain count on the subset), "
+          f"bound {b[0]:.4f} ms ({b[1]})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b[0], "bound_by": b[1], "library_ms": None,
             "lanes": n, "plain_lanes": m}
@@ -715,18 +721,19 @@ def phase_big_kernels(scene):
                      ("grouped_any_hit", sun_row)):
         rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"],
                                      extra["max_abs_err"])
-    # the re-bucketing alone (key, sort, gathers, scatter) on the IBL bundle
-    _, o3, tmin, dirs, tcaps, e0, e1 = next(
-        c for c in nees if len(c[3]) == 2 * BIG_IBL)
-
+    # the re-bucketing alone (key, sort, gathers, scatter) of each bundle
     def no_sweep(acc_, rays, *a):
         return torch.zeros(rays.tmin.shape[0], dtype=torch.bool,
                            device="cuda")
 
-    sort_ms, _ = cuda_time_ms(lambda: ci.any_hit_nee_clusters_s(
-        acc, o3, tmin, dirs, tcaps, e0, e1, no_sweep), 3, warmup=1)
-    print(f"big: re-bucketing of the IBL bundle ({tmin.numel()} lanes x "
-          f"K={len(dirs)}): {sort_ms:.4f} ms")
+    for i, (_, o3, tmin, dirs, tcaps, e0, e1) in enumerate(nees):
+        name = "IBL" if len(dirs) == 2 * BIG_IBL else "sun"
+        hit = "camera" if i < len(nees) // 2 else "glossy-chain"
+        sort_ms, _ = cuda_time_ms(lambda: ci.any_hit_nee_clusters_s(
+            acc, o3, tmin, dirs, tcaps, e0, e1, no_sweep), 3, warmup=1)
+        print(f"big: re-bucketing of the {name} bundle at the {hit} hit "
+              f"({tmin.numel()} lanes x K={len(dirs)}; key, sort, gathers, "
+              f"scatter): {sort_ms:.4f} ms")
     return rows
 
 
@@ -894,15 +901,16 @@ def _check_captured(what, q, args, kw):
         n, K = tmin.shape[0], len(dirs)
         ms, out = cuda_time_ms(lambda: cc.any_hit_nee_flat_cuda(
             data, o3, tmin, dirs, tcaps, ex0, ex1), 5, warmup=1)
-        plain_ms, (want, lane_t, dir_t) = cuda_time_ms(
+        plain_ms, (want, lane_t, dir_t, slabs) = cuda_time_ms(
             lambda: ci.any_hit_nee_flat_torch(data, o3, tmin, dirs, tcaps,
                                               ex0, ex1, count_tests=True),
             1, warmup=0)
         ops = float(lane_t.sum()) * OPS_NEE_LANE \
-            + float(dir_t.sum()) * OPS_NEE_DIR
+            + float(dir_t.sum()) * OPS_NEE_DIR + float(slabs.sum()) * OPS_SLAB
         nbytes = n * (4 * 4 + ex_bytes + K * 16) + data_bytes + K * n
         tests = f"{float(lane_t.sum()) / n:.1f} lane and " \
-            f"{float(dir_t.sum()) / n:.1f} direction"
+            f"{float(dir_t.sum()) / n:.1f} direction, slab tests " \
+            f"{float(slabs.sum()) / n:.1f}"
         lanes = f"{n} lanes x K={K}"
     else:
         rays = args[1]
@@ -914,14 +922,17 @@ def _check_captured(what, q, args, kw):
                     (cc.any_hit_flat_cuda, ci.any_hit_flat_torch))}[q]
         ms, out = cuda_time_ms(lambda: kern(data, rays, ex0, ex1), 5,
                                warmup=1)
-        plain_ms, (want, tests_n) = cuda_time_ms(
+        plain_ms, (want, tests_n, *slabs) = cuda_time_ms(
             lambda: plain(data, rays, ex0, ex1, count_tests=True), 1,
             warmup=0)
         per_test = OPS_CLOSEST if q == "closest" else OPS_ANY
-        ops = float(tests_n.sum()) * per_test
+        # the brute any hit (kernel 3) has no gates
+        n_slabs = float(slabs[0].sum()) if slabs else 0.0
+        ops = float(tests_n.sum()) * per_test + n_slabs * OPS_SLAB
         nbytes = n * (8 * 4 + ex_bytes + (16 if q == "closest" else 1)) \
             + data_bytes
-        tests = f"{float(tests_n.sum()) / n:.1f}"
+        tests = f"{float(tests_n.sum()) / n:.1f}, slab tests " \
+            f"{n_slabs / n:.1f}"
         lanes = f"{n} lanes"
     sync()
     if q == "closest":

@@ -37,8 +37,8 @@ _SIGNATURES = {
     "cti_cluster_closest_hit": ([_P] * 4 + [_I] * 2 + [_P] * 14 + [_I, _P],
                                 _I),
     "cti_cluster_any_hit": ([_P] * 4 + [_I] * 2 + [_P] * 11 + [_I, _P], _I),
-    "cti_cluster_any_hit_nee": ([_P] * 4 + [_I] * 2 + [_P] * 6
-                                + [_I, _P, _P, _I, _P], _I),
+    "cti_cluster_any_hit_nee": ([_P] * 4 + [_I] * 2 + [_P] * 11
+                                + [_I] * 2 + [_P], _I),
     "cti_grouped_closest_hit": ([_P] * 6 + [_I] * 3 + [_P] * 14 + [_I, _P],
                                 _I),
     "cti_grouped_any_hit": ([_P] * 6 + [_I] * 3 + [_P] * 11 + [_I, _P], _I),
@@ -61,22 +61,24 @@ def _nvcc() -> str:
                        "toolkit on PATH or in CUDA_HOME")
 
 
-def library_path() -> Path:
+def library_path(sources=None) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() if sources is None else sources:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libcore_tpu_torch_{h.hexdigest()[:16]}.so"
 
 
-def build() -> tuple[Path, float]:
-    """Compile the kernels if the library for these sources is missing.
-    Returns (library path, seconds spent compiling; 0.0 when cached)."""
-    lib = library_path()
+def build(sources=None) -> tuple[Path, float]:
+    """Compile the kernels (csrc/, or the given .cu/.cuh paths) if their
+    library is missing.  Returns (library path, seconds spent compiling;
+    0.0 when cached)."""
+    sources = _sources() if sources is None else [Path(s) for s in sources]
+    lib = library_path(sources)
     if lib.exists():
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [s for s in _sources() if s.suffix == ".cu"]
+    cu = [s for s in sources if s.suffix == ".cu"]
     nvcc = _nvcc()
     t0 = time.perf_counter()
     # compile into a private directory and rename the library into place,
@@ -103,16 +105,20 @@ def build() -> tuple[Path, float]:
     return lib, time.perf_counter() - t0
 
 
-@functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """The kernels' library, built on first use, with argtypes declared."""
-    path, _ = build()
+def open_library(path) -> ctypes.CDLL:
+    """A built library, with the entry points' argtypes declared."""
     lib = ctypes.CDLL(str(path))
     for name, (argtypes, restype) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """The kernels' library, built on first use, with argtypes declared."""
+    return open_library(build()[0])
 
 
 def check(lib, code: int, what: str):

@@ -11,9 +11,9 @@
 // Their plain PyTorch versions are closest_hit_flat_torch,
 // any_hit_flat_torch, any_hit_nee_flat_torch, closest_hit_grouped_torch and
 // any_hit_grouped_torch in geometry/cluster_intersect.py, which compute the
-// same functions in the same visit order.  Like intersect.cu this file is
-// compiled with --fmad=false, so every product is rounded on its own as in
-// the plain versions, and kernel and plain version agree bit for bit.
+// same functions.  Like intersect.cu this file is compiled with
+// --fmad=false, so every product is rounded on its own as in the plain
+// versions, and kernel and plain version agree bit for bit.
 //
 // Data.  The flat accel (ClusterAccel, scenes of fewer than 1,024
 // clusters): aabb [C, 8].  The grouped accel (GroupedAccel): g_aabb [G, 8],
@@ -21,40 +21,55 @@
 // tris [C, leaf, 9] (v0, e1, e2), tri_id [C, leaf] and count [C] (a
 // cluster's triangles come first).  Boxes are bmin xyz, bmax xyz, 2 pad
 // floats.  Exclusions compare the triangle id (tri_id), not the slot.
+// Every gate is the slab test of cluster_intersect.py:_slab_test (same
+// eps-guarded reciprocal, same min/max order), applied by each ray to its
+// own boxes with its own cap.
 //
-// Design.  One thread per ray (per shading-point lane for the NEE bundle).
-// The thread walks the clusters in build order -- flat: all of them, their
-// boxes staged in shared memory (at most 1,023 x 32 B); grouped: groups,
-// octets, clusters, boxes read through the read-only cache -- gates each
-// level with the slab test of cluster_intersect.py:_slab_test (same
-// eps-guarded reciprocal, same min/max order), and runs Moller-Trumbore
-// over a passing cluster's triangles, read from global memory.
-//   closest hit: the gates use tcap = min(tmax cap, best t) at the moment
-//                they are tested, so everything behind the first hit is
-//                culled; a hit is kept only if t < best t (strict: ties keep
-//                the first triangle visited).
-//   any hit:     the gates use the ray's cap; the division-free, sign-folded
-//                test; the thread stops at its first hit (the TPU
-//                approximates that with lanes dropping out of the gates).
-//   NEE bundle:  K directions per thread in registers, each gated with its
-//                own cap while it has no hit; a cluster that any direction
-//                passes has its origin-only terms computed once per
-//                triangle, then the det/un/vn tests of the passing
-//                directions (_any_nee_kernel, :376-427).
-// On the TPU the walk is a lockstep sweep of 1024-ray tiles with DMA'd
-// triangle blocks (and, grouped, per-tile group orders); none of that is
-// carried over.
+// Kernels 4, 5 and 7: one thread per ray walks the clusters in build order
+// -- flat: all of them, their boxes staged in shared memory (at most 1,023 x
+// 32 B); grouped: groups, octets, clusters, boxes read through the
+// read-only cache -- and runs Moller-Trumbore over a passing cluster's
+// triangles, read from global memory.  Closest hit gates with tcap =
+// min(tmax cap, best t) and keeps a hit only if t < best t (ties keep the
+// first triangle visited); any hit stops at the first occluder.  They lean
+// on coherent input order (camera rays in 32x32 pixel blocks).
 //
-// What bounds them on the H100: operations.  Each triangle test is ~57
-// float operations (the NEE bundle: 35 per lane and triangle plus 29 per
-// direction) against ~40 bytes of ray I/O per lane, and the triangle tables
-// (2.7 MB for the 73.6k-triangle scene, ~38 MB at 1M) fit the 50 MB L2.  So
-// the kernels are bound by FLOPs and by divergence: threads of a warp that
-// walk different clusters serialise.  The design does nothing more about
-// that yet than rely on coherent input order (camera rays in 32x32 pixel
-// blocks; grouped NEE rays re-bucketed by direction and origin before the
-// launch); shared-memory triangle staging and per-warp ordering are left
-// for a later change.
+// Kernels 6 and 8, the NEE occlusion sweeps.  What bounds them on this
+// card is not the float work (~25 operations per slab test, 56-64 per
+// triangle test; the triangle tables, 2.7 MB at 73.6k triangles and ~38 MB
+// at 1M, sit in the 50 MB L2) but how a warp meets it.  Walked one ray (or
+// one lane of K directions) per thread, a warp serialises over the union of
+// the clusters its threads pass, and while one thread tests a cluster's
+// 128-256 triangles, reading 10 scattered words per triangle, the threads
+// that did not pass it wait; and a lane holding K=16 directions in
+// registers (150 registers) leaves 12 warps on an SM.  So both kernels are
+// cooperative sweeps:
+//   - one thread per shadow ray.  Kernel 6 puts a lane's K rays on
+//     neighbouring threads (thread i: direction i % K of lane i / K), so a
+//     warp holds rays of few origins; kernel 8's rays arrive re-bucketed by
+//     _nee_bucket_key (octahedral direction bin major, origin Morton cell
+//     minor);
+//   - a walk (kernel 6: the block of 128 threads; kernel 8: one warp)
+//     gates each level with every thread's own slab test and takes the OR
+//     of the gates: kernel 6 32 cluster boxes at a time, staged in shared
+//     memory; kernel 8 the group box (read-only cache), then the group's
+//     octet and cluster boxes, staged in shared memory;
+//   - each cluster some thread passes is copied once into shared memory
+//     with cp.async (16-byte pieces; a cluster's [leaf, 9] block is
+//     contiguous), double-buffered so the next one loads while this one is
+//     tested;
+//   - the test is triangle-parallel in each warp: the warp takes its rays
+//     that passed, one by one, and its 32 lanes test 32 triangles at a time
+//     (warp_test), so a warp whose rays pass few clusters makes few tests;
+//   - a ray stops at its first occluder; a dead ray (0 < tcap <= tmin)
+//     never starts; the walk ends when all its rays are done.
+// Only a ray's own gates decide which triangles it is tested against, so
+// the bits are those of the plain versions: a triangle tested under a box
+// the ray's gate rejected could occlude at a box edge where the plain
+// version does not.  The OR of the gates only decides what is staged.
+// Kernel 6 keeps the shared-origin test's expression tree (origin terms m1,
+// w, qvec, tnum, then det, un, vn) for each ray.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,6 +78,7 @@ namespace {
 constexpr int kBlock = 128;
 constexpr int kOctet = 8;
 constexpr float kBig = 3.0e38f;
+constexpr int kStaticSmem = 48 * 1024;
 
 struct Ray {
   float ox, oy, oz;
@@ -189,39 +205,78 @@ __device__ __forceinline__ void cluster_closest(const Tris& a, int c,
   }
 }
 
+// The division-free, sign-folded any-hit test of triangle q (9 floats, v0
+// e1 e2) with id `id` (cluster_intersect.py:_mt_any's arithmetic).
+__device__ __forceinline__ bool occludes(const float* q, int id,
+                                         const Lane& l) {
+  const float v0x = q[0], v0y = q[1], v0z = q[2];
+  const float e1x = q[3], e1y = q[4], e1z = q[5];
+  const float e2x = q[6], e2y = q[7], e2z = q[8];
+  const float dx = l.dx, dy = l.dy, dz = l.dz;
+  const float px = dy * e2z - dz * e2y;
+  const float py = dz * e2x - dx * e2z;
+  const float pz = dx * e2y - dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const float s = det < 0.f ? -1.f : 1.f;
+  const float dd = fabsf(det);
+  const float tx = l.r.ox - v0x;
+  const float ty = l.r.oy - v0y;
+  const float tz = l.r.oz - v0z;
+  const float un = (tx * px + ty * py + tz * pz) * s;
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  const float vn = (dx * qx + dy * qy + dz * qz) * s;
+  const float tn = (e2x * qx + e2y * qy + e2z * qz) * s;
+  return dd > 1e-12f && un >= 0.f && vn >= 0.f && un + vn <= dd &&
+         tn > l.r.tmin * dd && tn < l.tcap * dd && id != l.ex0 &&
+         id != l.ex1;
+}
+
+// The shared-origin test of kernel 6 (cluster_intersect.py:_mt_nee's
+// arithmetic): the origin terms, then the direction's dot products.
+__device__ __forceinline__ bool occludes_nee(const float* q, const Lane& l) {
+  const float v0x = q[0], v0y = q[1], v0z = q[2];
+  const float e1x = q[3], e1y = q[4], e1z = q[5];
+  const float e2x = q[6], e2y = q[7], e2z = q[8];
+  const float tx = l.r.ox - v0x;
+  const float ty = l.r.oy - v0y;
+  const float tz = l.r.oz - v0z;
+  // m1 = e2 x e1  (det = d . m1)
+  const float m1x = e2y * e1z - e2z * e1y;
+  const float m1y = e2z * e1x - e2x * e1z;
+  const float m1z = e2x * e1y - e2y * e1x;
+  // w = e2 x tvec  (u_num = d . w)
+  const float wx = e2y * tz - e2z * ty;
+  const float wy = e2z * tx - e2x * tz;
+  const float wz = e2x * ty - e2y * tx;
+  // qvec = tvec x e1  (v_num = d . qvec; t_num = e2 . qvec)
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  const float tnum = e2x * qx + e2y * qy + e2z * qz;
+  const float dx = l.dx, dy = l.dy, dz = l.dz;
+  const float det = dx * m1x + dy * m1y + dz * m1z;
+  const float s = det < 0.f ? -1.f : 1.f;
+  const float dd = fabsf(det);
+  const float un = (dx * wx + dy * wy + dz * wz) * s;
+  const float vn = (dx * qx + dy * qy + dz * qz) * s;
+  const float tn = tnum * s;
+  return dd > 1e-12f && un >= 0.f && vn >= 0.f && un + vn <= dd &&
+         tn > l.r.tmin * dd && tn < l.tcap * dd;
+}
+
 // true when any triangle of cluster c occludes the ray in (tmin, tcap)
 __device__ __forceinline__ bool cluster_any(const Tris& a, int c,
                                             const Lane& l) {
   const int cnt = __ldg(a.count + c);
   const float* tp = a.tris + static_cast<size_t>(c) * a.leaf * 9;
   const int* ip = a.tri_id + static_cast<size_t>(c) * a.leaf;
-  const float dx = l.dx, dy = l.dy, dz = l.dz;
   for (int k = 0; k < cnt; ++k) {
-    const float* q = tp + k * 9;
-    const float v0x = __ldg(q + 0), v0y = __ldg(q + 1), v0z = __ldg(q + 2);
-    const float e1x = __ldg(q + 3), e1y = __ldg(q + 4), e1z = __ldg(q + 5);
-    const float e2x = __ldg(q + 6), e2y = __ldg(q + 7), e2z = __ldg(q + 8);
-    const float px = dy * e2z - dz * e2y;
-    const float py = dz * e2x - dx * e2z;
-    const float pz = dx * e2y - dy * e2x;
-    const float det = e1x * px + e1y * py + e1z * pz;
-    const float s = det < 0.f ? -1.f : 1.f;
-    const float dd = fabsf(det);
-    const float tx = l.r.ox - v0x;
-    const float ty = l.r.oy - v0y;
-    const float tz = l.r.oz - v0z;
-    const float un = (tx * px + ty * py + tz * pz) * s;
-    const float qx = ty * e1z - tz * e1y;
-    const float qy = tz * e1x - tx * e1z;
-    const float qz = tx * e1y - ty * e1x;
-    const float vn = (dx * qx + dy * qy + dz * qz) * s;
-    const float tn = (e2x * qx + e2y * qy + e2z * qz) * s;
-    const int id = __ldg(ip + k);
-    if (dd > 1e-12f && un >= 0.f && vn >= 0.f && un + vn <= dd &&
-        tn > l.r.tmin * dd && tn < l.tcap * dd && id != l.ex0 &&
-        id != l.ex1) {
-      return true;
-    }
+    float q[9];
+#pragma unroll
+    for (int f = 0; f < 9; ++f) q[f] = __ldg(tp + k * 9 + f);
+    if (occludes(q, __ldg(ip + k), l)) return true;
   }
   return false;
 }
@@ -246,6 +301,175 @@ __device__ __forceinline__ void stage_boxes(float* s_box,
     s_box[j] = aabb[j];
   }
   __syncthreads();
+}
+
+// ---- the cooperative staged sweep of kernels 6 and 8 ----
+
+// A walk: the threads that gate together and share the staged clusters,
+// one warp (W = 1) or the whole block of W warps.
+template <int W>
+struct Walk {
+  static constexpr int kSize = 32 * W;
+  __device__ static int rank() { return threadIdx.x % kSize; }
+  __device__ static void sync() {
+    if constexpr (W == 1) {
+      __syncwarp();
+    } else {
+      __syncthreads();
+    }
+  }
+  __device__ static bool any(bool p) {
+    if constexpr (W == 1) {
+      return __any_sync(0xffffffffu, p);
+    } else {
+      return __syncthreads_or(p) != 0;
+    }
+  }
+  // also orders the walk's shared-memory reads before later writes
+  __device__ static bool all(bool p) {
+    if constexpr (W == 1) {
+      __syncwarp();
+      return __all_sync(0xffffffffu, p);
+    } else {
+      return __syncthreads_and(p) != 0;
+    }
+  }
+  // OR of every thread's bits over a block walk; s_or holds 2*W words,
+  // par alternates
+  __device__ static uint32_t or_bits(uint32_t m, uint32_t* s_or, int& par) {
+    static_assert(W > 1, "a warp walk ORs with __reduce_or_sync");
+    m = __reduce_or_sync(0xffffffffu, m);
+    if ((threadIdx.x & 31) == 0) s_or[par * W + (threadIdx.x >> 5)] = m;
+    __syncthreads();
+    uint32_t u = 0;
+#pragma unroll
+    for (int w = 0; w < W; ++w) u |= s_or[par * W + w];
+    par ^= 1;
+    return u;
+  }
+};
+
+// One staged cluster: its triangles' rows of 9 floats and their ids.
+struct Stage {
+  const float* tri;
+  const int* id;
+};
+
+// The walk's two staging buffers, each `leaf` rows and ids.
+struct Buffers {
+  float* tri;
+  int* id;
+  int leaf;
+  __device__ float* tri_of(int b) const { return tri + b * leaf * 9; }
+  __device__ int* id_of(int b) const { return id + b * leaf; }
+};
+
+// Start the asynchronous copy (cp.async) of cluster c's cnt triangles and
+// ids into buffer b, spread over the walk's threads.  With vec (leaf % 4 ==
+// 0, so every cluster's block is 16-byte aligned) in 16-byte pieces,
+// rounded up inside the cluster's block; else word by word.
+template <int W>
+__device__ __forceinline__ void stage_cluster(const Tris& a, int c, int cnt,
+                                              const Buffers& buf, int b,
+                                              bool vec) {
+  const float* tp = a.tris + static_cast<size_t>(c) * a.leaf * 9;
+  const int* ip = a.tri_id + static_cast<size_t>(c) * a.leaf;
+  float* st = buf.tri_of(b);
+  int* si = buf.id_of(b);
+  if (vec) {
+    const int nf = (cnt * 9 + 3) >> 2;
+    const int ni = (cnt + 3) >> 2;
+    for (int j = Walk<W>::rank(); j < nf + ni; j += Walk<W>::kSize) {
+      if (j < nf) {
+        __pipeline_memcpy_async(st + 4 * j, tp + 4 * j, 16);
+      } else {
+        __pipeline_memcpy_async(si + 4 * (j - nf), ip + 4 * (j - nf), 16);
+      }
+    }
+  } else {
+    const int nf = cnt * 9;
+    for (int j = Walk<W>::rank(); j < nf + cnt; j += Walk<W>::kSize) {
+      if (j < nf) {
+        __pipeline_memcpy_async(st + j, tp + j, 4);
+      } else {
+        __pipeline_memcpy_async(si + (j - nf), ip + (j - nf), 4);
+      }
+    }
+  }
+}
+
+// The clusters base + j, for the set bits j of u (the OR of the walk's
+// gates), in order: each is staged while the one before it is tested, and
+// test(stage, cnt, j) runs in every thread of the walk (it applies the
+// thread's own gate and sets `done` at the thread's first occluder).
+// Returns true as soon as every thread of the walk is done.
+template <int W, class Test>
+__device__ __forceinline__ bool staged_sweep(const Tris& a, uint32_t u,
+                                             int base, const Buffers& buf,
+                                             bool vec, const bool& done,
+                                             Test&& test) {
+  int cnt = __ldg(a.count + base + __ffs(u) - 1);
+  stage_cluster<W>(a, base + __ffs(u) - 1, cnt, buf, 0, vec);
+  __pipeline_commit();
+  for (int b = 0; u; b ^= 1) {
+    const int j = __ffs(u) - 1;
+    u &= u - 1;
+    int next_cnt = 0;
+    if (u) {
+      next_cnt = __ldg(a.count + base + __ffs(u) - 1);
+      stage_cluster<W>(a, base + __ffs(u) - 1, next_cnt, buf, b ^ 1, vec);
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(1);
+    Walk<W>::sync();
+    test(Stage{buf.tri_of(b), buf.id_of(b)}, cnt, j);
+    if (Walk<W>::all(done)) {
+      __pipeline_wait_prior(0);
+      return true;
+    }
+    cnt = next_cnt;
+  }
+  return false;
+}
+
+// The test of a staged cluster, triangle-parallel in each warp: the warp
+// takes the rays of its lanes that pass (their own gates passed, not yet
+// done) one by one, each broadcast from its lane, and its 32 lanes test 32
+// of the cluster's triangles at a time with occ(row, id, ray); a ray stops
+// at its first occluder, which its own lane records.  A warp with few
+// passing rays so makes few tests, where a thread per ray would walk every
+// triangle while the others wait.
+template <class Occ>
+__device__ __forceinline__ void warp_test(Stage s, int cnt, bool pass,
+                                          const Lane& l, bool& hit,
+                                          bool& done, Occ occ) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  for (uint32_t m = __ballot_sync(full, pass); m; m &= m - 1) {
+    const int q = __ffs(m) - 1;
+    Lane r;
+    r.r.ox = __shfl_sync(full, l.r.ox, q);
+    r.r.oy = __shfl_sync(full, l.r.oy, q);
+    r.r.oz = __shfl_sync(full, l.r.oz, q);
+    r.r.tmin = __shfl_sync(full, l.r.tmin, q);
+    r.dx = __shfl_sync(full, l.dx, q);
+    r.dy = __shfl_sync(full, l.dy, q);
+    r.dz = __shfl_sync(full, l.dz, q);
+    r.tcap = __shfl_sync(full, l.tcap, q);
+    r.ex0 = __shfl_sync(full, l.ex0, q);
+    r.ex1 = __shfl_sync(full, l.ex1, q);
+    for (int t0 = 0; t0 < cnt; t0 += 32) {
+      const int t = t0 + lane;
+      const bool h = t < cnt && occ(s.tri + t * 9, s.id[t], r);
+      if (__any_sync(full, h)) {
+        if (lane == q) {
+          hit = true;
+          done = true;
+        }
+        break;
+      }
+    }
+  }
 }
 
 // ---- flat sweep (kernels 4-6) ----
@@ -286,118 +510,86 @@ __global__ void __launch_bounds__(kBlock) cluster_any_hit_kernel(
   hit_out[i] = hit;
 }
 
-template <int K>
-struct NeeDirs {
-  const float* dx[K];
-  const float* dy[K];
-  const float* dz[K];
-  const float* tcap[K];
+// Kernel 6: the block is the walk.
+constexpr int kNeeBlock = 128;
+constexpr int kNeeWarps = kNeeBlock / 32;
+constexpr int kGateBits = 32;  // cluster gates per ballot
+
+// A NEE bundle of K*n shadow rays: per lane [n] the shared origin, tmin
+// and exclusions; per ray [K*n] (sample-major: ray k*n + lane) the
+// direction and cap.
+struct NeeRays {
+  const float* __restrict__ ox;
+  const float* __restrict__ oy;
+  const float* __restrict__ oz;
+  const float* __restrict__ tmin;
+  const int* __restrict__ ex0;
+  const int* __restrict__ ex1;
+  const float* __restrict__ dx;
+  const float* __restrict__ dy;
+  const float* __restrict__ dz;
+  const float* __restrict__ tcap;
 };
 
-template <int K>
-__global__ void __launch_bounds__(kBlock) cluster_any_hit_nee_kernel(
-    const float* __restrict__ aabb, int n_clusters, Tris a,
-    const float* __restrict__ ox_, const float* __restrict__ oy_,
-    const float* __restrict__ oz_, const float* __restrict__ tmin_,
-    const int* __restrict__ ex0_, const int* __restrict__ ex1_,
-    NeeDirs<K> rays, uint8_t* __restrict__ hit_out, int n) {
-  extern __shared__ float s_box[];
+__global__ void __launch_bounds__(kNeeBlock) cluster_any_hit_nee_kernel(
+    const float* __restrict__ aabb, int n_clusters, Tris a, NeeRays rays,
+    uint8_t* __restrict__ hit_out, int n, int K) {
+  using B = Walk<kNeeWarps>;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint32_t s_or[2 * kNeeWarps];
+  float* s_box = smem;
   stage_boxes(s_box, aabb, n_clusters);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float ox = ox_[i], oy = oy_[i], oz = oz_[i], tmin = tmin_[i];
-  const int ex0 = ex0_ ? ex0_[i] : -2;
-  const int ex1 = ex1_ ? ex1_[i] : -2;
-  float dx[K], dy[K], dz[K], tc[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    dx[k] = rays.dx[k][i];
-    dy[k] = rays.dy[k][i];
-    dz[k] = rays.dz[k][i];
-    const float c = rays.tcap[k][i];
-    tc[k] = c > 0.f ? c : kBig;
+  float* s_tri = s_box + n_clusters * 8;
+  const Buffers buf{s_tri, reinterpret_cast<int*>(s_tri + 2 * a.leaf * 9),
+                    a.leaf};
+  // thread i takes direction k of lane i / K: a lane's K rays on
+  // neighbouring threads
+  const int i = blockIdx.x * kNeeBlock + threadIdx.x;
+  const int lane = i / K;
+  const int r = (i - lane * K) * n + lane;
+  Lane l{};
+  bool done = true;
+  if (lane < n) {
+    l.dx = rays.dx[r];
+    l.dy = rays.dy[r];
+    l.dz = rays.dz[r];
+    l.r = Ray{rays.ox[lane], rays.oy[lane], rays.oz[lane], inv_dir(l.dx),
+              inv_dir(l.dy), inv_dir(l.dz), rays.tmin[lane]};
+    const float c = rays.tcap[r];
+    l.tcap = c > 0.f ? c : kBig;
+    l.ex0 = rays.ex0 ? rays.ex0[lane] : -2;
+    l.ex1 = rays.ex1 ? rays.ex1[lane] : -2;
+    // a dead ray (0 < tcap <= tmin) has no t in (tmin, tcap) to hit
+    done = c > 0.f && c <= l.r.tmin;
   }
-  const uint32_t full = static_cast<uint32_t>((1ull << K) - 1ull);
-  uint32_t mask = 0u;  // bit k: direction k is occluded
-  for (int c = 0; c < n_clusters && mask != full; ++c) {
-    // per-direction gates of the directions still live (:376-382)
-    uint32_t gate = 0u;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      const Ray r{ox, oy, oz, inv_dir(dx[k]), inv_dir(dy[k]), inv_dir(dz[k]),
-                  tmin};
-      const bool pass =
-          !((mask >> k) & 1u) && slab<true>(s_box + c * 8, r, tc[k]);
-      gate |= static_cast<uint32_t>(pass) << k;
-    }
-    if (!gate) continue;
-    const int cnt = __ldg(a.count + c);
-    const float* tp = a.tris + static_cast<size_t>(c) * a.leaf * 9;
-    const int* ip = a.tri_id + static_cast<size_t>(c) * a.leaf;
-    for (int j = 0; j < cnt; ++j) {
-      const float* q = tp + j * 9;
-      const float v0x = __ldg(q + 0), v0y = __ldg(q + 1), v0z = __ldg(q + 2);
-      const float e1x = __ldg(q + 3), e1y = __ldg(q + 4), e1z = __ldg(q + 5);
-      const float e2x = __ldg(q + 6), e2y = __ldg(q + 7), e2z = __ldg(q + 8);
-      const int id = __ldg(ip + j);
-      if (id == ex0 || id == ex1) continue;
-      // origin-shared terms (:400-412)
-      const float tx = ox - v0x;
-      const float ty = oy - v0y;
-      const float tz = oz - v0z;
-      // m1 = e2 x e1  (det = d . m1)
-      const float m1x = e2y * e1z - e2z * e1y;
-      const float m1y = e2z * e1x - e2x * e1z;
-      const float m1z = e2x * e1y - e2y * e1x;
-      // w = e2 x tvec  (u_num = d . w)
-      const float wx = e2y * tz - e2z * ty;
-      const float wy = e2z * tx - e2x * tz;
-      const float wz = e2x * ty - e2y * tx;
-      // qvec = tvec x e1  (v_num = d . qvec; t_num = e2 . qvec)
-      const float qx = ty * e1z - tz * e1y;
-      const float qy = tz * e1x - tx * e1z;
-      const float qz = tx * e1y - ty * e1x;
-      const float tnum = e2x * qx + e2y * qy + e2z * qz;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        if (!((gate >> k) & 1u)) continue;
-        const float det = dx[k] * m1x + dy[k] * m1y + dz[k] * m1z;
-        const float s = det < 0.f ? -1.f : 1.f;
-        const float dd = fabsf(det);
-        const float un = (dx[k] * wx + dy[k] * wy + dz[k] * wz) * s;
-        const float vn = (dx[k] * qx + dy[k] * qy + dz[k] * qz) * s;
-        const float tn = tnum * s;
-        const bool ok = dd > 1e-12f && un >= 0.f && vn >= 0.f &&
-                        un + vn <= dd && tn > tmin * dd && tn < tc[k] * dd;
-        mask |= static_cast<uint32_t>(ok) << k;
+  bool hit = false;
+  uint32_t gate = 0;
+  auto test = [&](Stage s, int cnt, int j) {
+    warp_test(s, cnt, !done && ((gate >> j) & 1u), l, hit, done,
+              [](const float* q, int id, const Lane& r) {
+                return id != r.ex0 && id != r.ex1 && occludes_nee(q, r);
+              });
+  };
+  const bool vec = (a.leaf & 3) == 0;
+  int par = 0;
+  if (!B::all(done)) {
+    for (int c0 = 0; c0 < n_clusters; c0 += kGateBits) {
+      gate = 0;
+      if (!done) {
+        const int m = min(kGateBits, n_clusters - c0);
+        for (int j = 0; j < m; ++j) {
+          gate |= static_cast<uint32_t>(
+                      slab<true>(s_box + (c0 + j) * 8, l.r, l.tcap))
+                  << j;
+        }
+      }
+      const uint32_t u = B::or_bits(gate, s_or, par);
+      if (u && staged_sweep<kNeeWarps>(a, u, c0, buf, vec, done, test)) {
+        break;
       }
     }
   }
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    hit_out[static_cast<size_t>(k) * n + i] =
-        static_cast<uint8_t>((mask >> k) & 1u);
-  }
-}
-
-template <int K>
-int launch_cluster_nee(const float* aabb, int n_clusters, const Tris& a,
-                       const float* ox, const float* oy, const float* oz,
-                       const float* tmin, const int* ex0, const int* ex1,
-                       const void* const* dir_ptrs, uint8_t* hit, int n,
-                       cudaStream_t stream) {
-  NeeDirs<K> rays;
-  for (int k = 0; k < K; ++k) {
-    rays.dx[k] = static_cast<const float*>(dir_ptrs[k]);
-    rays.dy[k] = static_cast<const float*>(dir_ptrs[K + k]);
-    rays.dz[k] = static_cast<const float*>(dir_ptrs[2 * K + k]);
-    rays.tcap[k] = static_cast<const float*>(dir_ptrs[3 * K + k]);
-  }
-  const int grid = (n + kBlock - 1) / kBlock;
-  const size_t smem = static_cast<size_t>(n_clusters) * 8 * sizeof(float);
-  cluster_any_hit_nee_kernel<K><<<grid, kBlock, smem, stream>>>(
-      aabb, n_clusters, a, ox, oy, oz, tmin, ex0, ex1, rays, hit, n);
-  return static_cast<int>(cudaGetLastError());
+  if (lane < n) hit_out[r] = hit;
 }
 
 // ---- grouped walk (kernels 7-8) ----
@@ -434,35 +626,95 @@ __global__ void __launch_bounds__(kBlock) grouped_closest_hit_kernel(
   store_best(b, i, t_out, prim_out, u_out, v_out);
 }
 
-__global__ void __launch_bounds__(kBlock) grouped_any_hit_kernel(
+// Kernel 8: each warp is a walk, with its own shared memory.
+constexpr int kGroupedBlock = 128;
+
+// floats of shared memory per walk: the group's octet and cluster boxes,
+// and two staging buffers of leaf rows of 9 floats and an id
+__host__ __device__ int grouped_walk_floats(int group, int leaf) {
+  return (group / kOctet + group) * 8 + 2 * leaf * 10;
+}
+
+__global__ void __launch_bounds__(kGroupedBlock) grouped_any_hit_kernel(
     Groups g, Tris a, RayIn in, uint8_t* __restrict__ hit_out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Lane l = load_lane(in, i);
+  using B = Walk<1>;
+  extern __shared__ __align__(16) float smem[];
   const int n_oct = g.group / kOctet;
-  uint8_t hit = 0;
-  for (int gi = 0; gi < g.n_groups && !hit; ++gi) {
-    if (!slab<false>(g.g_aabb + gi * 8, l.r, l.tcap)) continue;
-    for (int oc = 0; oc < n_oct && !hit; ++oc) {
-      const int o = gi * n_oct + oc;
-      if (!slab<false>(g.o_aabb + o * 8, l.r, l.tcap)) continue;
-      for (int j = 0; j < kOctet; ++j) {
-        const int c = o * kOctet + j;
-        if (slab<false>(g.c_aabb + c * 8, l.r, l.tcap) &&
-            cluster_any(a, c, l)) {
-          hit = 1;
-          break;
+  const int box_f = (n_oct + g.group) * 8;
+  float* s_obox = smem + (threadIdx.x / B::kSize) *
+                             grouped_walk_floats(g.group, a.leaf);
+  const float* s_cbox = s_obox + n_oct * 8;
+  const Buffers buf{s_obox + box_f,
+                    reinterpret_cast<int*>(s_obox + box_f + 2 * a.leaf * 9),
+                    a.leaf};
+  const int i = blockIdx.x * kGroupedBlock + threadIdx.x;
+  Lane l{};
+  bool done = true;
+  if (i < n) {
+    l = load_lane(in, i);
+    const float tmax = in.tmax[i];
+    // a dead ray (0 < tmax <= tmin) has no t in (tmin, tmax) to hit
+    done = tmax > 0.f && tmax <= l.r.tmin;
+  }
+  bool hit = false;
+  uint32_t gate = 0;
+  auto test = [&](Stage s, int cnt, int j) {
+    warp_test(s, cnt, !done && ((gate >> j) & 1u), l, hit, done,
+              [](const float* q, int id, const Lane& r) {
+                return occludes(q, id, r);
+              });
+  };
+  const bool vec = (a.leaf & 3) == 0;
+  bool finished = B::all(done);
+  for (int gi = 0; gi < g.n_groups && !finished; ++gi) {
+    const bool pg = !done && slab<false>(g.g_aabb + gi * 8, l.r, l.tcap);
+    if (!B::any(pg)) continue;
+    // the group's octet boxes, then its cluster boxes, into shared memory
+    B::sync();
+    const float4* ob = reinterpret_cast<const float4*>(
+        g.o_aabb + static_cast<size_t>(gi) * n_oct * 8);
+    const float4* cb = reinterpret_cast<const float4*>(
+        g.c_aabb + static_cast<size_t>(gi) * g.group * 8);
+    float4* so = reinterpret_cast<float4*>(s_obox);
+    for (int j = B::rank(); j < box_f / 4; j += B::kSize) {
+      so[j] = j < n_oct * 2 ? __ldg(ob + j) : __ldg(cb + (j - n_oct * 2));
+    }
+    B::sync();
+    for (int oc = 0; oc < n_oct && !finished; ++oc) {
+      const bool po = pg && !done && slab<true>(s_obox + oc * 8, l.r, l.tcap);
+      if (!B::any(po)) continue;
+      gate = 0;
+      if (po) {
+        for (int j = 0; j < kOctet; ++j) {
+          gate |= static_cast<uint32_t>(slab<true>(
+                      s_cbox + (oc * kOctet + j) * 8, l.r, l.tcap))
+                  << j;
         }
+      }
+      const uint32_t u = __reduce_or_sync(0xffffffffu, gate);
+      if (u) {
+        finished = staged_sweep<1>(a, u, (gi * n_oct + oc) * kOctet, buf, vec,
+                                   done, test);
       }
     }
   }
-  hit_out[i] = hit;
+  if (i < n) hit_out[i] = hit;
 }
 
-int grid_of(int n) { return (n + kBlock - 1) / kBlock; }
+int grid_of(int n, int block) { return (n + block - 1) / block; }
 
 size_t box_bytes(int n_clusters) {
   return static_cast<size_t>(n_clusters) * 8 * sizeof(float);
+}
+
+// Dynamic shared memory above the 48 KB default must be asked for, up to
+// the 227 KB a block can have.
+template <class Kernel>
+cudaError_t allow_smem(Kernel* kernel, size_t bytes) {
+  if (bytes <= static_cast<size_t>(kStaticSmem)) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
 }  // namespace
@@ -471,8 +723,9 @@ extern "C" {
 
 // All return cudaGetLastError() after the launch (0 = success).  ex0/ex1
 // may be null (no exclusion).  The flat kernels stage the [n_clusters, 8]
-// boxes in shared memory, so n_clusters must stay under 1,536 (48 KB; the
-// flat path has fewer than 1,024).
+// boxes in shared memory (the flat path has fewer than 1,024 clusters).
+// Kernels 6 and 8 read the triangle tables in 16-byte pieces when leaf %
+// 4 == 0: tris and tri_id must then be 16-byte aligned.
 
 int cti_cluster_closest_hit(const float* aabb, const float* tris,
                             const int* tri_id, const int* count,
@@ -485,7 +738,8 @@ int cti_cluster_closest_hit(const float* aabb, const float* tris,
                             void* stream) {
   const Tris a{tris, tri_id, count, leaf};
   const RayIn in{ox, oy, oz, dx, dy, dz, tmin, tmax, ex0, ex1};
-  cluster_closest_hit_kernel<<<grid_of(n), kBlock, box_bytes(n_clusters),
+  cluster_closest_hit_kernel<<<grid_of(n, kBlock), kBlock,
+                               box_bytes(n_clusters),
                                static_cast<cudaStream_t>(stream)>>>(
       aabb, n_clusters, a, in, t_out, prim_out, u_out, v_out, n);
   return static_cast<int>(cudaGetLastError());
@@ -501,43 +755,34 @@ int cti_cluster_any_hit(const float* aabb, const float* tris,
                         int n, void* stream) {
   const Tris a{tris, tri_id, count, leaf};
   const RayIn in{ox, oy, oz, dx, dy, dz, tmin, tmax, ex0, ex1};
-  cluster_any_hit_kernel<<<grid_of(n), kBlock, box_bytes(n_clusters),
+  cluster_any_hit_kernel<<<grid_of(n, kBlock), kBlock, box_bytes(n_clusters),
                            static_cast<cudaStream_t>(stream)>>>(
       aabb, n_clusters, a, in, hit_out, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dir_ptrs: 4*K device pointers, K each of dx, dy, dz, tcap ([n] float32).
-// hit_out: [K*n] bytes, sample-major.  K must be 2, 4, 8, 16 or 32.
+// A bundle of K shadow rays per lane: ox..ex1 [n] per lane; dx, dy, dz,
+// tcap [K*n] sample-major (ray k*n + lane).  hit_out: [K*n] bytes,
+// sample-major.
 int cti_cluster_any_hit_nee(const float* aabb, const float* tris,
                             const int* tri_id, const int* count,
                             int n_clusters, int leaf, const float* ox,
                             const float* oy, const float* oz,
                             const float* tmin, const int* ex0,
-                            const int* ex1, int K,
-                            const void* const* dir_ptrs, uint8_t* hit_out,
-                            int n, void* stream) {
+                            const int* ex1, const float* dx, const float* dy,
+                            const float* dz, const float* tcap,
+                            uint8_t* hit_out, int n, int K, void* stream) {
   const Tris a{tris, tri_id, count, leaf};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (K) {
-    case 2:
-      return launch_cluster_nee<2>(aabb, n_clusters, a, ox, oy, oz, tmin,
-                                   ex0, ex1, dir_ptrs, hit_out, n, s);
-    case 4:
-      return launch_cluster_nee<4>(aabb, n_clusters, a, ox, oy, oz, tmin,
-                                   ex0, ex1, dir_ptrs, hit_out, n, s);
-    case 8:
-      return launch_cluster_nee<8>(aabb, n_clusters, a, ox, oy, oz, tmin,
-                                   ex0, ex1, dir_ptrs, hit_out, n, s);
-    case 16:
-      return launch_cluster_nee<16>(aabb, n_clusters, a, ox, oy, oz, tmin,
-                                    ex0, ex1, dir_ptrs, hit_out, n, s);
-    case 32:
-      return launch_cluster_nee<32>(aabb, n_clusters, a, ox, oy, oz, tmin,
-                                    ex0, ex1, dir_ptrs, hit_out, n, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const NeeRays rays{ox, oy, oz, tmin, ex0, ex1, dx, dy, dz, tcap};
+  const int total = K * n;
+  const size_t smem = box_bytes(n_clusters) +
+                      static_cast<size_t>(2 * leaf * 10) * sizeof(float);
+  const cudaError_t e = allow_smem(cluster_any_hit_nee_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cluster_any_hit_nee_kernel<<<grid_of(total, kNeeBlock), kNeeBlock, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
+      aabb, n_clusters, a, rays, hit_out, n, K);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // group must be a multiple of 8.
@@ -554,13 +799,13 @@ int cti_grouped_closest_hit(const float* g_aabb, const float* o_aabb,
   const Groups g{g_aabb, o_aabb, c_aabb, n_groups, group};
   const Tris a{tris, tri_id, count, leaf};
   const RayIn in{ox, oy, oz, dx, dy, dz, tmin, tmax, ex0, ex1};
-  grouped_closest_hit_kernel<<<grid_of(n), kBlock, 0,
+  grouped_closest_hit_kernel<<<grid_of(n, kBlock), kBlock, 0,
                                static_cast<cudaStream_t>(stream)>>>(
       g, a, in, t_out, prim_out, u_out, v_out, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-// hit_out: [n] bytes, 1 = occluded.
+// hit_out: [n] bytes, 1 = occluded.  The boxes must be 16-byte aligned.
 int cti_grouped_any_hit(const float* g_aabb, const float* o_aabb,
                         const float* c_aabb, const float* tris,
                         const int* tri_id, const int* count, int n_groups,
@@ -572,7 +817,11 @@ int cti_grouped_any_hit(const float* g_aabb, const float* o_aabb,
   const Groups g{g_aabb, o_aabb, c_aabb, n_groups, group};
   const Tris a{tris, tri_id, count, leaf};
   const RayIn in{ox, oy, oz, dx, dy, dz, tmin, tmax, ex0, ex1};
-  grouped_any_hit_kernel<<<grid_of(n), kBlock, 0,
+  const size_t smem = static_cast<size_t>(kGroupedBlock / 32) *
+                      grouped_walk_floats(group, leaf) * sizeof(float);
+  const cudaError_t e = allow_smem(grouped_any_hit_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  grouped_any_hit_kernel<<<grid_of(n, kGroupedBlock), kGroupedBlock, smem,
                            static_cast<cudaStream_t>(stream)>>>(g, a, in,
                                                                 hit_out, n);
   return static_cast<int>(cudaGetLastError());

@@ -40,8 +40,8 @@ tests of the gated pairs, then (closest hit) a replay of the kernel's walk
 over each ray's gated clusters in visit order, so that the best-t gates
 decide exactly as the kernel's do.  Occlusion is an OR over the gated
 clusters and needs no replay.  With `count_tests=True` they also count the
-triangle tests the kernel's walk makes, the data-dependent work behind the
-kernels' bound.
+triangle tests and the slab tests of each ray's own walk, the
+data-dependent work behind the kernels' bound.
 
 NEE bundles: on the grouped path every bundle is re-bucketed first
 (any_hit_nee_clusters_s): all n*K shadow rays are sorted by _nee_bucket_key
@@ -49,7 +49,8 @@ NEE bundles: on the grouped path every bundle is re-bucketed first
 order, and the occlusion bits are scattered back.  Bits do not depend on
 ray order; the sort only makes neighbouring lanes coherent, as it does for
 core_tpu's ray tiles.  On the flat path the bundle goes straight to kernel
-6, with no re-bucketing, as core_tpu's flat branch does (:677-686).
+6, with no re-bucketing, as core_tpu's flat branch does (:677-686); the
+kernel puts a lane's K rays on neighbouring threads.
 
 Entry points, by core_tpu's names: core_tpu's closest_hit_clusters_s,
 any_hit_clusters_s and any_hit_nee_clusters_s are, here, the kernels'
@@ -376,22 +377,56 @@ def _levels(acc):
     return ((acc.g_aabb, acc.group), (acc.o_aabb.reshape(-1, 8), OCTET))
 
 
-def _gated_pairs(acc, r):
-    """(ray, cluster) pairs whose gates all pass with tcap = the ray's cap,
-    sorted by ray then cluster (the visit order)."""
+def _gated_levels(acc, r):
+    """Per gate level, outermost first, the (ray, box) pairs whose gates all
+    pass with tcap = the ray's cap, sorted by ray then box (the visit
+    order).  Boxes are numbered over their level in build order: group g,
+    octet g * n_oct + o, cluster.  The last level is the clusters."""
     col = {k: v[:, None] for k, v in r.items()}
     if isinstance(acc, ClusterAccel):
-        return _slab(acc.aabb[None], col, col["tcap"]).nonzero(as_tuple=True)
+        return [_slab(acc.aabb[None], col, col["tcap"]).nonzero(
+            as_tuple=True)]
     G = acc.g_aabb.shape[0]
     n_oct = acc.o_aabb.shape[1]
     ri, gi = _slab(acc.g_aabb[None], col, col["tcap"]).nonzero(as_tuple=True)
+    groups = (ri, gi)
     rr = _take(r, ri, True)
     pi, oi = _slab(acc.o_aabb[gi], rr, rr["tcap"]).nonzero(as_tuple=True)
     ri, gi = ri[pi], gi[pi]
+    octets = (ri, gi * n_oct + oi)
     rr = _take(r, ri, True)
     boxes = acc.c_aabb.view(G, n_oct, OCTET, 8)[gi, oi]
     qi, ji = _slab(boxes, rr, rr["tcap"]).nonzero(as_tuple=True)
-    return ri[qi], (gi[qi] * n_oct + oi[qi]) * OCTET + ji
+    return [groups, octets, (ri[qi], (gi[qi] * n_oct + oi[qi]) * OCTET + ji)]
+
+
+def _n_clusters(acc):
+    return acc.tris.shape[0]
+
+
+def _slab_tests(acc, levels, stop, r):
+    """Slab tests of each ray's own walk (the gates of kernels 4 to 8),
+    which ends in cluster `stop` [m] (its first occluder in visit order;
+    the number of clusters = no stop): every top-level box up to the stop,
+    all the children of each passing box before the stop, and in the boxes
+    that hold the stop the children up to it.  A dead ray (0 < tcap <=
+    tmin) needs none."""
+    C = _n_clusters(acc)
+    if isinstance(acc, ClusterAccel):
+        tests = (stop + 1).clamp(max=C)
+    else:
+        G, n_oct = acc.o_aabb.shape[:2]
+        group = acc.group
+        hit = stop < C
+        tests = (stop // group + 1).clamp(max=G)
+        for (ri, box), span, kids in zip(levels[:2], (group, OCTET),
+                                         (n_oct, OCTET)):
+            before = (box + 1) * span <= stop[ri]
+            tests = tests + kids * torch.bincount(ri[before],
+                                                  minlength=stop.shape[0])
+            tests = tests + torch.where(hit, stop % span // (span // kids)
+                                        + 1, 0)
+    return torch.where(r["tcap"] <= r["tmin"], 0, tests)
 
 
 def _tri_cols(tri):
@@ -521,11 +556,12 @@ def _closest_hit(acc, rays_s, exclude_prim, exclude_prim2, count_tests):
     u = torch.zeros(n, device=dev)
     v = torch.zeros(n, device=dev)
     tests = torch.zeros(n, dtype=torch.int64, device=dev)
+    slabs = torch.zeros(n, dtype=torch.int64, device=dev)
     boxes = _cluster_boxes(acc)
     levels = _levels(acc)
     for c0, c1 in _ray_chunks(n, acc):
         r = {k: a[c0:c1] for k, a in r_all.items()}
-        ray, cl = _gated_pairs(acc, r)
+        ray, cl = _gated_levels(acc, r)[-1]
         parts = [_mt_closest(acc, r, ray[p0:p1], cl[p0:p1])
                  for p0, p1 in _pair_chunks(ray.shape[0], acc.leaf)]
         pt, pp, pu, pv = (torch.cat([p[i] for p in parts]) if parts else
@@ -545,6 +581,7 @@ def _closest_hit(acc, rays_s, exclude_prim, exclude_prim2, count_tests):
         cur = [torch.full((m,), -1, dtype=torch.int64, device=dev)
                for _ in levels]
         bt_in = [bt.clone() for _ in levels]
+        tested = []
         for rank in range(int(cnt.max()) if m else 0):
             sel = (cnt > rank).nonzero(as_tuple=True)[0]
             pidx = start[sel] + rank
@@ -561,6 +598,8 @@ def _closest_hit(acc, rays_s, exclude_prim, exclude_prim2, count_tests):
                 gate = gate & _slab(lboxes[j], rr,
                                     torch.minimum(cap, bt_in[li][sel]))
             tc[sel] += torch.where(gate, acc.count[c].long(), 0)
+            if count_tests:
+                tested.append((sel[gate], c[gate]))
             take = gate & (pt[pidx] < b)
             bt[sel] = torch.where(take, pt[pidx], b)
             bp[sel] = torch.where(take, pp[pidx], bp[sel])
@@ -568,8 +607,34 @@ def _closest_hit(acc, rays_s, exclude_prim, exclude_prim2, count_tests):
             bv[sel] = torch.where(take, pv[pidx], bv[sel])
         t[c0:c1], prim[c0:c1], u[c0:c1], v[c0:c1] = bt, bp, bu, bv
         tests[c0:c1] = tc
+        if count_tests:
+            slabs[c0:c1] = _closest_slab_tests(acc, tested, r)
     hits = Hits(t=torch.where(prim < 0, -1.0, t), prim=prim, u=u, v=v)
-    return (hits, tests) if count_tests else hits
+    return (hits, tests, slabs) if count_tests else hits
+
+
+def _closest_slab_tests(acc, tested, r):
+    """Slab tests of kernels 4 and 7's walks: every cluster box (flat); or
+    every group box, and the octet and cluster boxes under each group and
+    octet that holds a tested cluster (`tested`: (ray, cluster) pairs) --
+    fewer than the kernel makes when a box passes its best-t gate but none
+    of its clusters does.  A dead ray (0 < tcap <= tmin) needs none."""
+    m = r["tmin"].shape[0]
+    dev = r["tmin"].device
+    if isinstance(acc, ClusterAccel):
+        tests = torch.full((m,), _n_clusters(acc), dtype=torch.int64,
+                           device=dev)
+    else:
+        G, n_oct = acc.o_aabb.shape[:2]
+        ray = torch.cat([p[0] for p in tested]) if tested else \
+            torch.zeros(0, dtype=torch.int64, device=dev)
+        cl = torch.cat([p[1] for p in tested]) if tested else ray
+        tests = torch.full((m,), G, dtype=torch.int64, device=dev)
+        for span, kids in ((acc.group, n_oct), (OCTET, OCTET)):
+            n_box = _n_clusters(acc) // span
+            box = torch.unique(ray * n_box + cl // span)
+            tests = tests + kids * torch.bincount(box // n_box, minlength=m)
+    return torch.where(r["tcap"] <= r["tmin"], 0, tests)
 
 
 def _stop_counts(acc, ray, cl, has, first, m):
@@ -595,27 +660,34 @@ def _any_hit(acc, rays_s, exclude_prim, exclude_prim2, count_tests):
                         _cap(rays_s.tmax))
     hit = torch.zeros(n, dtype=torch.bool, device=dev)
     tests = torch.zeros(n, dtype=torch.int64, device=dev)
+    slabs = torch.zeros(n, dtype=torch.int64, device=dev)
     for c0, c1 in _ray_chunks(n, acc):
         r = {k: a[c0:c1] for k, a in r_all.items()}
-        ray, cl = _gated_pairs(acc, r)
+        levels = _gated_levels(acc, r)
+        ray, cl = levels[-1]
         parts = [_mt_any(acc, r, ray[p0:p1], cl[p0:p1])
                  for p0, p1 in _pair_chunks(ray.shape[0], acc.leaf)]
-        if not parts:
-            continue
-        has = torch.cat([p[0] for p in parts])
         m = c1 - c0
+        has = torch.cat([p[0] for p in parts]) if parts else \
+            torch.zeros(0, dtype=torch.bool, device=dev)
         hit[c0:c1] = torch.zeros(m, dtype=torch.int32, device=dev) \
             .index_add(0, ray, has.to(torch.int32)) > 0
         if count_tests:
-            tests[c0:c1] = _stop_counts(acc, ray, cl, has,
-                                        torch.cat([p[1] for p in parts]), m)
-    return (hit, tests) if count_tests else hit
+            if parts:
+                tests[c0:c1] = _stop_counts(
+                    acc, ray, cl, has, torch.cat([p[1] for p in parts]), m)
+            stop = torch.full((m,), _n_clusters(acc), dtype=torch.int64,
+                              device=dev)
+            stop.scatter_reduce_(0, ray[has], cl[has], "amin")
+            slabs[c0:c1] = _slab_tests(acc, levels, stop, r)
+    return (hit, tests, slabs) if count_tests else hit
 
 
 def closest_hit_flat_torch(acc: ClusterAccel, rays_s, exclude_prim=None,
                            exclude_prim2=None, count_tests=False):
     """Closest hit through the flat accel (kernel 4's function).  Returns
-    Hits, or (Hits, triangle tests per ray) with count_tests."""
+    Hits, or (Hits, triangle tests, slab tests per ray) with
+    count_tests."""
     closest_hit_flat_torch.calls += 1
     return _closest_hit(acc, rays_s, exclude_prim, exclude_prim2,
                         count_tests)
@@ -624,7 +696,8 @@ def closest_hit_flat_torch(acc: ClusterAccel, rays_s, exclude_prim=None,
 def closest_hit_grouped_torch(acc: GroupedAccel, rays_s, exclude_prim=None,
                               exclude_prim2=None, count_tests=False):
     """Closest hit through the grouped accel (kernel 7's function).
-    Returns Hits, or (Hits, triangle tests per ray) with count_tests."""
+    Returns Hits, or (Hits, triangle tests, slab tests per ray) with
+    count_tests."""
     closest_hit_grouped_torch.calls += 1
     return _closest_hit(acc, rays_s, exclude_prim, exclude_prim2,
                         count_tests)
@@ -633,8 +706,8 @@ def closest_hit_grouped_torch(acc: GroupedAccel, rays_s, exclude_prim=None,
 def any_hit_flat_torch(acc: ClusterAccel, rays_s, exclude_prim=None,
                        exclude_prim2=None, count_tests=False):
     """Occlusion through the flat accel (kernel 5's function), one ray per
-    lane, tmax <= 0 = open.  Returns [N] bool, or (bits, triangle tests
-    per ray) with count_tests."""
+    lane, tmax <= 0 = open.  Returns [N] bool, or (bits, triangle tests,
+    slab tests per ray) with count_tests."""
     any_hit_flat_torch.calls += 1
     return _any_hit(acc, rays_s, exclude_prim, exclude_prim2, count_tests)
 
@@ -643,7 +716,7 @@ def any_hit_grouped_torch(acc: GroupedAccel, rays_s, exclude_prim=None,
                           exclude_prim2=None, count_tests=False):
     """Occlusion through the grouped accel (kernel 8's function), one ray
     per lane, tmax <= 0 = open.  Returns [N] bool, or (bits, triangle
-    tests per ray) with count_tests."""
+    tests, slab tests per ray) with count_tests."""
     any_hit_grouped_torch.calls += 1
     return _any_hit(acc, rays_s, exclude_prim, exclude_prim2, count_tests)
 
@@ -654,13 +727,16 @@ def any_hit_nee_flat_torch(acc: ClusterAccel, o3: V3, tmin, dirs, tcaps,
     """Occlusion of K shadow rays per lane sharing one origin through the
     flat accel (kernel 6's function).  o3: V3 of [N]; tmin: [N]; dirs: K V3
     of [N]; tcaps: K [N] (<= 0 = open).  Returns [K*N] bool, sample-major,
-    or with count_tests (bits, lane tests [N], direction tests [N]).
+    or with count_tests (bits, lane tests [N], direction tests [N], slab
+    tests [N]).
 
-    The kernel walks the clusters once per lane: direction k is gated by
-    its own slab test while it has no hit yet, and a cluster any direction
-    passes has its triangles' origin terms computed once (a lane test) and
-    the passing directions tested (direction tests).  The bits are an OR
-    over each direction's gated clusters, so they need no replay."""
+    Each direction is gated by its own slab test while it has no hit yet;
+    the triangles of a cluster that any direction of a lane passes are
+    counted once per lane (a lane test: their origin terms, shared by the
+    lane's directions) and once per passing direction (direction tests).
+    The bits are an OR over each direction's gated clusters, so they need
+    no replay, and do not depend on the order the kernel takes the rays
+    in."""
     any_hit_nee_flat_torch.calls += 1
     K = len(dirs)
     n = tmin.shape[0]
@@ -669,6 +745,7 @@ def any_hit_nee_flat_torch(acc: ClusterAccel, o3: V3, tmin, dirs, tcaps,
     hit = torch.zeros(K * n, dtype=torch.bool, device=dev)
     lane_tests = torch.zeros(n, dtype=torch.int64, device=dev)
     dir_tests = torch.zeros(n, dtype=torch.int64, device=dev)
+    slabs = torch.zeros(n, dtype=torch.int64, device=dev)
     fields = [_ray_fields(RaysS(o=o3, d=d, tmin=tmin, tmax=tc),
                           exclude_prim, exclude_prim2, _cap(tc))
               for d, tc in zip(dirs, tcaps)]
@@ -677,7 +754,8 @@ def any_hit_nee_flat_torch(acc: ClusterAccel, o3: V3, tmin, dirs, tcaps,
         walked = []
         for k in range(K):
             r = {f: a[c0:c1] for f, a in fields[k].items()}
-            ray, cl = _gated_pairs(acc, r)
+            levels = _gated_levels(acc, r)
+            ray, cl = levels[-1]
             has = torch.cat([_mt_nee(acc, r, ray[p0:p1], cl[p0:p1])
                              for p0, p1 in _pair_chunks(ray.shape[0],
                                                         acc.leaf)]
@@ -692,6 +770,7 @@ def any_hit_nee_flat_torch(acc: ClusterAccel, o3: V3, tmin, dirs, tcaps,
                 first.scatter_reduce_(0, ray[has], cl[has], "amin")
                 keep = cl <= first[ray]
                 walked.append(ray[keep] * C + cl[keep])
+                slabs[c0:c1] += _slab_tests(acc, levels, first, r)
         if count_tests and walked:
             pairs = torch.cat(walked)
             per = acc.count[pairs % C].long()
@@ -702,7 +781,7 @@ def any_hit_nee_flat_torch(acc: ClusterAccel, o3: V3, tmin, dirs, tcaps,
             lane_tests[c0:c1] = torch.zeros(
                 m, dtype=torch.int64, device=dev).index_add(
                 0, lane // C, acc.count[lane % C].long())
-    return (hit, lane_tests, dir_tests) if count_tests else hit
+    return (hit, lane_tests, dir_tests, slabs) if count_tests else hit
 
 
 closest_hit_flat_torch.calls = 0

@@ -36,11 +36,12 @@ FLAT_MAX_CLUSTERS = ci.GROUPED_MIN_CLUSTERS - 1
 
 def _check_fields(want, dev):
     for name, t, dtype, shape in want:
+        # kernels 6 and 8 copy the tables and boxes in 16-byte pieces
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
-                or not t.is_contiguous():
-            raise ValueError(f"accel.{name}: expected a contiguous {dtype} "
-                             f"{list(shape)} tensor on {dev}, got {t.dtype} "
-                             f"{list(t.shape)} on {t.device}")
+                or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"accel.{name}: expected a contiguous, 16-byte "
+                             f"aligned {dtype} {list(shape)} tensor on {dev}, "
+                             f"got {t.dtype} {list(t.shape)} on {t.device}")
     return [t.data_ptr() for _, t, _, _ in want]
 
 
@@ -135,21 +136,27 @@ def any_hit_nee_flat_cuda(acc: ci.ClusterAccel, o3, tmin, dirs, tcaps,
                           exclude_prim=None, exclude_prim2=None):
     """Flat-sweep shared-origin NEE bundle (see
     cluster_intersect.any_hit_nee_flat_torch).  Returns [K*N] bool,
-    sample-major."""
+    sample-major.  The kernel reads the K directions and caps stacked
+    sample-major ([K*N])."""
     if _on_cpu(acc.tris):
         return ci.any_hit_nee_flat_torch(acc, o3, tmin, dirs, tcaps,
                                          exclude_prim, exclude_prim2)
     dev = acc.tris.device
     args = _flat_args(acc)
     n = tmin.shape[0]
-    shared, ptr_array = nee_ptrs(o3, tmin, dirs, tcaps, exclude_prim,
-                                 exclude_prim2, n, dev)
+    shared, _ = nee_ptrs(o3, tmin, dirs, tcaps, exclude_prim, exclude_prim2,
+                         n, dev)
     K = len(dirs)
+    if K * n >= 2**31:
+        raise ValueError(f"kernel 6 takes under 2**31 rays, got {K} x {n}")
     hit = torch.empty(K * n, dtype=torch.bool, device=dev)
     if n:
+        stacked = [torch.stack([getattr(d, f) for d in dirs]) for f in "xyz"] \
+            + [torch.stack(list(tcaps))]
         lib = _build.load_library()
-        err = lib.cti_cluster_any_hit_nee(*args, *shared, K, ptr_array,
-                                          hit.data_ptr(), n, _stream(dev))
+        err = lib.cti_cluster_any_hit_nee(*args, *shared,
+                                          *[a.data_ptr() for a in stacked],
+                                          hit.data_ptr(), n, K, _stream(dev))
         _build.check(lib, err, "cti_cluster_any_hit_nee launch")
         any_hit_nee_flat_cuda.launches += 1
         any_hit_nee_flat_cuda.lanes += K * n

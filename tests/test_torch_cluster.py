@@ -133,7 +133,7 @@ def test_plain_grouped_closest_hit_matches_brute(geo, max_leaf):
              jnp.asarray(tmax)), exclude_prim=jnp.asarray(ex))
     calls = ci.closest_hit_grouped_torch.calls
     # the kernel's CPU branch is its plain version
-    got, tests = ci.closest_hit_grouped_torch(
+    got, tests, slabs = ci.closest_hit_grouped_torch(
         acc, _rays_s(o, d, tmin, tmax), torch.from_numpy(ex),
         count_tests=True)
     again = cuda_cluster.closest_hit_grouped_cuda(
@@ -150,6 +150,9 @@ def test_plain_grouped_closest_hit_matches_brute(geo, max_leaf):
     # the walk culls: a hit ray tests far fewer triangles than the scene has
     assert (tests.numpy()[hit] > 0).all()
     assert tests.numpy().mean() < 0.5 * geo[1].shape[0]
+    # every group box, and more under the groups a hit ray enters
+    G = acc.g_aabb.shape[0]
+    assert (slabs.numpy() >= G).all() and (slabs.numpy()[hit] > G).all()
 
 
 @pytest.mark.parametrize("max_leaf", [None, 32])
@@ -167,13 +170,17 @@ def test_plain_grouped_any_hit_matches_brute(geo, max_leaf):
         Rays(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tmin),
              jnp.asarray(tmax)), exclude_prim=jnp.asarray(ex0),
         exclude_prim2=jnp.asarray(ex1)))
-    got, tests = ci.any_hit_grouped_torch(
+    got, tests, slabs = ci.any_hit_grouped_torch(
         acc, _rays_s(o, d, tmin, tmax), torch.from_numpy(ex0),
         torch.from_numpy(ex1), count_tests=True)
     np.testing.assert_array_equal(got.numpy(), want)
     assert 0.1 < want.mean() < 0.9
     dead = tmax == np.float32(2.5e-4)
     assert not got.numpy()[dead].any() and (tests.numpy()[dead] == 0).all()
+    # a dead ray needs no gate; an open one that misses tests every group
+    assert (slabs.numpy()[dead] == 0).all()
+    miss = (tmax == -1.0) & ~want
+    assert (slabs.numpy()[miss] >= acc.g_aabb.shape[0]).all()
 
 
 def test_plain_rebucketed_nee_bundle_matches_brute(geo):

@@ -4,7 +4,7 @@ the shared-origin NEE bundle) against core_tpu's entry points
 (closest_hit_clusters_s, any_hit_clusters_s, any_hit_nee_clusters_s),
 whose Pallas kernels run in interpret mode, as tests/test_cluster_intersect.py
 runs them: identical prim and occlusion bits, t/u/v within rtol 1e-6.  And
-the slice: a 32x32 directlight render of a flat mesh scene against the same
+the slice: a 16x16 directlight render of a flat mesh scene against the same
 scene forced brute.
 
 Geometry: the Cornell box split into clusters of <= 8 triangles (8 clusters,
@@ -118,8 +118,8 @@ def test_closest_hit_matches_core_tpu(accels):
     (jex0, tex0), (jex1, tex1) = _pair(ex0), _pair(ex1)
     want = jck.closest_hit_clusters_s(jcl, jr, exclude_prim=jex0,
                                       exclude_prim2=jex1, interpret=True)
-    got, tests = ci.closest_hit_flat_torch(acc, tr, tex0, tex1,
-                                           count_tests=True)
+    got, tests, slabs = ci.closest_hit_flat_torch(acc, tr, tex0, tex1,
+                                                  count_tests=True)
     np.testing.assert_array_equal(got.prim.numpy(), np.asarray(want.prim))
     for f in "tuv":
         np.testing.assert_allclose(getattr(got, f).numpy(),
@@ -132,6 +132,8 @@ def test_closest_hit_matches_core_tpu(accels):
     # the best-t gate culls: a hit ray tests fewer than all triangles
     assert (tests.numpy()[hit] > 0).all()
     assert tests.numpy()[hit].mean() < n_tris
+    # the flat walk slab-tests every cluster box of a live ray
+    assert (slabs.numpy() == np.where(dead, 0, 8)).all()
     # on CPU tensors the kernel's wrapper is its plain version
     calls = ci.closest_hit_flat_torch.calls
     via = cuda_cluster.closest_hit_flat_cuda(acc, tr, tex0, tex1)
@@ -152,14 +154,18 @@ def test_any_hit_matches_core_tpu(accels):
     (jex0, tex0), (jex1, tex1) = _pair(ex0), _pair(ex1)
     want = np.asarray(jck.any_hit_clusters_s(
         jcl, jr, exclude_prim=jex0, exclude_prim2=jex1, interpret=True))
-    got, tests = ci.any_hit_flat_torch(acc, tr, tex0, tex1,
-                                       count_tests=True)
+    got, tests, slabs = ci.any_hit_flat_torch(acc, tr, tex0, tex1,
+                                              count_tests=True)
     np.testing.assert_array_equal(got.numpy(), want)
     assert 0.2 < want.mean() < 0.8
     dead = tmax == np.float32(2.5e-4)
     assert not want[dead].any() and (tests.numpy()[dead] == 0).all()
     # an occluded ray stops at its first occluder
     assert (tests.numpy()[want] > 0).all()
+    # ... and slab-tests the boxes up to that cluster's
+    s = slabs.numpy()
+    assert (s[dead] == 0).all() and (s[~want & ~dead] == 8).all()
+    assert (s[want] >= 1).all() and (s[want] <= 8).all()
     assert torch.equal(cuda_cluster.any_hit_flat_cuda(acc, tr, tex0, tex1),
                        got)
 
@@ -205,7 +211,7 @@ def test_nee_bundle_matches_core_tpu(accels, K):
     to = tvec.v3(torch.from_numpy(o))
     td = [tvec.v3(torch.from_numpy(d)) for d in dirs]
     tc = [torch.from_numpy(c) for c in caps]
-    got, lane_tests, dir_tests = ci.any_hit_nee_flat_torch(
+    got, lane_tests, dir_tests, slabs = ci.any_hit_nee_flat_torch(
         acc, to, ttmin, td, tc, tex0, tex1, count_tests=True)
     assert got.dtype == torch.bool and got.shape == (K * n,)
     np.testing.assert_array_equal(got.numpy(), want)
@@ -216,18 +222,21 @@ def test_nee_bundle_matches_core_tpu(accels, K):
     # a lane's triangles get their origin terms once for all directions
     lt, dt = lane_tests.numpy(), dir_tests.numpy()
     assert (lt <= dt).all() and (dt <= K * lt).all() and lt.max() <= n_tris
+    # each live direction slab-tests the boxes up to its first occluder's
+    live = sum((c <= 0) | (c > tmin) for c in caps)
+    assert (slabs.numpy() <= 8 * live).all() and (slabs.numpy() > 0).all()
     assert torch.equal(cuda_cluster.any_hit_nee_flat_cuda(
         acc, to, ttmin, td, tc, tex0, tex1), got)
 
 
 def test_flat_render_equals_brute():
-    """The slice in the port alone: a 32x32 directlight chunk of a flat
+    """The slice in the port alone: a 16x16 directlight chunk of a flat
     mesh scene (4,274 triangles, 32 clusters) against the same scene forced
     brute.  Flat and brute orders can break exact-t ties between coplanar
     triangles differently, so the image is held at the mesh test's
     tolerance: >= 99% of pixel channels within rtol 1e-4 / atol 1e-5 and
     the mean within 1e-5 relative."""
-    sc = mesh_scene(resx=32, resy=32, n_grid=44, torus_u=24, torus_v=12,
+    sc = mesh_scene(resx=16, resy=16, n_grid=44, torus_u=24, torus_v=12,
                     ibl_samples=2, sun_samples=1, device="cpu")
     assert isinstance(sc.accel, ci.ClusterAccel) and sc.geom.n_tris == 4274
     opts = RenderOptions(aa_samples=1, integrator="directlight",
@@ -237,7 +246,7 @@ def test_flat_render_equals_brute():
     for scene in (sc, dataclasses.replace(sc, accel=None)):
         with torch.no_grad():
             f = render_chunk(scene, scene_material_types(scene), opts,
-                             tfilm.make_film(32, 32, device="cpu"), 0, 1, 0)
+                             tfilm.make_film(16, 16, device="cpu"), 0, 1, 0)
         imgs.append(tfilm.normalized(f).numpy())
     # the flat scene went through the plain versions of kernels 4 and 6
     assert ci.closest_hit_flat_torch.calls == 2      # camera + glossy chain

@@ -2,8 +2,8 @@
 the card (the small-size twin of chip_smoke.py's kernel phases): kernels
 1-3 on the Cornell box, the flat cluster kernels 4-6 on a 4,274-triangle
 mesh scene, the grouped kernels 7-8 on a forced-grouped small mesh scene,
-and renders through the kernels against renders through the plain
-versions.
+the edge cases of the cooperative sweeps of kernels 6 and 8, and renders
+through the kernels against renders through the plain versions.
 
 Marked `cuda`: each test asks its fixture for a CUDA device and skips
 without one.  Run on a GPU host with
@@ -274,3 +274,101 @@ def test_flat_render_through_kernels_equals_plain(device, dirac):
     imgs = [render_image(_flat_scene(device, isec, dirac), opts)[0]
             for isec in ("cuda", "torch")]
     assert torch.equal(imgs[0], imgs[1])
+
+
+# ---- the cooperative sweeps of kernels 6 and 8 on edge cases ----
+
+EDGE_CASES = ("single", "dead", "open", "n1", "n127", "n129", "excluded")
+
+
+def _bundle(device, acc, case, K=4):
+    """A NEE bundle (o3, tmin, dirs, caps, ex) over a small mesh scene's
+    accel: "single", one ray of one lane reaches the geometry (every other
+    ray points up, out of the scene); "dead", every cap 0 < tcap <= tmin;
+    "open", every cap open; "n1"/"n127"/"n129", that many lanes with mixed
+    caps; "excluded", each ray capped just past its closest hit and each
+    lane excluded from its first ray's hit triangle, its only occluder."""
+    from core_tpu_torch.geometry import cluster_intersect as ci
+    n = {"n1": 1, "n127": 127, "n129": 129}.get(case, 256)
+    rays, ex, g = _mesh_rays(device, n, seed=len(case))
+    o3, tmin = rays.o, rays.tmin
+    dirs = [vec.v3(_unit(torch.randn((n, 3), generator=g, device=device)))
+            for _ in range(K)]
+    caps = [torch.full((n,), (-1.0, 3.0, 0.5, 2.5e-4)[k % 4], device=device)
+            for k in range(K)]
+    if case == "single":
+        o3 = vec.v3(torch.tensor([0.1, 10.0, 0.2], device=device)
+                    .repeat(n, 1))
+        up = torch.tensor([0.0, 1.0, 0.0], device=device).repeat(n, 1)
+        dirs = [vec.v3(up) for _ in range(K)]
+        dirs[0].y[n // 2] = -1.0       # down, through the torus's hole
+        caps = [torch.full((n,), -1.0, device=device) for _ in range(K)]
+    elif case == "dead":
+        caps = [torch.full((n,), 2.5e-4, device=device) for _ in range(K)]
+    elif case == "open":
+        caps = [torch.full((n,), -1.0, device=device) for _ in range(K)]
+    elif case == "excluded":
+        closest = (ci.closest_hit_flat_torch
+                   if isinstance(acc, ci.ClusterAccel)
+                   else ci.closest_hit_grouped_torch)
+        hits = [closest(acc, vec.RaysS(o=o3, d=d, tmin=tmin,
+                                       tmax=torch.full((n,), -1.0,
+                                                       device=device)))
+                for d in dirs]
+        caps = [torch.where(h.prim >= 0, h.t * 1.0001, -1.0) for h in hits]
+        ex = hits[0].prim
+    return o3, tmin, dirs, caps, ex
+
+
+def _expect(case, bits, caps, ex):
+    """What each edge case must show beyond equality with the plain
+    version (bits: [K, n])."""
+    n = bits.shape[1]
+    if case == "single":
+        assert bool(bits[0, n // 2]) and int(bits.sum()) == 1
+    elif case == "dead":
+        assert not bool(bits.any())
+    elif case == "open":
+        assert 0.05 < float(bits.float().mean()) < 0.95
+    elif case == "excluded":
+        hit = ex >= 0
+        assert int(hit.sum()) > n // 4
+        assert float(bits[0][hit].float().mean()) < 0.1
+        # the other rays keep their own closest hit as an occluder
+        capped = torch.stack(caps[1:]) > 0
+        assert float((bits[1:] == capped).float().mean()) > 0.9
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_flat_nee_kernel_edge_cases(device, case):
+    from core_tpu_torch.geometry import cluster_intersect as ci
+    from core_tpu_torch.geometry import cuda_cluster as cc
+    acc = _flat_scene(device).accel
+    o3, tmin, dirs, caps, ex = _bundle(device, acc, case)
+    got = cc.any_hit_nee_flat_cuda(acc, o3, tmin, dirs, caps, ex)
+    want = ci.any_hit_nee_flat_torch(acc, o3, tmin, dirs, caps, ex)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    _expect(case, got.view(len(dirs), -1), caps, ex)
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_grouped_any_kernel_edge_cases(device, case):
+    """Kernel 8 on the bundle's rays as they come and through the
+    re-bucketed NEE route."""
+    from core_tpu_torch.geometry import cluster_intersect as ci
+    from core_tpu_torch.geometry import cuda_cluster as cc
+    acc = _grouped_scene(device).accel
+    o3, tmin, dirs, caps, ex = _bundle(device, acc, case)
+    K = len(dirs)
+    rays = vec.RaysS(o=vec.V3(*[c.repeat(K) for c in o3]),
+                     d=vec.V3(*[torch.cat([getattr(d, f) for d in dirs])
+                                for f in "xyz"]),
+                     tmin=tmin.repeat(K), tmax=torch.cat(caps))
+    got = cc.any_hit_grouped_cuda(acc, rays, ex.repeat(K))
+    want = ci.any_hit_grouped_torch(acc, rays, ex.repeat(K))
+    route = ci.any_hit_nee_clusters_s(acc, o3, tmin, dirs, caps, ex, None,
+                                      cc.any_hit_grouped_cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(route, want)
+    _expect(case, got.view(K, -1), caps, ex)
