@@ -1,35 +1,43 @@
-"""Kernels 6 and 8 of this checkout against other builds of them, timed in
+"""Kernels 5 to 8 of this checkout against other builds of them, timed in
 turns on the same captured main-path inputs, on one card.
 
-    python3 -m core_tpu_torch.bench_occlusion --parent DIR [--alt NAME=FILE]
+    python3 -m core_tpu_torch.bench_occlusion [--parent DIR] [--alt NAME=FILE]
 
-Run from the root of the checkout (it reuses chip_smoke.py's scene builds
-and captures).  --parent DIR: a checkout of the parent commit; its
-core_tpu_torch/csrc/*.cu are built into a library of their own, and its
-kernel 6 is called through its own C interface (K direction pointers per
-lane).  --alt NAME=FILE (repeatable): a cluster.cu with this checkout's C
-interface, built beside this checkout's intersect.cu, for another design of
-kernel 6 or 8.
+Run from the root of the checkout (it reuses chip_smoke.py's scene builds,
+captures and checks).  --parent DIR: a checkout of the parent commit; its
+core_tpu_torch/csrc/*.cu are built into a library of their own, called
+through the same C interface.  --alt NAME=FILE (repeatable): a cluster.cu
+with this checkout's C interface, built beside this checkout's
+intersect.cu, for another design of kernels 5 to 8.
 
-Inputs: every NEE bundle of one 256^2 mesh_scene chunk (kernel 6: IBL
-K=16 and sun K=8 at the camera hit and at the glossy-chain hit, 65,536
-lanes, 512 clusters) and every re-bucketed bundle of one 1024^2 big_scene
-chunk (kernel 8: IBL and sun at both hits), as chip_smoke.py captures
-them.  Each version's time
-is the median of `--reps` launches (CUDA events); the versions are visited
-in rounds, forward then backward, and the median over the rounds is
-printed.  Every output is held against the plain version (kernel 6: every
-ray; kernel 8: a 65,536-ray subset) and against this checkout's kernel on
-every ray.  Also timed: kernel 6's wrapper (stacking the directions and
-the launch) and kernel 8's re-bucketing (key, sort, gathers and scatter).
-The last line is one JSON object.
+Inputs, as chip_smoke.py captures them:
+  kernel 5  the six shadow wavefronts of one 256^2 chunk of the dirac
+            variant of mesh_scene (73,602 triangles, flat; point, spot and
+            directional light at the camera and at the glossy-chain hit);
+  kernel 6  every NEE bundle of one 256^2 mesh_scene chunk (IBL K=16 and
+            sun K=8 at both hits, 65,536 lanes, 512 clusters);
+  kernel 7  both closest-hit calls of one 1024^2 big_scene chunk (camera
+            and glossy chain);
+  kernel 8  every re-bucketed bundle of that chunk (IBL and sun at both
+            hits).
+Each input first goes through chip_smoke's check of this checkout's kernel
+against the plain version (kernels 5 and 6: every lane; 7 and 8: a 65,536
+lane subset), which also times the plain version and computes the bound
+from its count of the triangle and slab tests.  Then every version's output
+is held against this checkout's on every lane, bit for bit, and the
+versions are timed in rounds, forward then backward: each visit's time is
+the median of `--reps` launches (CUDA events), and each version's median
+over its visits is printed with their spread (least and most).  Also
+timed: kernel 6's wrapper (stacking the directions and the launch) and
+kernel 8's re-bucketing (key, sort, gathers and scatter).  The last line
+is one JSON object.
 """
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import re
+import statistics
 import subprocess
 from pathlib import Path
 
@@ -40,126 +48,133 @@ from core_tpu_torch.geometry import cluster_intersect as ci
 from core_tpu_torch.geometry import cuda_cluster as cc
 from core_tpu_torch.geometry import cuda_intersect as ck
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-# kernel 6's C interface before its redesign: per-lane directions as 4*K
-# pointers
-_OLD_NEE = [_P] * 4 + [_I] * 2 + [_P] * 6 + [_I, _P, _P, _I, _P]
-
 
 def _ptxas(path: Path, tag: str):
-    """Print the ptxas lines of kernels 6 and 8 in a build's log."""
+    """Print the ptxas lines of the cluster kernels in a build's log."""
     log = path.with_suffix(".log")
     name = None
     for ln in log.read_text().splitlines() if log.exists() else []:
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            name = m.group(1) if re.search(
-                r"any_hit_nee_kernel|grouped_any_hit_kernel",
-                m.group(1)) else None
+            k = re.search(r"(cluster_\w+|grouped_\w+)_kernel", m.group(1))
+            name = k.group(1) if k else None
         elif name and ("Used" in ln or "spill" in ln):
             print(f"ptxas {tag} {name}: {ln.split(':', 1)[-1].strip()}")
 
 
 def _libs(parent, alts):
-    """{name: (library, interface)}: this checkout's ("new"), the parent's
-    ("old" interface of kernel 6) and the alternatives."""
+    """{name: library}: this checkout's ("new"), the parent's and the
+    alternatives."""
     new_path, _ = _build.build()
     _ptxas(new_path, "new")
-    libs = {"new": (_build.load_library(), "new")}
+    libs = {"new": _build.load_library()}
     if parent:
         path, _ = _build.build(sorted(
             (Path(parent) / "core_tpu_torch" / "csrc").glob("*.cu")))
         _ptxas(path, "parent")
-        lib = _build.open_library(path)
-        lib.cti_cluster_any_hit_nee.argtypes = _OLD_NEE
-        libs["parent"] = (lib, "old")
+        libs["parent"] = _build.open_library(path)
     for alt in alts:
         name, src = alt.split("=", 1)
         path, _ = _build.build([Path(src), _build.SRC_DIR / "intersect.cu"])
         _ptxas(path, name)
-        libs[name] = (_build.open_library(path), "new")
+        libs[name] = _build.open_library(path)
     return libs
 
 
-def _nee_runs(libs, acc, o3, tmin, dirs, tcaps, ex0, ex1):
-    """{version: fn() -> [K*n] bits} of kernel 6 on one bundle."""
-    n, K = tmin.shape[0], len(dirs)
-    dev = tmin.device
-    args = cc._flat_args(acc)
-    shared, ptr_array = ck.nee_ptrs(o3, tmin, dirs, tcaps, ex0, ex1, n, dev)
-    stacked = [torch.stack([getattr(d, f) for d in dirs]) for f in "xyz"] \
-        + [torch.stack(list(tcaps))]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def make(lib, iface):
-        hit = torch.empty(K * n, dtype=torch.bool, device=dev)
-
-        def run():
-            # the stacked directions stay referenced here while the runs live
-            if iface == "old":
-                err = lib.cti_cluster_any_hit_nee(
-                    *args, *shared, K, ptr_array, hit.data_ptr(), n, stream)
-            else:
-                err = lib.cti_cluster_any_hit_nee(
-                    *args, *shared, *[a.data_ptr() for a in stacked],
-                    hit.data_ptr(), n, K, stream)
-            _build.check(lib, err, "cti_cluster_any_hit_nee")
-            return hit
-        return run
-    return {name: make(lib, iface) for name, (lib, iface) in libs.items()}
-
-
-def _grouped_runs(libs, acc, rays, ex0, ex1):
-    n = rays.tmin.shape[0]
-    dev = rays.tmin.device
-    args = cc._grouped_args(acc)
-    ptrs = ck.ray_ptrs(rays, ex0, ex1, n, dev)
+def _runs(libs, entry, lead, outs, trail, dev, keep=()):
+    """{version: fn() -> output tensors}: entry(*lead, *outputs, *trail,
+    stream) in each library; outs: (dtype, numel) of each output; keep:
+    tensors behind pointers in lead, held as long as the runs."""
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def make(lib):
-        hit = torch.empty(n, dtype=torch.bool, device=dev)
+        bufs = [torch.empty(m, dtype=dt, device=dev) for dt, m in outs]
+        fn = getattr(lib, entry)
 
         def run():
-            _build.check(lib, lib.cti_grouped_any_hit(
-                *args, *ptrs, hit.data_ptr(), n, stream),
-                "cti_grouped_any_hit")
-            return hit
+            _build.check(lib, fn(*lead, *[b.data_ptr() for b in bufs],
+                                 *trail, stream), entry)
+            return bufs
+        run.keep = keep
         return run
-    return {name: make(lib) for name, (lib, _) in libs.items()}
+    return {name: make(lib) for name, lib in libs.items()}
+
+
+def _ray_runs(libs, entry, args, rays, ex0, ex1, closest):
+    n = rays.tmin.shape[0]
+    dev = rays.tmin.device
+    outs = ([(torch.float32, n), (torch.int32, n), (torch.float32, n),
+             (torch.float32, n)] if closest else [(torch.bool, n)])
+    return _runs(libs, entry, args + ck.ray_ptrs(rays, ex0, ex1, n, dev),
+                 outs, [n], dev)
+
+
+def _nee_runs(libs, acc, o3, tmin, dirs, tcaps, ex0, ex1):
+    n, K = tmin.shape[0], len(dirs)
+    dev = tmin.device
+    shared, _ = ck.nee_ptrs(o3, tmin, dirs, tcaps, ex0, ex1, n, dev)
+    stacked = [torch.stack([getattr(d, f) for d in dirs]) for f in "xyz"] \
+        + [torch.stack(list(tcaps))]
+    return _runs(libs, "cti_cluster_any_hit_nee",
+                 cc._flat_args(acc) + shared + [a.data_ptr() for a in stacked],
+                 [(torch.bool, K * n)], [n, K], dev, keep=stacked)
 
 
 def _in_turns(runs, reps, rounds):
-    """{version: median ms}: rounds of forward-then-backward visits."""
-    import statistics
+    """({version: median ms}, {version: [least, most] ms}) over rounds of
+    forward-then-backward visits."""
     from chip_smoke import cuda_time_ms
     names = list(runs)
     times = {k: [] for k in names}
     for _ in range(rounds):
         for k in names + names[::-1]:
             times[k].append(cuda_time_ms(runs[k], reps, warmup=1)[0])
-    return {k: statistics.median(v) for k, v in times.items()}
+    return ({k: statistics.median(v) for k, v in times.items()},
+            {k: [min(v), max(v)] for k, v in times.items()})
 
 
-def _check(runs, want, idx=None, what=""):
-    """Every version's bits equal the plain bits (on idx) and this
-    checkout's bits (everywhere)."""
-    ref = runs["new"]()
-    torch.cuda.synchronize()
-    ref = ref.clone()
-    for k, fn in runs.items():
-        got = fn()
+def _same_everywhere(runs, what):
+    """Every version's outputs equal this checkout's on every lane, bit for
+    bit."""
+    def bits(outs):
         torch.cuda.synchronize()
-        sub = got if idx is None else got[idx]
-        if not torch.equal(sub, want) or not torch.equal(got, ref):
-            raise RuntimeError(f"{what}: {k} differs from the plain version "
-                               f"or this checkout's kernel")
+        return [o.view(torch.int32) if o.dtype == torch.float32 else o.clone()
+                for o in outs]
+    ref = bits(runs["new"]())
+    for k, fn in runs.items():
+        got = bits(fn())
+        bad = [int((g != r).sum()) for g, r in zip(got, ref)]
+        if any(bad):
+            raise RuntimeError(f"{what}: {k} differs from this checkout's "
+                               f"kernel on {bad} lanes (per output)")
+
+
+def _row(check, runs, what, a):
+    """chip_smoke's row of one input (plain ms, bound) with every version's
+    time in turns."""
+    _same_everywhere(runs, what)
+    row = {"plain_ms": check["plain_ms"], "bound_ms": check["bound_ms"],
+           "bound_by": check["bound_by"]}
+    ms, spread = _in_turns(runs, a.reps, a.rounds)
+    row.update(ms)
+    row["spread"] = spread
+    return row
+
+
+def _print(kernel, label, lanes, row):
+    def fmt(v):
+        return f"{v:.4f} ms" if isinstance(v, float) else str(v)
+    print(f"kernel {kernel}, {label}, {lanes}: " + ", ".join(
+        f"{k} {fmt(v)}" for k, v in row.items() if k != "spread")
+        + "; spread " + ", ".join(f"{k} {lo:.4f}-{hi:.4f}"
+                                  for k, (lo, hi) in row["spread"].items()))
 
 
 def main():
-    from chip_smoke import (BIG_IBL, BIG_RES, MESH_RES, SUBSET,
-                            _capture_calls, _capture_chunk, _subset,
-                            cuda_time_ms, phase_big_build, phase_mesh_build)
+    from chip_smoke import (BIG_IBL, BIG_RES, MESH_RES, _capture_calls,
+                            _capture_chunk, _check_big_kernel,
+                            _check_captured, cuda_time_ms, phase_big_build,
+                            phase_mesh_build)
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent")
     ap.add_argument("--alt", action="append", default=[])
@@ -173,58 +188,81 @@ def main():
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}")
     libs = _libs(a.parent, a.alt)
-    out = {"card": smi, "kernel6": {}, "kernel8": {}}
+    out = {"card": smi, "kernel5": {}, "kernel6": {}, "kernel7": {},
+           "kernel8": {}}
+
+    scene, _ = phase_mesh_build(MESH_RES, "dirac flat")
+    anys = [c for c in _capture_calls(scene, MESH_RES) if c[0] == "any"]
+    for i, (q, args, kw) in enumerate(anys):
+        acc, rays = args
+        ex0, ex1 = kw.get("exclude_prim"), kw.get("exclude_prim2")
+        label = f"dirac {('point', 'spot', 'directional')[i % 3]} light " \
+            f"({'camera' if i < 3 else 'glossy-chain'} hit)"
+        check = _check_captured(f"bench: {label}", q, args, kw)
+        runs = _ray_runs(libs, "cti_cluster_any_hit", cc._flat_args(acc),
+                         rays, ex0, ex1, closest=False)
+        row = _row(check, runs, label, a)
+        _print(5, label, f"{rays.tmin.shape[0]} rays", row)
+        out["kernel5"][label] = row
+    del scene, anys
 
     scene, _ = phase_mesh_build(MESH_RES)
     nees = [c for c in _capture_calls(scene, MESH_RES) if c[0] == "nee"]
-    for i, (_, args, kw) in enumerate(nees):
+    for i, (q, args, kw) in enumerate(nees):
         acc, o3, tmin, dirs, tcaps = args
         K = len(dirs)
         label = f"mesh {'IBL' if K == 16 else 'sun'} K={K} " \
             f"({'camera' if i < len(nees) // 2 else 'glossy-chain'} hit)"
         ex0, ex1 = kw.get("exclude_prim"), kw.get("exclude_prim2")
+        check = _check_captured(f"bench: {label}", q, args, kw)
         runs = _nee_runs(libs, acc, o3, tmin, dirs, tcaps, ex0, ex1)
-        want = ci.any_hit_nee_flat_torch(acc, o3, tmin, dirs, tcaps, ex0, ex1)
-        _check(runs, want, what=label)
-        ms = _in_turns(runs, a.reps, a.rounds)
-        ms["wrapper"] = cuda_time_ms(lambda: cc.any_hit_nee_flat_cuda(
+        row = _row(check, runs, label, a)
+        row["wrapper"] = cuda_time_ms(lambda: cc.any_hit_nee_flat_cuda(
             acc, o3, tmin, dirs, tcaps, ex0, ex1), a.reps, warmup=1)[0]
-        print(f"kernel 6, {label}, {tmin.shape[0]} lanes: "
-              + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
-        out["kernel6"][label] = ms
+        _print(6, label, f"{tmin.shape[0]} lanes", row)
+        out["kernel6"][label] = row
     del scene, nees, runs
     torch.cuda.empty_cache()
 
     scene, _ = phase_big_build(BIG_RES)
     acc = scene.accel
+    args = cc._grouped_args(acc)
     calls = _capture_chunk(scene)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for i, (_, rays, ex0, ex1) in enumerate(
+            c for c in calls if c[0] == "closest"):
+        label = f"big {'camera' if i == 0 else 'glossy-chain'} closest hit"
+        check = _check_big_kernel(acc, f"bench: {label}", "closest", rays,
+                                  ex0, ex1, gen)
+        runs = _ray_runs(libs, "cti_grouped_closest_hit", args, rays, ex0,
+                         ex1, closest=True)
+        row = _row(check, runs, label, a)
+        _print(7, label, f"{rays.tmin.shape[0]} rays", row)
+        out["kernel7"][label] = row
     anys = [c for c in calls if c[0] == "any"]
     nees = [c for c in calls if c[0] == "nee"]
     n_pix = BIG_RES * BIG_RES
-    gen = torch.Generator(device="cuda").manual_seed(7)
     for i, ((_, rays, ex0, ex1), nee) in enumerate(zip(anys, nees)):
         n = rays.tmin.shape[0]
         K = n // n_pix
         label = f"big {'IBL' if K == 2 * BIG_IBL else 'sun'} K={K} " \
             f"({'camera' if i < len(anys) // 2 else 'glossy-chain'} hit)"
-        runs = _grouped_runs(libs, acc, rays, ex0, ex1)
-        idx = torch.randperm(n, generator=gen, device="cuda")[:SUBSET] \
-            .sort().values
-        want = ci.any_hit_grouped_torch(acc, *_subset(rays, ex0, ex1, idx))
-        _check(runs, want, idx, label)
-        ms = _in_turns(runs, a.reps, a.rounds)
+        check = _check_big_kernel(acc, f"bench: {label}", "any", rays, ex0,
+                                  ex1, gen)
+        runs = _ray_runs(libs, "cti_grouped_any_hit", args, rays, ex0, ex1,
+                         closest=False)
+        row = _row(check, runs, label, a)
         _, o3, tmin, dirs, tcaps, e0, e1 = nee
 
         def no_sweep(acc_, r, *x):
             return torch.zeros(r.tmin.shape[0], dtype=torch.bool,
                                device="cuda")
-        ms["re-bucketing (key, sort, gathers, scatter)"] = cuda_time_ms(
+        row["re-bucketing (key, sort, gathers, scatter)"] = cuda_time_ms(
             lambda: ci.any_hit_nee_clusters_s(acc, o3, tmin, dirs, tcaps, e0,
                                               e1, no_sweep), a.reps,
             warmup=1)[0]
-        print(f"kernel 8, {label}, {n} rays: "
-              + ", ".join(f"{k_} {v:.4f} ms" for k_, v in ms.items()))
-        out["kernel8"][label] = ms
+        _print(8, label, f"{n} rays", row)
+        out["kernel8"][label] = row
     print(json.dumps(out))
 
 

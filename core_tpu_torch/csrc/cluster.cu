@@ -25,50 +25,69 @@
 // eps-guarded reciprocal, same min/max order), applied by each ray to its
 // own boxes with its own cap.
 //
-// Kernels 4, 5 and 7: one thread per ray walks the clusters in build order
-// -- flat: all of them, their boxes staged in shared memory (at most 1,023 x
-// 32 B); grouped: groups, octets, clusters, boxes read through the
-// read-only cache -- and runs Moller-Trumbore over a passing cluster's
-// triangles, read from global memory.  Closest hit gates with tcap =
-// min(tmax cap, best t) and keeps a hit only if t < best t (ties keep the
-// first triangle visited); any hit stops at the first occluder.  They lean
-// on coherent input order (camera rays in 32x32 pixel blocks).
+// Kernel 4: one thread per ray walks all clusters in build order, their
+// boxes staged in shared memory (at most 1,023 x 32 B), and runs
+// Moller-Trumbore over a passing cluster's triangles, read from global
+// memory, gating with tcap = min(tmax cap, best t) and keeping a hit only
+// if t < best t (ties keep the first triangle visited).  It leans on
+// coherent input order (camera rays in 32x32 pixel blocks).
 //
-// Kernels 6 and 8, the NEE occlusion sweeps.  What bounds them on this
-// card is not the float work (~25 operations per slab test, 56-64 per
-// triangle test; the triangle tables, 2.7 MB at 73.6k triangles and ~38 MB
-// at 1M, sit in the 50 MB L2) but how a warp meets it.  Walked one ray (or
-// one lane of K directions) per thread, a warp serialises over the union of
-// the clusters its threads pass, and while one thread tests a cluster's
-// 128-256 triangles, reading 10 scattered words per triangle, the threads
-// that did not pass it wait; and a lane holding K=16 directions in
-// registers (150 registers) leaves 12 warps on an SM.  So both kernels are
-// cooperative sweeps:
-//   - one thread per shadow ray.  Kernel 6 puts a lane's K rays on
-//     neighbouring threads (thread i: direction i % K of lane i / K), so a
-//     warp holds rays of few origins; kernel 8's rays arrive re-bucketed by
+// Kernels 5-8 are cooperative walks.  What bounds them on this card is not
+// the float work (~25 operations per slab test, 56-64 per triangle test;
+// the triangle tables, 2.7 MB at 73.6k triangles and ~38 MB at 1M, sit in
+// the 50 MB L2) but how a warp meets it.  Walked one ray (or one lane of K
+// directions) per thread, a warp serialises over the union of the clusters
+// its threads pass, and while one thread tests a cluster's 128-256
+// triangles, reading 10 scattered words per triangle, the threads that did
+// not pass it wait -- worst for incoherent rays (kernel 7's glossy chain,
+// kernel 8's bundles); and a lane holding K=16 directions in registers (150
+// registers) leaves 12 warps on an SM.  So:
+//   - one thread per ray.  Kernel 6 puts a lane's K rays on neighbouring
+//     threads (thread i: direction i % K of lane i / K), so a warp holds
+//     rays of few origins; kernel 8's rays arrive re-bucketed by
 //     _nee_bucket_key (octahedral direction bin major, origin Morton cell
-//     minor);
-//   - a walk (kernel 6: the block of 128 threads; kernel 8: one warp)
-//     gates each level with every thread's own slab test and takes the OR
-//     of the gates: kernel 6 32 cluster boxes at a time, staged in shared
-//     memory; kernel 8 the group box (read-only cache), then the group's
-//     octet and cluster boxes, staged in shared memory;
+//     minor); kernels 5 and 7 take the rays as they come (camera and
+//     shadow rays in 32x32 pixel blocks);
+//   - a walk -- kernels 5 and 6 (one body, flat_walk): the block of 128
+//     threads; kernels 7 and 8: one warp -- gates each level with
+//     every thread's own slab test and takes the OR of the gates: the flat
+//     walk 32 cluster boxes at a time, staged in shared memory; the grouped
+//     walk the group box (read-only cache), then the group's octet and
+//     cluster boxes, staged in shared memory, skipping a level no ray of
+//     the warp passes;
 //   - each cluster some thread passes is copied once into shared memory
 //     with cp.async (16-byte pieces; a cluster's [leaf, 9] block is
 //     contiguous), double-buffered so the next one loads while this one is
 //     tested;
 //   - the test is triangle-parallel in each warp: the warp takes its rays
-//     that passed, one by one, and its 32 lanes test 32 triangles at a time
-//     (warp_test), so a warp whose rays pass few clusters makes few tests;
-//   - a ray stops at its first occluder; a dead ray (0 < tcap <= tmin)
-//     never starts; the walk ends when all its rays are done.
+//     that passed, one by one, and its 32 lanes test 32 triangles at a
+//     time, so a warp whose rays pass few clusters makes few tests.  Any
+//     hit (warp_test) stops a ray at its first occluder, and the walk ends
+//     when all its rays are done.  Closest hit (warp_closest) takes a warp
+//     arg-min over (t, slot) of the triangles with t < the ray's best t at
+//     the cluster's start: the smallest t and, among equal t, the lowest
+//     slot, which is what the sequential `t < best t` loop keeps; when
+//     most of the warp's rays pass, each walks the staged triangles in its
+//     own lane instead (cheaper then, and the same loop);
+//   - a dead ray (0 < tcap <= tmin) never starts: no t lies in (tmin,
+//     tcap).
 // Only a ray's own gates decide which triangles it is tested against, so
 // the bits are those of the plain versions: a triangle tested under a box
-// the ray's gate rejected could occlude at a box edge where the plain
-// version does not.  The OR of the gates only decides what is staged.
-// Kernel 6 keeps the shared-origin test's expression tree (origin terms m1,
-// w, qvec, tnum, then det, un, vn) for each ray.
+// the ray's gate rejected could win at a box edge where the plain version
+// does not test it.  The OR of the gates only decides what is staged.
+// Kernel 7's gates follow its plain version's replay: the group box with
+// min(tcap, best t on entering the group), the octet box with the best t
+// on entering the octet, each cluster box with the best t now.  Best t
+// only falls, so the cluster gates at the octet's entry are a superset of
+// the gates at test time: their OR picks what is staged, and just before a
+// ray is tested against a staged cluster it takes its gate again with its
+// current best t (the box is in shared memory).  The visit order stays the
+// build order (groups, octets, clusters): a near-to-far order would change
+// which of two triangles at equal t wins.  Kernels 7 and 8 keep a body
+// each: one body with the cap and the test as parameters ran kernel 8
+// ~1% slower than its own (PERF.md, PR 5).  Kernel 6 keeps the
+// shared-origin test's expression tree (origin terms m1, w, qvec, tnum,
+// then det, un, vn) for each ray.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -163,46 +182,68 @@ struct Best {
   int prim;
 };
 
-// Moller-Trumbore over cluster c's triangles, keeping t < best t.
-__device__ __forceinline__ void cluster_closest(const Tris& a, int c,
-                                                const Lane& l, Best& b) {
-  const int cnt = __ldg(a.count + c);
-  const float* tp = a.tris + static_cast<size_t>(c) * a.leaf * 9;
-  const int* ip = a.tri_id + static_cast<size_t>(c) * a.leaf;
+// The closest-hit Moller-Trumbore test of triangle q (9 floats, v0 e1 e2)
+// with id `id` (cluster_intersect.py:_mt_closest's arithmetic): true when
+// the hit is accepted with t < bt, and then its t, u and v.
+__device__ __forceinline__ bool closest_test(const float* q, int id,
+                                             const Lane& l, float bt,
+                                             float& t, float& u, float& v) {
+  const float v0x = q[0], v0y = q[1], v0z = q[2];
+  const float e1x = q[3], e1y = q[4], e1z = q[5];
+  const float e2x = q[6], e2y = q[7], e2z = q[8];
   const float dx = l.dx, dy = l.dy, dz = l.dz;
+  // pvec = d x e2
+  const float px = dy * e2z - dz * e2y;
+  const float py = dz * e2x - dx * e2z;
+  const float pz = dx * e2y - dy * e2x;
+  const float det = e1x * px + e1y * py + e1z * pz;
+  const bool det_ok = fabsf(det) > 1e-12f;
+  const float inv_det = 1.0f / (det_ok ? det : 1.0f);
+  const float tx = l.r.ox - v0x;
+  const float ty = l.r.oy - v0y;
+  const float tz = l.r.oz - v0z;
+  u = (tx * px + ty * py + tz * pz) * inv_det;
+  // qvec = tvec x e1
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  v = (dx * qx + dy * qy + dz * qz) * inv_det;
+  t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  return det_ok && u >= 0.f && u <= 1.f && v >= 0.f && u + v <= 1.f &&
+         t > l.r.tmin && t < l.tcap && t < bt && id != l.ex0 && id != l.ex1;
+}
+
+// Moller-Trumbore over cnt triangles (rows of 9 floats and ids; global
+// memory through the read-only cache, or shared memory) in order, keeping
+// t < best t.
+template <bool kShared>
+__device__ __forceinline__ void closest_loop(const float* __restrict__ tri,
+                                             const int* __restrict__ ids,
+                                             int cnt, const Lane& l,
+                                             Best& b) {
   for (int k = 0; k < cnt; ++k) {
-    const float* q = tp + k * 9;
-    const float v0x = __ldg(q + 0), v0y = __ldg(q + 1), v0z = __ldg(q + 2);
-    const float e1x = __ldg(q + 3), e1y = __ldg(q + 4), e1z = __ldg(q + 5);
-    const float e2x = __ldg(q + 6), e2y = __ldg(q + 7), e2z = __ldg(q + 8);
-    // pvec = d x e2
-    const float px = dy * e2z - dz * e2y;
-    const float py = dz * e2x - dx * e2z;
-    const float pz = dx * e2y - dy * e2x;
-    const float det = e1x * px + e1y * py + e1z * pz;
-    const bool det_ok = fabsf(det) > 1e-12f;
-    const float inv_det = 1.0f / (det_ok ? det : 1.0f);
-    const float tx = l.r.ox - v0x;
-    const float ty = l.r.oy - v0y;
-    const float tz = l.r.oz - v0z;
-    const float u = (tx * px + ty * py + tz * pz) * inv_det;
-    // qvec = tvec x e1
-    const float qx = ty * e1z - tz * e1y;
-    const float qy = tz * e1x - tx * e1z;
-    const float qz = tx * e1y - ty * e1x;
-    const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
-    const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-    const int id = __ldg(ip + k);
-    const bool ok = det_ok && u >= 0.f && u <= 1.f && v >= 0.f &&
-                    u + v <= 1.f && t > l.r.tmin && t < l.tcap && t < b.t &&
-                    id != l.ex0 && id != l.ex1;
-    if (ok) {
+    float q[9];
+#pragma unroll
+    for (int f = 0; f < 9; ++f) {
+      q[f] = kShared ? tri[k * 9 + f] : __ldg(tri + k * 9 + f);
+    }
+    const int id = kShared ? ids[k] : __ldg(ids + k);
+    float t, u, v;
+    if (closest_test(q, id, l, b.t, t, u, v)) {
       b.t = t;
       b.prim = id;
       b.u = u;
       b.v = v;
     }
   }
+}
+
+// Kernel 4's test of cluster c.
+__device__ __forceinline__ void cluster_closest(const Tris& a, int c,
+                                                const Lane& l, Best& b) {
+  closest_loop<false>(a.tris + static_cast<size_t>(c) * a.leaf * 9,
+                      a.tri_id + static_cast<size_t>(c) * a.leaf,
+                      __ldg(a.count + c), l, b);
 }
 
 // The division-free, sign-folded any-hit test of triangle q (9 floats, v0
@@ -264,21 +305,6 @@ __device__ __forceinline__ bool occludes_nee(const float* q, const Lane& l) {
   const float tn = tnum * s;
   return dd > 1e-12f && un >= 0.f && vn >= 0.f && un + vn <= dd &&
          tn > l.r.tmin * dd && tn < l.tcap * dd;
-}
-
-// true when any triangle of cluster c occludes the ray in (tmin, tcap)
-__device__ __forceinline__ bool cluster_any(const Tris& a, int c,
-                                            const Lane& l) {
-  const int cnt = __ldg(a.count + c);
-  const float* tp = a.tris + static_cast<size_t>(c) * a.leaf * 9;
-  const int* ip = a.tri_id + static_cast<size_t>(c) * a.leaf;
-  for (int k = 0; k < cnt; ++k) {
-    float q[9];
-#pragma unroll
-    for (int f = 0; f < 9; ++f) q[f] = __ldg(tp + k * 9 + f);
-    if (occludes(q, __ldg(ip + k), l)) return true;
-  }
-  return false;
 }
 
 __device__ __forceinline__ void store_best(const Best& b, int i,
@@ -432,6 +458,25 @@ __device__ __forceinline__ bool staged_sweep(const Tris& a, uint32_t u,
   return false;
 }
 
+constexpr unsigned kFull = 0xffffffffu;
+
+// Lane q's ray (the fields the triangle tests read), in every lane of the
+// warp.
+__device__ __forceinline__ Lane shfl_lane(const Lane& l, int q) {
+  Lane r;
+  r.r.ox = __shfl_sync(kFull, l.r.ox, q);
+  r.r.oy = __shfl_sync(kFull, l.r.oy, q);
+  r.r.oz = __shfl_sync(kFull, l.r.oz, q);
+  r.r.tmin = __shfl_sync(kFull, l.r.tmin, q);
+  r.dx = __shfl_sync(kFull, l.dx, q);
+  r.dy = __shfl_sync(kFull, l.dy, q);
+  r.dz = __shfl_sync(kFull, l.dz, q);
+  r.tcap = __shfl_sync(kFull, l.tcap, q);
+  r.ex0 = __shfl_sync(kFull, l.ex0, q);
+  r.ex1 = __shfl_sync(kFull, l.ex1, q);
+  return r;
+}
+
 // The test of a staged cluster, triangle-parallel in each warp: the warp
 // takes the rays of its lanes that pass (their own gates passed, not yet
 // done) one by one, each broadcast from its lane, and its 32 lanes test 32
@@ -443,30 +488,81 @@ template <class Occ>
 __device__ __forceinline__ void warp_test(Stage s, int cnt, bool pass,
                                           const Lane& l, bool& hit,
                                           bool& done, Occ occ) {
-  const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31;
-  for (uint32_t m = __ballot_sync(full, pass); m; m &= m - 1) {
+  for (uint32_t m = __ballot_sync(kFull, pass); m; m &= m - 1) {
     const int q = __ffs(m) - 1;
-    Lane r;
-    r.r.ox = __shfl_sync(full, l.r.ox, q);
-    r.r.oy = __shfl_sync(full, l.r.oy, q);
-    r.r.oz = __shfl_sync(full, l.r.oz, q);
-    r.r.tmin = __shfl_sync(full, l.r.tmin, q);
-    r.dx = __shfl_sync(full, l.dx, q);
-    r.dy = __shfl_sync(full, l.dy, q);
-    r.dz = __shfl_sync(full, l.dz, q);
-    r.tcap = __shfl_sync(full, l.tcap, q);
-    r.ex0 = __shfl_sync(full, l.ex0, q);
-    r.ex1 = __shfl_sync(full, l.ex1, q);
+    const Lane r = shfl_lane(l, q);
     for (int t0 = 0; t0 < cnt; t0 += 32) {
       const int t = t0 + lane;
       const bool h = t < cnt && occ(s.tri + t * 9, s.id[t], r);
-      if (__any_sync(full, h)) {
+      if (__any_sync(kFull, h)) {
         if (lane == q) {
           hit = true;
           done = true;
         }
         break;
+      }
+    }
+  }
+}
+
+// The closest-hit test of a staged cluster, triangle-parallel in each warp:
+// the warp takes the rays of its lanes that pass one by one, each broadcast
+// from its lane with its best t at the cluster's start, and its 32 lanes
+// test 32 of the cluster's triangles at a time (closest_test).  A warp
+// arg-min over (t, slot) keeps the smallest t and, among equal t, the
+// lowest slot: the triangle that the sequential `t < best t` loop keeps.
+// The ray's own lane takes t, prim, u and v from the winning lane.  When
+// most of the warp's rays pass, each instead walks the staged triangles in
+// order in its own lane (closest_loop, broadcast reads): that costs cnt
+// tests, the triangle-parallel test popc * ceil(cnt / 32) and about a
+// third more for the broadcasts and the arg-min (24 of 32 rays on a full
+// cluster; measured, PERF.md).
+__device__ __forceinline__ void warp_closest(Stage s, int cnt, bool pass,
+                                             const Lane& l, Best& b) {
+  constexpr int kNoSlot = 0x7fffffff;
+  const int lane = threadIdx.x & 31;
+  const uint32_t passing = __ballot_sync(kFull, pass);
+  if (4 * __popc(passing) * ((cnt + 31) >> 5) >= 3 * cnt) {
+    if (pass) closest_loop<true>(s.tri, s.id, cnt, l, b);
+    return;
+  }
+  for (uint32_t m = passing; m; m &= m - 1) {
+    const int q = __ffs(m) - 1;
+    const Lane r = shfl_lane(l, q);
+    // this lane's best over its slots lane, lane + 32, ...: they rise, so
+    // the strict t < wt keeps the lowest slot of equal t
+    float wt = __shfl_sync(kFull, b.t, q), wu = 0.f, wv = 0.f;
+    int ws = kNoSlot, wp = -1;
+    for (int k = lane; k < cnt; k += 32) {
+      float t, u, v;
+      if (closest_test(s.tri + k * 9, s.id[k], r, wt, t, u, v)) {
+        wt = t;
+        wu = u;
+        wv = v;
+        ws = k;
+        wp = s.id[k];
+      }
+    }
+#pragma unroll
+    for (int off = 16; off; off >>= 1) {
+      const float ot = __shfl_xor_sync(kFull, wt, off);
+      const int os = __shfl_xor_sync(kFull, ws, off);
+      if (ot < wt || (ot == wt && os < ws)) {
+        wt = ot;
+        ws = os;
+      }
+    }
+    if (ws != kNoSlot) {  // the same in every lane
+      const int src = ws & 31;
+      const float hu = __shfl_sync(kFull, wu, src);
+      const float hv = __shfl_sync(kFull, wv, src);
+      const int hp = __shfl_sync(kFull, wp, src);
+      if (lane == q) {
+        b.t = wt;
+        b.u = hu;
+        b.v = hv;
+        b.prim = hp;
       }
     }
   }
@@ -492,28 +588,82 @@ __global__ void __launch_bounds__(kBlock) cluster_closest_hit_kernel(
   store_best(b, i, t_out, prim_out, u_out, v_out);
 }
 
+constexpr int kWarps = kBlock / 32;
+constexpr int kGateBits = 32;  // cluster gates per ballot
+
+// floats of shared memory of the flat walk: the boxes, and two staging
+// buffers of leaf rows of 9 floats and an id
+__host__ __device__ int flat_walk_floats(int n_clusters, int leaf) {
+  return n_clusters * 8 + 2 * leaf * 10;
+}
+
+// The flat walk of kernels 5 and 6; the block is the walk.  Each thread
+// takes one ray -- load(l, done) fills it and returns the index of its
+// output bit, or -1 for none -- and gates it, 32 cluster boxes at a time,
+// with its own cap; the clusters in the OR of the block's gates are staged
+// in order and tested with occ (warp_test).  smem: flat_walk_floats.
+template <class Load, class Occ>
+__device__ __forceinline__ void flat_walk(const float* __restrict__ aabb,
+                                          int n_clusters, const Tris& a,
+                                          float* smem, uint32_t* s_or,
+                                          Load load, Occ occ,
+                                          uint8_t* __restrict__ hit_out) {
+  using B = Walk<kWarps>;
+  float* s_box = smem;
+  stage_boxes(s_box, aabb, n_clusters);
+  float* s_tri = s_box + n_clusters * 8;
+  const Buffers buf{s_tri, reinterpret_cast<int*>(s_tri + 2 * a.leaf * 9),
+                    a.leaf};
+  Lane l{};
+  bool done = true;
+  const int out = load(l, done);
+  bool hit = false;
+  uint32_t gate = 0;
+  auto test = [&](Stage s, int cnt, int j) {
+    warp_test(s, cnt, !done && ((gate >> j) & 1u), l, hit, done, occ);
+  };
+  const bool vec = (a.leaf & 3) == 0;
+  int par = 0;
+  if (!B::all(done)) {
+    for (int c0 = 0; c0 < n_clusters; c0 += kGateBits) {
+      gate = 0;
+      if (!done) {
+        const int m = min(kGateBits, n_clusters - c0);
+        for (int j = 0; j < m; ++j) {
+          gate |= static_cast<uint32_t>(
+                      slab<true>(s_box + (c0 + j) * 8, l.r, l.tcap))
+                  << j;
+        }
+      }
+      const uint32_t u = B::or_bits(gate, s_or, par);
+      if (u && staged_sweep<kWarps>(a, u, c0, buf, vec, done, test)) {
+        break;
+      }
+    }
+  }
+  if (out >= 0) hit_out[out] = hit;
+}
+
+// Kernel 5: one ray per thread, in input order.
 __global__ void __launch_bounds__(kBlock) cluster_any_hit_kernel(
     const float* __restrict__ aabb, int n_clusters, Tris a, RayIn in,
     uint8_t* __restrict__ hit_out, int n) {
-  extern __shared__ float s_box[];
-  stage_boxes(s_box, aabb, n_clusters);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Lane l = load_lane(in, i);
-  uint8_t hit = 0;
-  for (int c = 0; c < n_clusters; ++c) {
-    if (slab<true>(s_box + c * 8, l.r, l.tcap) && cluster_any(a, c, l)) {
-      hit = 1;
-      break;
-    }
-  }
-  hit_out[i] = hit;
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint32_t s_or[2 * kWarps];
+  flat_walk(
+      aabb, n_clusters, a, smem, s_or,
+      [&](Lane& l, bool& done) {
+        const int i = blockIdx.x * kBlock + threadIdx.x;
+        if (i >= n) return -1;
+        l = load_lane(in, i);
+        // a dead ray (0 < tmax <= tmin) has no t in (tmin, tmax) to hit
+        const float tmax = in.tmax[i];
+        done = tmax > 0.f && tmax <= l.r.tmin;
+        return i;
+      },
+      [](const float* q, int id, const Lane& r) { return occludes(q, id, r); },
+      hit_out);
 }
-
-// Kernel 6: the block is the walk.
-constexpr int kNeeBlock = 128;
-constexpr int kNeeWarps = kNeeBlock / 32;
-constexpr int kGateBits = 32;  // cluster gates per ballot
 
 // A NEE bundle of K*n shadow rays: per lane [n] the shared origin, tmin
 // and exclusions; per ray [K*n] (sample-major: ray k*n + lane) the
@@ -531,65 +681,37 @@ struct NeeRays {
   const float* __restrict__ tcap;
 };
 
-__global__ void __launch_bounds__(kNeeBlock) cluster_any_hit_nee_kernel(
+// Kernel 6: thread i takes direction i % K of lane i / K, so a lane's K
+// rays sit on neighbouring threads.
+__global__ void __launch_bounds__(kBlock) cluster_any_hit_nee_kernel(
     const float* __restrict__ aabb, int n_clusters, Tris a, NeeRays rays,
     uint8_t* __restrict__ hit_out, int n, int K) {
-  using B = Walk<kNeeWarps>;
   extern __shared__ __align__(16) float smem[];
-  __shared__ uint32_t s_or[2 * kNeeWarps];
-  float* s_box = smem;
-  stage_boxes(s_box, aabb, n_clusters);
-  float* s_tri = s_box + n_clusters * 8;
-  const Buffers buf{s_tri, reinterpret_cast<int*>(s_tri + 2 * a.leaf * 9),
-                    a.leaf};
-  // thread i takes direction k of lane i / K: a lane's K rays on
-  // neighbouring threads
-  const int i = blockIdx.x * kNeeBlock + threadIdx.x;
-  const int lane = i / K;
-  const int r = (i - lane * K) * n + lane;
-  Lane l{};
-  bool done = true;
-  if (lane < n) {
-    l.dx = rays.dx[r];
-    l.dy = rays.dy[r];
-    l.dz = rays.dz[r];
-    l.r = Ray{rays.ox[lane], rays.oy[lane], rays.oz[lane], inv_dir(l.dx),
-              inv_dir(l.dy), inv_dir(l.dz), rays.tmin[lane]};
-    const float c = rays.tcap[r];
-    l.tcap = c > 0.f ? c : kBig;
-    l.ex0 = rays.ex0 ? rays.ex0[lane] : -2;
-    l.ex1 = rays.ex1 ? rays.ex1[lane] : -2;
-    // a dead ray (0 < tcap <= tmin) has no t in (tmin, tcap) to hit
-    done = c > 0.f && c <= l.r.tmin;
-  }
-  bool hit = false;
-  uint32_t gate = 0;
-  auto test = [&](Stage s, int cnt, int j) {
-    warp_test(s, cnt, !done && ((gate >> j) & 1u), l, hit, done,
-              [](const float* q, int id, const Lane& r) {
-                return id != r.ex0 && id != r.ex1 && occludes_nee(q, r);
-              });
-  };
-  const bool vec = (a.leaf & 3) == 0;
-  int par = 0;
-  if (!B::all(done)) {
-    for (int c0 = 0; c0 < n_clusters; c0 += kGateBits) {
-      gate = 0;
-      if (!done) {
-        const int m = min(kGateBits, n_clusters - c0);
-        for (int j = 0; j < m; ++j) {
-          gate |= static_cast<uint32_t>(
-                      slab<true>(s_box + (c0 + j) * 8, l.r, l.tcap))
-                  << j;
-        }
-      }
-      const uint32_t u = B::or_bits(gate, s_or, par);
-      if (u && staged_sweep<kNeeWarps>(a, u, c0, buf, vec, done, test)) {
-        break;
-      }
-    }
-  }
-  if (lane < n) hit_out[r] = hit;
+  __shared__ uint32_t s_or[2 * kWarps];
+  flat_walk(
+      aabb, n_clusters, a, smem, s_or,
+      [&](Lane& l, bool& done) {
+        const int i = blockIdx.x * kBlock + threadIdx.x;
+        const int lane = i / K;
+        if (lane >= n) return -1;
+        const int r = (i - lane * K) * n + lane;
+        l.dx = rays.dx[r];
+        l.dy = rays.dy[r];
+        l.dz = rays.dz[r];
+        l.r = Ray{rays.ox[lane], rays.oy[lane], rays.oz[lane], inv_dir(l.dx),
+                  inv_dir(l.dy), inv_dir(l.dz), rays.tmin[lane]};
+        const float c = rays.tcap[r];
+        l.tcap = c > 0.f ? c : kBig;
+        l.ex0 = rays.ex0 ? rays.ex0[lane] : -2;
+        l.ex1 = rays.ex1 ? rays.ex1[lane] : -2;
+        // a dead ray (0 < tcap <= tmin) has no t in (tmin, tcap) to hit
+        done = c > 0.f && c <= l.r.tmin;
+        return r;
+      },
+      [](const float* q, int id, const Lane& r) {
+        return id != r.ex0 && id != r.ex1 && occludes_nee(q, r);
+      },
+      hit_out);
 }
 
 // ---- grouped walk (kernels 7-8) ----
@@ -601,41 +723,95 @@ struct Groups {
   int n_groups, group;
 };
 
-__global__ void __launch_bounds__(kBlock) grouped_closest_hit_kernel(
-    Groups g, Tris a, RayIn in, float* __restrict__ t_out,
-    int* __restrict__ prim_out, float* __restrict__ u_out,
-    float* __restrict__ v_out, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Lane l = load_lane(in, i);
-  const int n_oct = g.group / kOctet;
-  Best b{kBig, 0.f, 0.f, -1};
-  for (int gi = 0; gi < g.n_groups; ++gi) {
-    if (!slab<false>(g.g_aabb + gi * 8, l.r, fminf(l.tcap, b.t))) continue;
-    for (int oc = 0; oc < n_oct; ++oc) {
-      const int o = gi * n_oct + oc;
-      if (!slab<false>(g.o_aabb + o * 8, l.r, fminf(l.tcap, b.t))) continue;
-      for (int j = 0; j < kOctet; ++j) {
-        const int c = o * kOctet + j;
-        if (slab<false>(g.c_aabb + c * 8, l.r, fminf(l.tcap, b.t))) {
-          cluster_closest(a, c, l, b);
-        }
-      }
-    }
-  }
-  store_best(b, i, t_out, prim_out, u_out, v_out);
-}
-
-// Kernel 8: each warp is a walk, with its own shared memory.
-constexpr int kGroupedBlock = 128;
-
 // floats of shared memory per walk: the group's octet and cluster boxes,
 // and two staging buffers of leaf rows of 9 floats and an id
 __host__ __device__ int grouped_walk_floats(int group, int leaf) {
   return (group / kOctet + group) * 8 + 2 * leaf * 10;
 }
 
-__global__ void __launch_bounds__(kGroupedBlock) grouped_any_hit_kernel(
+// Kernel 7: each warp is a walk, with its own grouped_walk_floats of
+// smem, as in kernel 8.  Every thread gates its own ray with cap =
+// min(tmax cap, best t): the group box on entering the group; then, the
+// group's octet and cluster boxes staged in shared memory, each octet box on
+// entering the octet and its 8 cluster boxes there; a level no ray of the
+// warp passes is skipped.  Best t only falls during the octet's sweep, so
+// those cluster gates are a superset: their OR picks the clusters staged,
+// and each ray takes its gate again, with its best t now, just before its
+// test (see the header).
+__global__ void __launch_bounds__(kBlock) grouped_closest_hit_kernel(
+    Groups g, Tris a, RayIn in, float* __restrict__ t_out,
+    int* __restrict__ prim_out, float* __restrict__ u_out,
+    float* __restrict__ v_out, int n) {
+  using B = Walk<1>;
+  extern __shared__ __align__(16) float smem[];
+  const int n_oct = g.group / kOctet;
+  const int box_f = (n_oct + g.group) * 8;
+  float* s_obox = smem + (threadIdx.x / B::kSize) *
+                             grouped_walk_floats(g.group, a.leaf);
+  const float* s_cbox = s_obox + n_oct * 8;
+  const Buffers buf{s_obox + box_f,
+                    reinterpret_cast<int*>(s_obox + box_f + 2 * a.leaf * 9),
+                    a.leaf};
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  Lane l{};
+  bool done = true;
+  if (i < n) {
+    l = load_lane(in, i);
+    // a dead ray (0 < tmax <= tmin) has no t in (tmin, tmax) to hit
+    const float tmax = in.tmax[i];
+    done = tmax > 0.f && tmax <= l.r.tmin;
+  }
+  Best b{kBig, 0.f, 0.f, -1};
+  const bool vec = (a.leaf & 3) == 0;
+  const int n_groups = B::all(done) ? 0 : g.n_groups;
+  for (int gi = 0; gi < n_groups; ++gi) {
+    const bool pg =
+        !done && slab<false>(g.g_aabb + gi * 8, l.r, fminf(l.tcap, b.t));
+    if (!B::any(pg)) continue;
+    // the group's octet boxes, then its cluster boxes, into shared memory
+    B::sync();
+    const float4* ob = reinterpret_cast<const float4*>(
+        g.o_aabb + static_cast<size_t>(gi) * n_oct * 8);
+    const float4* cb = reinterpret_cast<const float4*>(
+        g.c_aabb + static_cast<size_t>(gi) * g.group * 8);
+    float4* so = reinterpret_cast<float4*>(s_obox);
+    for (int j = B::rank(); j < box_f / 4; j += B::kSize) {
+      so[j] = j < n_oct * 2 ? __ldg(ob + j) : __ldg(cb + (j - n_oct * 2));
+    }
+    B::sync();
+    for (int oc = 0; oc < n_oct; ++oc) {
+      const bool po =
+          pg && slab<true>(s_obox + oc * 8, l.r, fminf(l.tcap, b.t));
+      if (!B::any(po)) continue;
+      const float* cbox = s_cbox + oc * kOctet * 8;
+      uint32_t gate = 0;
+      if (po) {
+        for (int j = 0; j < kOctet; ++j) {
+          gate |= static_cast<uint32_t>(
+                      slab<true>(cbox + j * 8, l.r, fminf(l.tcap, b.t)))
+                  << j;
+        }
+      }
+      const uint32_t u = __reduce_or_sync(kFull, gate);
+      if (u) {
+        staged_sweep<1>(a, u, (gi * n_oct + oc) * kOctet, buf, vec, done,
+                        [&](Stage s, int cnt, int j) {
+                          warp_closest(
+                              s, cnt,
+                              ((gate >> j) & 1u) &&
+                                  slab<true>(cbox + j * 8, l.r,
+                                             fminf(l.tcap, b.t)),
+                              l, b);
+                        });
+      }
+    }
+  }
+  if (i < n) store_best(b, i, t_out, prim_out, u_out, v_out);
+}
+
+// Kernel 8: the same walk with the ray's own cap; a ray stops at its first
+// occluder.
+__global__ void __launch_bounds__(kBlock) grouped_any_hit_kernel(
     Groups g, Tris a, RayIn in, uint8_t* __restrict__ hit_out, int n) {
   using B = Walk<1>;
   extern __shared__ __align__(16) float smem[];
@@ -647,7 +823,7 @@ __global__ void __launch_bounds__(kGroupedBlock) grouped_any_hit_kernel(
   const Buffers buf{s_obox + box_f,
                     reinterpret_cast<int*>(s_obox + box_f + 2 * a.leaf * 9),
                     a.leaf};
-  const int i = blockIdx.x * kGroupedBlock + threadIdx.x;
+  const int i = blockIdx.x * kBlock + threadIdx.x;
   Lane l{};
   bool done = true;
   if (i < n) {
@@ -707,6 +883,16 @@ size_t box_bytes(int n_clusters) {
   return static_cast<size_t>(n_clusters) * 8 * sizeof(float);
 }
 
+size_t flat_walk_bytes(int n_clusters, int leaf) {
+  return static_cast<size_t>(flat_walk_floats(n_clusters, leaf)) *
+         sizeof(float);
+}
+
+size_t grouped_walk_bytes(int group, int leaf) {
+  return static_cast<size_t>(kWarps) * grouped_walk_floats(group, leaf) *
+         sizeof(float);
+}
+
 // Dynamic shared memory above the 48 KB default must be asked for, up to
 // the 227 KB a block can have.
 template <class Kernel>
@@ -724,8 +910,8 @@ extern "C" {
 // All return cudaGetLastError() after the launch (0 = success).  ex0/ex1
 // may be null (no exclusion).  The flat kernels stage the [n_clusters, 8]
 // boxes in shared memory (the flat path has fewer than 1,024 clusters).
-// Kernels 6 and 8 read the triangle tables in 16-byte pieces when leaf %
-// 4 == 0: tris and tri_id must then be 16-byte aligned.
+// Kernels 5-8 read the triangle tables in 16-byte pieces when leaf % 4 ==
+// 0: tris and tri_id must then be 16-byte aligned.
 
 int cti_cluster_closest_hit(const float* aabb, const float* tris,
                             const int* tri_id, const int* count,
@@ -755,7 +941,10 @@ int cti_cluster_any_hit(const float* aabb, const float* tris,
                         int n, void* stream) {
   const Tris a{tris, tri_id, count, leaf};
   const RayIn in{ox, oy, oz, dx, dy, dz, tmin, tmax, ex0, ex1};
-  cluster_any_hit_kernel<<<grid_of(n, kBlock), kBlock, box_bytes(n_clusters),
+  const size_t smem = flat_walk_bytes(n_clusters, leaf);
+  const cudaError_t e = allow_smem(cluster_any_hit_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cluster_any_hit_kernel<<<grid_of(n, kBlock), kBlock, smem,
                            static_cast<cudaStream_t>(stream)>>>(
       aabb, n_clusters, a, in, hit_out, n);
   return static_cast<int>(cudaGetLastError());
@@ -775,17 +964,16 @@ int cti_cluster_any_hit_nee(const float* aabb, const float* tris,
   const Tris a{tris, tri_id, count, leaf};
   const NeeRays rays{ox, oy, oz, tmin, ex0, ex1, dx, dy, dz, tcap};
   const int total = K * n;
-  const size_t smem = box_bytes(n_clusters) +
-                      static_cast<size_t>(2 * leaf * 10) * sizeof(float);
+  const size_t smem = flat_walk_bytes(n_clusters, leaf);
   const cudaError_t e = allow_smem(cluster_any_hit_nee_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  cluster_any_hit_nee_kernel<<<grid_of(total, kNeeBlock), kNeeBlock, smem,
+  cluster_any_hit_nee_kernel<<<grid_of(total, kBlock), kBlock, smem,
                                static_cast<cudaStream_t>(stream)>>>(
       aabb, n_clusters, a, rays, hit_out, n, K);
   return static_cast<int>(cudaGetLastError());
 }
 
-// group must be a multiple of 8.
+// group must be a multiple of 8; the boxes must be 16-byte aligned.
 int cti_grouped_closest_hit(const float* g_aabb, const float* o_aabb,
                             const float* c_aabb, const float* tris,
                             const int* tri_id, const int* count, int n_groups,
@@ -799,7 +987,10 @@ int cti_grouped_closest_hit(const float* g_aabb, const float* o_aabb,
   const Groups g{g_aabb, o_aabb, c_aabb, n_groups, group};
   const Tris a{tris, tri_id, count, leaf};
   const RayIn in{ox, oy, oz, dx, dy, dz, tmin, tmax, ex0, ex1};
-  grouped_closest_hit_kernel<<<grid_of(n, kBlock), kBlock, 0,
+  const size_t smem = grouped_walk_bytes(group, leaf);
+  const cudaError_t e = allow_smem(grouped_closest_hit_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  grouped_closest_hit_kernel<<<grid_of(n, kBlock), kBlock, smem,
                                static_cast<cudaStream_t>(stream)>>>(
       g, a, in, t_out, prim_out, u_out, v_out, n);
   return static_cast<int>(cudaGetLastError());
@@ -817,11 +1008,10 @@ int cti_grouped_any_hit(const float* g_aabb, const float* o_aabb,
   const Groups g{g_aabb, o_aabb, c_aabb, n_groups, group};
   const Tris a{tris, tri_id, count, leaf};
   const RayIn in{ox, oy, oz, dx, dy, dz, tmin, tmax, ex0, ex1};
-  const size_t smem = static_cast<size_t>(kGroupedBlock / 32) *
-                      grouped_walk_floats(group, leaf) * sizeof(float);
+  const size_t smem = grouped_walk_bytes(group, leaf);
   const cudaError_t e = allow_smem(grouped_any_hit_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  grouped_any_hit_kernel<<<grid_of(n, kGroupedBlock), kGroupedBlock, smem,
+  grouped_any_hit_kernel<<<grid_of(n, kBlock), kBlock, smem,
                            static_cast<cudaStream_t>(stream)>>>(g, a, in,
                                                                 hit_out, n);
   return static_cast<int>(cudaGetLastError());

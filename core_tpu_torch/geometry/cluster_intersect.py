@@ -561,7 +561,8 @@ def _closest_hit(acc, rays_s, exclude_prim, exclude_prim2, count_tests):
     levels = _levels(acc)
     for c0, c1 in _ray_chunks(n, acc):
         r = {k: a[c0:c1] for k, a in r_all.items()}
-        ray, cl = _gated_levels(acc, r)[-1]
+        gated = _gated_levels(acc, r)
+        ray, cl = gated[-1]
         parts = [_mt_closest(acc, r, ray[p0:p1], cl[p0:p1])
                  for p0, p1 in _pair_chunks(ray.shape[0], acc.leaf)]
         pt, pp, pu, pv = (torch.cat([p[i] for p in parts]) if parts else
@@ -581,7 +582,7 @@ def _closest_hit(acc, rays_s, exclude_prim, exclude_prim2, count_tests):
         cur = [torch.full((m,), -1, dtype=torch.int64, device=dev)
                for _ in levels]
         bt_in = [bt.clone() for _ in levels]
-        tested = []
+        taken = []
         for rank in range(int(cnt.max()) if m else 0):
             sel = (cnt > rank).nonzero(as_tuple=True)[0]
             pidx = start[sel] + rank
@@ -598,9 +599,9 @@ def _closest_hit(acc, rays_s, exclude_prim, exclude_prim2, count_tests):
                 gate = gate & _slab(lboxes[j], rr,
                                     torch.minimum(cap, bt_in[li][sel]))
             tc[sel] += torch.where(gate, acc.count[c].long(), 0)
-            if count_tests:
-                tested.append((sel[gate], c[gate]))
             take = gate & (pt[pidx] < b)
+            if count_tests:
+                taken.append((sel[take], c[take], pt[pidx][take]))
             bt[sel] = torch.where(take, pt[pidx], b)
             bp[sel] = torch.where(take, pp[pidx], bp[sel])
             bu[sel] = torch.where(take, pu[pidx], bu[sel])
@@ -608,32 +609,54 @@ def _closest_hit(acc, rays_s, exclude_prim, exclude_prim2, count_tests):
         t[c0:c1], prim[c0:c1], u[c0:c1], v[c0:c1] = bt, bp, bu, bv
         tests[c0:c1] = tc
         if count_tests:
-            slabs[c0:c1] = _closest_slab_tests(acc, tested, r)
+            slabs[c0:c1] = _closest_slab_tests(acc, gated, taken, r)
     hits = Hits(t=torch.where(prim < 0, -1.0, t), prim=prim, u=u, v=v)
     return (hits, tests, slabs) if count_tests else hits
 
 
-def _closest_slab_tests(acc, tested, r):
+def _closest_slab_tests(acc, gated, taken, r):
     """Slab tests of kernels 4 and 7's walks: every cluster box (flat); or
-    every group box, and the octet and cluster boxes under each group and
-    octet that holds a tested cluster (`tested`: (ray, cluster) pairs) --
-    fewer than the kernel makes when a box passes its best-t gate but none
-    of its clusters does.  A dead ray (0 < tcap <= tmin) needs none."""
+    every group box, the octet boxes of each group the walk enters and the
+    8 cluster boxes of each octet it enters, where the walk enters a box
+    whose gate passes with min(tcap, best t on reaching it) -- also when
+    none of its clusters then passes.  `gated`: _gated_levels (the boxes
+    gated with the ray's cap alone, a superset); `taken`: (ray, cluster, t)
+    of each fall of a ray's best t.  A dead ray (0 < tcap <= tmin) needs
+    none."""
     m = r["tmin"].shape[0]
     dev = r["tmin"].device
     if isinstance(acc, ClusterAccel):
         tests = torch.full((m,), _n_clusters(acc), dtype=torch.int64,
                            device=dev)
-    else:
-        G, n_oct = acc.o_aabb.shape[:2]
-        ray = torch.cat([p[0] for p in tested]) if tested else \
-            torch.zeros(0, dtype=torch.int64, device=dev)
-        cl = torch.cat([p[1] for p in tested]) if tested else ray
-        tests = torch.full((m,), G, dtype=torch.int64, device=dev)
-        for span, kids in ((acc.group, n_oct), (OCTET, OCTET)):
-            n_box = _n_clusters(acc) // span
-            box = torch.unique(ray * n_box + cl // span)
-            tests = tests + kids * torch.bincount(box // n_box, minlength=m)
+        return torch.where(r["tcap"] <= r["tmin"], 0, tests)
+    G, n_oct = acc.o_aabb.shape[:2]
+    C1 = _n_clusters(acc) + 1
+    ray = torch.cat([p[0] for p in taken]) if taken else \
+        torch.zeros(0, dtype=torch.int64, device=dev)
+    key = ray * C1 + (torch.cat([p[1] for p in taken]) if taken else ray)
+    key, order = key.sort()
+    best = torch.cat([p[2] for p in taken])[order] if taken else \
+        torch.zeros(0, device=dev)
+
+    def entered(boxes, ri, first):
+        """Gates of boxes [P, 8] of rays ri, whose first cluster is
+        `first`, with the best t on reaching that cluster."""
+        bt = torch.full(ri.shape, BIG, device=dev)
+        if key.numel():
+            k = torch.searchsorted(key, ri * C1 + first) - 1
+            kc = k.clamp(min=0)
+            bt = torch.where((k >= 0) & (key[kc] // C1 == ri), best[kc], bt)
+        rr = _take(r, ri)
+        return _slab(boxes, rr, torch.minimum(rr["tcap"], bt))
+
+    (gr, gb), (orr, ob) = gated[0], gated[1]
+    g_in = entered(acc.g_aabb[gb], gr, gb * acc.group)
+    in_group = torch.zeros(m * G, dtype=torch.bool, device=dev)
+    in_group[gr[g_in] * G + gb[g_in]] = True
+    o_in = entered(acc.o_aabb.reshape(-1, 8)[ob], orr, ob * OCTET) \
+        & in_group[orr * G + ob // n_oct]
+    tests = G + n_oct * torch.bincount(gr[g_in], minlength=m) \
+        + OCTET * torch.bincount(orr[o_in], minlength=m)
     return torch.where(r["tcap"] <= r["tmin"], 0, tests)
 
 

@@ -36,7 +36,7 @@ FLAT_MAX_CLUSTERS = ci.GROUPED_MIN_CLUSTERS - 1
 
 def _check_fields(want, dev):
     for name, t, dtype, shape in want:
-        # kernels 6 and 8 copy the tables and boxes in 16-byte pieces
+        # kernels 5-8 copy the tables, 7 and 8 the boxes, in 16-byte pieces
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
                 or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"accel.{name}: expected a contiguous, 16-byte "

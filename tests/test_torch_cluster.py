@@ -155,6 +155,62 @@ def test_plain_grouped_closest_hit_matches_brute(geo, max_leaf):
     assert (slabs.numpy() >= G).all() and (slabs.numpy()[hit] > G).all()
 
 
+def test_plain_grouped_closest_slab_count_matches_a_walk(geo):
+    """The slab tests that the plain grouped closest hit counts equal those
+    of a walk of each ray on its own, in visit order: every group box, the
+    octet boxes of each group whose gate passes with min(tcap, best t on
+    entering it), and the cluster boxes of each octet that passes on
+    entering it, also when none of its clusters then passes.  The walk's
+    hits equal the plain version's too."""
+    acc = _accel(geo, 32)
+    n = 128
+    o, d = _rays(13, n)
+    rng = np.random.default_rng(14)
+    tmin = np.full(n, 5e-4, np.float32)
+    tmax = rng.choice(np.array([-1.0, 2.5e-4, 1.0, 4.0], np.float32), n)
+    rays = _rays_s(o, d, tmin, tmax)
+    hits, _, slabs = ci.closest_hit_grouped_torch(acc, rays, count_tests=True)
+    r = ci._ray_fields(rays, None, None, ci._cap(rays.tmax))
+    G, n_oct = acc.o_aabb.shape[:2]
+    o_box, c_box = acc.o_aabb.reshape(-1, 8), acc.c_aabb.reshape(-1, 8)
+    # each (ray, cluster) pair's closest accepted triangle, best t aside
+    C = c_box.shape[0]
+    ray_of = torch.arange(n).repeat_interleave(C)
+    pt, pp = ci._mt_closest(acc, r, ray_of, torch.arange(C).repeat(n))[:2]
+    pt, pp = pt.view(n, C), pp.view(n, C)
+    want, prims, boxes_without_tests = [], [], 0
+    for i in range(n):
+        ri = {k: v[i] for k, v in r.items()}
+        if ri["tcap"] <= ri["tmin"]:
+            want.append(0)
+            prims.append(-1)
+            continue
+        bt, prim, count = torch.tensor(ci.BIG), -1, G
+
+        def gate(box):
+            return bool(ci._slab(box, ri, torch.minimum(ri["tcap"], bt)))
+        for g in range(G):
+            if not gate(acc.g_aabb[g]):
+                continue
+            count += n_oct
+            for oc in range(g * n_oct, (g + 1) * n_oct):
+                if not gate(o_box[oc]):
+                    continue
+                count += ci.OCTET
+                tested = False
+                for c in range(oc * ci.OCTET, (oc + 1) * ci.OCTET):
+                    if gate(c_box[c]):
+                        tested = True
+                        if pt[i, c] < bt:
+                            bt, prim = pt[i, c], int(pp[i, c])
+                boxes_without_tests += not tested
+        want.append(count)
+        prims.append(prim)
+    assert slabs.tolist() == want
+    assert hits.prim.tolist() == prims
+    assert boxes_without_tests > 0
+
+
 @pytest.mark.parametrize("max_leaf", [None, 32])
 def test_plain_grouped_any_hit_matches_brute(geo, max_leaf):
     acc = _accel(geo, max_leaf)

@@ -2,13 +2,14 @@
 the card (the small-size twin of chip_smoke.py's kernel phases): kernels
 1-3 on the Cornell box, the flat cluster kernels 4-6 on a 4,274-triangle
 mesh scene, the grouped kernels 7-8 on a forced-grouped small mesh scene,
-the edge cases of the cooperative sweeps of kernels 6 and 8, and renders
+the edge cases of the cooperative walks of kernels 5-8, and renders
 through the kernels against renders through the plain versions.
 
 Marked `cuda`: each test asks its fixture for a CUDA device and skips
 without one.  Run on a GPU host with
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda
 """
+import numpy as np
 import pytest
 import torch
 
@@ -372,3 +373,122 @@ def test_grouped_any_kernel_edge_cases(device, case):
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(route, want)
     _expect(case, got.view(K, -1), caps, ex)
+
+
+# ---- the cooperative walks of kernels 5 and 7 on edge cases ----
+
+@pytest.mark.parametrize("case", EDGE_CASES + ("leaf30",))
+def test_flat_any_kernel_edge_cases(device, case):
+    """Kernel 5 on each edge-case bundle's K*n rays, one ray per lane, and
+    ("leaf30") on mixed rays over the scene's triangles clustered 30 to a
+    leaf, so that leaf % 4 != 0 and clusters are staged word by word."""
+    from core_tpu_torch.geometry import cluster_intersect as ci
+    from core_tpu_torch.geometry import cuda_cluster as cc
+    acc = _flat_scene(device).accel
+    if case == "leaf30":
+        geom = _flat_scene(device).geom
+        acc = ci.to_device(ci.build_clusters(geom.verts.cpu().numpy(),
+                                             geom.tri_vidx.cpu().numpy(),
+                                             max_leaf=30), device)
+        assert isinstance(acc, ci.ClusterAccel) and acc.leaf % 4
+        rays, ex, _ = _mesh_rays(device, 3000, seed=30)
+        rays = rays._replace(tmax=torch.where(rays.tmax < 0.5, 2.5e-4,
+                                              rays.tmax))   # some dead
+        ex0, ex1, caps, K = ex, ex.flip(0), None, 1
+    else:
+        o3, tmin, dirs, caps, ex = _bundle(device, acc, case)
+        K = len(dirs)
+        rays = vec.RaysS(o=vec.V3(*[c.repeat(K) for c in o3]),
+                         d=vec.V3(*[torch.cat([getattr(d, f) for d in dirs])
+                                    for f in "xyz"]),
+                         tmin=tmin.repeat(K), tmax=torch.cat(caps))
+        ex0, ex1 = ex.repeat(K), None
+    launches = cc.any_hit_flat_cuda.launches
+    got = cc.any_hit_flat_cuda(acc, rays, ex0, ex1)
+    want = ci.any_hit_flat_torch(acc, rays, ex0, ex1)
+    torch.cuda.synchronize()
+    assert cc.any_hit_flat_cuda.launches == launches + 1
+    assert torch.equal(got, want)
+    if case == "leaf30":
+        assert 0.05 < float(got.float().mean()) < 0.95
+    else:
+        _expect(case, got.view(K, -1), caps, ex)
+
+
+CLOSEST_CASES = ("n1", "n127", "n129", "miss", "excluded", "open", "tie",
+                 "coherent")
+
+
+def _closest_case(device, case):
+    """(grouped accel, rays, ex0, ex1) of a kernel-7 edge case: "n1",
+    "n127", "n129", that many mixed rays with both exclusion slots set;
+    "miss", rays from above the scene pointing up, the first half and some
+    others dead; "excluded",
+    each ray excluded from its first and second hit triangles; "open",
+    every cap open; "tie", the scene's triangles twice over, so that every
+    hit is at the equal t of two identical triangles; "coherent", rays of
+    one origin in a narrow cone over those triangles, so that most of a
+    warp's rays pass each cluster together (the thread-per-ray branch of
+    the test)."""
+    from core_tpu_torch.geometry import cluster_intersect as ci
+    sc = _grouped_scene(device)
+    acc = sc.accel
+    if case in ("tie", "coherent"):
+        vidx = sc.geom.tri_vidx.cpu().numpy()
+        cl = ci.build_clusters(sc.geom.verts.cpu().numpy(),
+                               np.concatenate([vidx, vidx]), max_leaf=32)
+        acc = ci.to_device(ci.group_clusters(
+            cl, group=8, sort_origin=sc.camera.pos.cpu().numpy()), device)
+    n = {"n1": 1, "n127": 127, "n129": 129}.get(case, 256)
+    rays, ex, g = _mesh_rays(device, n, seed=40 + len(case))
+    ex0, ex1 = ex, ex.flip(0)
+    if case == "miss":
+        o = rays.o.y.new_full((n,), 10.0)
+        rays = rays._replace(
+            o=vec.V3(rays.o.x, o, rays.o.z),
+            d=vec.V3(torch.zeros_like(o), torch.ones_like(o),
+                     torch.zeros_like(o)))
+        # the first half dead (whole warps of them), the rest mixed
+        dead = (torch.arange(n, device=device) < n // 2) | (rays.tmax < 0.5)
+        rays = rays._replace(tmax=torch.where(dead, 2.5e-4, rays.tmax))
+    elif case == "coherent":
+        d = torch.stack([torch.rand(n, generator=g, device=device) * 0.6
+                         - 0.3, -torch.ones(n, device=device),
+                         torch.rand(n, generator=g, device=device) * 0.6
+                         - 0.3], dim=1)
+        o = torch.tensor([0.1, 2.9, 0.2], device=device).repeat(n, 1)
+        rays = vec.RaysS(o=vec.v3(o), d=vec.v3(_unit(d)), tmin=rays.tmin,
+                         tmax=torch.full((n,), -1.0, device=device))
+        ex0 = ex1 = None
+    elif case in ("excluded", "open", "tie"):
+        rays = rays._replace(tmax=torch.full((n,), -1.0, device=device))
+        ex0 = ex1 = None
+        if case == "excluded":
+            ex0 = ci.closest_hit_grouped_torch(acc, rays).prim
+            ex1 = ci.closest_hit_grouped_torch(acc, rays, ex0).prim
+    return acc, rays, ex0, ex1
+
+
+@pytest.mark.parametrize("case", CLOSEST_CASES)
+def test_grouped_closest_kernel_edge_cases(device, case):
+    """Kernel 7 against its plain version on every lane, bit for bit."""
+    from core_tpu_torch.geometry import cluster_intersect as ci
+    from core_tpu_torch.geometry import cuda_cluster as cc
+    acc, rays, ex0, ex1 = _closest_case(device, case)
+    got = cc.closest_hit_grouped_cuda(acc, rays, ex0, ex1)
+    want = ci.closest_hit_grouped_torch(acc, rays, ex0, ex1)
+    torch.cuda.synchronize()
+    for f in ("prim", "t", "u", "v"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    hit = got.prim >= 0
+    if case == "miss":
+        assert not bool(hit.any()) and bool((got.t == -1.0).all())
+    elif case == "excluded":
+        assert int(hit.sum()) > 0
+        assert not bool((hit & ((got.prim == ex0) | (got.prim == ex1)))
+                        .any())
+    elif case in ("tie", "coherent"):
+        # the copy visited first wins, whichever copy that is
+        T = acc.count.sum().item() // 2
+        assert bool((got.prim >= T).any()) and bool(
+            (hit & (got.prim < T)).any())
