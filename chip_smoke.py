@@ -12,7 +12,8 @@ Phases, with their seconds:
                occlusion bits, t/u/v within rtol 1e-6), on >= 1M rays of the
                Cornell box and at each shape the Cornell path gives them
                (65,536 primary and 524,288 bounce lanes, K=8); both timed
-               at the bounce shape
+               at the bounce shape, kernel 2's bound counted on the timed
+               bundle's work as in 4b
   3. render  — the Cornell path: render_image on the 256^2 Cornell box at
                the bench configuration (light_samples=4, path_samples=8,
                bounces=5), one warm-up and one timed request of aa_samples=4
@@ -21,6 +22,18 @@ Phases, with their seconds:
                versions did not; image checks; PNG under build/
   4. slice   — a 64^2 Cornell render through the kernels and through the
                plain versions on the card must give identical images
+  4b. cornell kernels — the inputs of kernels 1 and 2 captured from one
+               256^2 chunk of the phase-3 configuration: its six closest-hit
+               calls (primary, five bounces) and six NEE bundles (K=8: the
+               primary one at 65,536 lanes, five at 524,288), each run and
+               timed, every lane held against the plain version (identical
+               prim and occlusion bits; t/u/v within rtol 1e-6, and whether
+               they are identical); per bundle the share of lanes whose rays
+               are all dead and the share of dead rays (0 < tcap <= tmin);
+               bounds counted on the captured work (kernel 2: each live ray
+               tested up to its first occluder, dead rays none; the origin,
+               exclusions and directions read only for live lanes and rays);
+               launches x (kernel - bound) per chunk
   5. big     — the 1M-triangle direct-light path (core_tpu's bench_big_scene
                configuration): big_scene(1024^2, ibl_samples=4,
                sun_samples=2) built by the port alone; the inputs of kernels
@@ -50,14 +63,17 @@ Phases, with their seconds:
                at 73,602 triangles (flat: kernels 4 and 5) and at 1,634
                (brute: kernels 1 and 3), 256^2: each light's shadow
                wavefront captured from one chunk, kernels 5 and 3 held
-               against their plain versions on every lane and timed; one
+               against their plain versions on every lane and timed, and
+               kernel 4 on the flat variant's two closest-hit calls; one
                timed chunk each with launch counters and image checks
   9. mesh slice — 64^2 renders of mesh_scene and of both dirac sizes
                through the kernels and through the plain versions must be
                identical
 The line before the last is the card's name and power limit (nvidia-smi),
 the one before that the kernel table as JSON, and the last line is
-{"ok": true, "device": {...}}.  Any failure raises (non-zero exit).  Imports
+{"ok": true, "device": {...}}.  Rows 1 and 2 of that table are phase 2's
+synthetic bounce-shape inputs (comparable with earlier runs); phase 4b
+prints the captured ones.  Any failure raises (non-zero exit).  Imports
 nothing of jax or core_tpu.
 """
 from __future__ import annotations
@@ -150,14 +166,10 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2):
 # phase 1
 # --------------------------------------------------------------------------
 
-def phase_build():
-    from core_tpu_torch import _build
-    path, secs = _build.build()
-    _build.load_library()
-    print(f"build: {path.relative_to(ROOT)} nvcc {secs:.3f} s "
-          f"(0 = already built)")
-    # ptxas -v: registers / shared memory / spills per kernel instantiation
-    log = path.with_suffix(".log")
+def ptxas_lines(path):
+    """(kernel, line) of each ptxas -v line (registers / shared memory /
+    spills per kernel instantiation) in the build log of library `path`."""
+    log = Path(path).with_suffix(".log")
     kernel = "?"
     for ln in log.read_text().splitlines() if log.exists() else []:
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -168,7 +180,17 @@ def phase_build():
             kernel = (m.group(1) if not k else k.group(1) if not k.group(2)
                       else f"{k.group(1)}<{k.group(2)}>")
         elif "Used" in ln or "spill" in ln:
-            print(f"build: ptxas {kernel}: {ln.split(':', 1)[-1].strip()}")
+            yield kernel, ln.split(":", 1)[-1].strip()
+
+
+def phase_build():
+    from core_tpu_torch import _build
+    path, secs = _build.build()
+    _build.load_library()
+    print(f"build: {path.relative_to(ROOT)} nvcc {secs:.3f} s "
+          f"(0 = already built)")
+    for kernel, ln in ptxas_lines(path):
+        print(f"build: ptxas {kernel}: {ln}")
     return secs
 
 
@@ -275,6 +297,24 @@ def check_closest(hk, hp, what):
     return err
 
 
+def _nee_work(tmin, tcaps, lane_t, dir_t, n_slabs, data_bytes, ex_bytes):
+    """(operations, bytes) that a NEE bundle needs, from the plain
+    version's count of its triangle tests (lane_t, dir_t) and slab tests.
+    Bytes: every lane's tmin, K caps and K output bits; the origin and
+    exclusions (ex_bytes) of a lane with a live ray; the direction of a live
+    ray (a dead one, 0 < tcap <= tmin, is decided by its cap); the scene's
+    data_bytes."""
+    import torch
+    caps = torch.stack(list(tcaps))
+    live = ~((caps > 0) & (caps <= tmin[None]))
+    K, n = caps.shape
+    ops = float(lane_t.sum()) * OPS_NEE_LANE \
+        + float(dir_t.sum()) * OPS_NEE_DIR + n_slabs * OPS_SLAB
+    nbytes = n * (4 + K * 5) + int(live.any(0).sum()) * (12 + ex_bytes) \
+        + int(live.sum()) * 12 + data_bytes
+    return ops, nbytes
+
+
 def check_nee(ok_, op, what, K):
     """Kernel occlusion bits against plain bits: identical, and no dead
     ray (every 4th sample of _nee_bundle) occluded.  Returns the max abs
@@ -344,13 +384,15 @@ def phase_kernels(scene, K=8):
         tri, o3, tmin, dirs, tcaps, ex0), 5, warmup=1)
     nee_err.append(check_nee(ok_, op, "bounce shape, timed", K))
 
-    # bounds at the timed bounce shape: every lane tests every triangle;
-    # bytes: the ray fields and exclusions in, the triangle table, outputs
+    # bounds at the timed bounce shape.  Closest hit: every lane tests
+    # every triangle; bytes: the ray fields and exclusion in, the triangle
+    # table, the outputs.  NEE: the work this bundle needs (_nee_work)
     T = tri.shape[0]
     ch_bound = bound(bounce * T * OPS_CLOSEST,
                      bounce * (8 * 4 + 4) + T * 36 + bounce * 16)
-    nee_bound = bound(bounce * T * (OPS_NEE_LANE + OPS_NEE_DIR * K),
-                      bounce * (4 * 4 + 4 + K * 16) + T * 36 + K * bounce)
+    _, lane_t, dir_t = isect.any_hit_nee_torch(tri, o3, tmin, dirs, tcaps,
+                                               ex0, count_tests=True)
+    nee_bound = bound(*_nee_work(tmin, tcaps, lane_t, dir_t, 0.0, T * 36, 4))
     print(f"kernels: closest_hit {bounce} lanes: kernel {ch_ms:.4f} ms, "
           f"plain {ch_plain:.4f} ms, bound {ch_bound[0]:.4f} ms "
           f"({ch_bound[1]})")
@@ -484,21 +526,36 @@ def plain_calls():
                + cuda_cluster.PLAIN)
 
 
+def _cornell_opts(aa_samples):
+    """The Cornell path's options (core_tpu's bench.py:44-49) in 1-spp
+    chunks."""
+    from core_tpu_torch.integrators.path import PathOptions
+    from core_tpu_torch.render import RenderOptions
+    return RenderOptions(
+        aa_samples=aa_samples, spp_chunk=1, integrator="pathtracing",
+        integrator_opts=PathOptions(path_samples=PATH_SAMPLES,
+                                    bounces=BOUNCES, raydepth=2))
+
+
+def image_digest(img):
+    """The first 16 hex digits of the sha256 of an image's float32 bytes:
+    equal digests, identical images."""
+    import hashlib
+    return hashlib.sha256(img.float().contiguous().cpu().numpy()
+                          .tobytes()).hexdigest()[:16]
+
+
 def phase_render():
     import torch
     from core_tpu_torch.geometry import cuda_intersect as ck
-    from core_tpu_torch.integrators.path import PathOptions
-    from core_tpu_torch.render import RenderOptions, render_image
+    from core_tpu_torch.render import render_image
     from core_tpu_torch.scenes import cornell_box
 
     scene = cornell_box(resx=RES, resy=RES, light_samples=LIGHT_SAMPLES,
                         device="cuda")
     if scene.intersector != "cuda":
         fail(f"scene on the card resolved intersector {scene.intersector!r}")
-    opts = RenderOptions(
-        aa_samples=AA_SAMPLES, spp_chunk=1, integrator="pathtracing",
-        integrator_opts=PathOptions(path_samples=PATH_SAMPLES,
-                                    bounces=BOUNCES, raydepth=2))
+    opts = _cornell_opts(AA_SAMPLES)
     reset_counts()
     sync()
     t0 = time.perf_counter()
@@ -528,7 +585,8 @@ def phase_render():
           f"{dt * 1e3 / chunks:.3f} ms/chunk")
     print(f"render: launches {counts} (two requests), plain calls 0, "
           f"image mean {mean:.6f}, red wall {r_mean}, green wall {g_mean}, "
-          f"light {l_mean:.3f}, png build/chip_smoke_cornell.png")
+          f"light {l_mean:.3f}, image sha256 {image_digest(img)}, png "
+          f"build/chip_smoke_cornell.png")
     return counts
 
 
@@ -538,13 +596,9 @@ def phase_render():
 
 def phase_slice():
     import torch
-    from core_tpu_torch.integrators.path import PathOptions
-    from core_tpu_torch.render import RenderOptions, render_image
+    from core_tpu_torch.render import render_image
     from core_tpu_torch.scenes import cornell_box
-    opts = RenderOptions(
-        aa_samples=1, spp_chunk=1, integrator="pathtracing",
-        integrator_opts=PathOptions(path_samples=PATH_SAMPLES,
-                                    bounces=BOUNCES, raydepth=2))
+    opts = _cornell_opts(1)
     imgs = {}
     for isec in ("cuda", "torch"):
         scene = cornell_box(resx=64, resy=64, light_samples=LIGHT_SAMPLES,
@@ -556,7 +610,8 @@ def phase_slice():
         fail(f"64^2 kernel and plain renders differ: max abs "
              f"{float((a - b).abs().max())}")
     print(f"slice: 64x64 render through the kernels == through the plain "
-          f"versions (bit-identical), mean {float(a[..., :3].mean()):.6f}")
+          f"versions (bit-identical), mean {float(a[..., :3].mean()):.6f}, "
+          f"image sha256 {image_digest(a)}")
 
 
 # --------------------------------------------------------------------------
@@ -852,10 +907,11 @@ def phase_mesh_build(res, variant="mesh"):
     return scene, dt
 
 
-def _capture_calls(scene, res):
-    """Run one 1-spp chunk of a flat or brute scene with its route's kernel
-    wrappers recorded at the scene's dispatch point.  Returns every call
-    as (query, args, kwargs), in order."""
+def _capture_calls(scene, res, opts=None):
+    """Run one 1-spp chunk of a flat or brute scene (directlight at
+    raydepth 1, or `opts`) with its route's kernel wrappers recorded at the
+    scene's dispatch point.  Returns every call as (query, args, kwargs),
+    in order."""
     import torch
     from core_tpu_torch import film as film_mod
     from core_tpu_torch import scene as sm
@@ -873,7 +929,8 @@ def _capture_calls(scene, res):
     route.update({q: recorded(q) for q in orig})
     try:
         with torch.no_grad():
-            render_chunk(scene, scene_material_types(scene), _big_opts(),
+            render_chunk(scene, scene_material_types(scene),
+                         opts or _big_opts(),
                          film_mod.make_film(res, res, device="cuda"), 0, 1, 0)
         sync()
     finally:
@@ -882,9 +939,9 @@ def _capture_calls(scene, res):
 
 
 def _check_captured(what, q, args, kw):
-    """One captured input of kernel 3, 4, 5 or 6: the kernel on every lane
-    (timed with CUDA events), the plain version on every lane (timed once,
-    counting the triangle tests), compared lane by lane.  Returns the
+    """One captured input of kernel 1, 2, 3, 4, 5 or 6: the kernel on every
+    lane (timed with CUDA events), the plain version on every lane (timed
+    once, counting the triangle tests), compared lane by lane.  Returns the
     kernel's row."""
     import torch
     from core_tpu_torch.geometry import cluster_intersect as ci
@@ -892,41 +949,57 @@ def _check_captured(what, q, args, kw):
     from core_tpu_torch.geometry import cuda_intersect as ck
     from core_tpu_torch.geometry import intersect as isect
     data = args[0]
+    brute = isinstance(data, torch.Tensor)
     ex0, ex1 = kw.get("exclude_prim"), kw.get("exclude_prim2")
     ex_bytes = 4 * sum(e is not None for e in (ex0, ex1))
-    data_bytes = data.numel() * 4 if isinstance(data, torch.Tensor) \
-        else _accel_bytes(data)
+    data_bytes = data.numel() * 4 if brute else _accel_bytes(data)
+    dead = ""
     if q == "nee":
         _, o3, tmin, dirs, tcaps = args
         n, K = tmin.shape[0], len(dirs)
-        ms, out = cuda_time_ms(lambda: cc.any_hit_nee_flat_cuda(
-            data, o3, tmin, dirs, tcaps, ex0, ex1), 5, warmup=1)
-        plain_ms, (want, lane_t, dir_t, slabs) = cuda_time_ms(
-            lambda: ci.any_hit_nee_flat_torch(data, o3, tmin, dirs, tcaps,
-                                              ex0, ex1, count_tests=True),
-            1, warmup=0)
-        ops = float(lane_t.sum()) * OPS_NEE_LANE \
-            + float(dir_t.sum()) * OPS_NEE_DIR + float(slabs.sum()) * OPS_SLAB
-        nbytes = n * (4 * 4 + ex_bytes + K * 16) + data_bytes + K * n
+        kern, plain = ((ck.any_hit_nee_cuda, isect.any_hit_nee_torch)
+                       if brute else (cc.any_hit_nee_flat_cuda,
+                                      ci.any_hit_nee_flat_torch))
+        ms, out = cuda_time_ms(lambda: kern(data, o3, tmin, dirs, tcaps, ex0,
+                                            ex1), 5, warmup=1)
+        # the brute bundle (kernel 2) has no gates
+        plain_ms, (want, lane_t, dir_t, *slabs) = cuda_time_ms(
+            lambda: plain(data, o3, tmin, dirs, tcaps, ex0, ex1,
+                          count_tests=True), 1, warmup=0)
+        n_slabs = float(slabs[0].sum()) if slabs else 0.0
+        ops, nbytes = _nee_work(tmin, tcaps, lane_t, dir_t, n_slabs,
+                                data_bytes, ex_bytes)
         tests = f"{float(lane_t.sum()) / n:.1f} lane and " \
             f"{float(dir_t.sum()) / n:.1f} direction, slab tests " \
-            f"{float(slabs.sum()) / n:.1f}"
+            f"{n_slabs / n:.1f}"
         lanes = f"{n} lanes x K={K}"
+        caps = torch.stack(list(tcaps))
+        is_dead = (caps > 0) & (caps <= tmin[None])
+        dead = f"; dead lanes (all K rays) " \
+            f"{float(is_dead.all(0).float().mean()):.4f}, dead rays " \
+            f"{float(is_dead.float().mean()):.4f}"
     else:
         rays = args[1]
         n = rays.tmin.shape[0]
-        brute = isinstance(data, torch.Tensor)
         kern, plain = {
-            "closest": (cc.closest_hit_flat_cuda, ci.closest_hit_flat_torch),
+            "closest": ((ck.closest_hit_cuda, isect.closest_hit_torch)
+                        if brute else (cc.closest_hit_flat_cuda,
+                                       ci.closest_hit_flat_torch)),
             "any": ((ck.any_hit_cuda, isect.any_hit_torch) if brute else
                     (cc.any_hit_flat_cuda, ci.any_hit_flat_torch))}[q]
         ms, out = cuda_time_ms(lambda: kern(data, rays, ex0, ex1), 5,
                                warmup=1)
-        plain_ms, (want, tests_n, *slabs) = cuda_time_ms(
-            lambda: plain(data, rays, ex0, ex1, count_tests=True), 1,
-            warmup=0)
+        if brute and q == "closest":
+            # kernel 1 tests every ray against every triangle
+            plain_ms, want = cuda_time_ms(lambda: plain(data, rays, ex0, ex1),
+                                          1, warmup=0)
+            tests_n, slabs = torch.full((n,), data.shape[0]), []
+        else:
+            plain_ms, (want, tests_n, *slabs) = cuda_time_ms(
+                lambda: plain(data, rays, ex0, ex1, count_tests=True), 1,
+                warmup=0)
         per_test = OPS_CLOSEST if q == "closest" else OPS_ANY
-        # the brute any hit (kernel 3) has no gates
+        # the brute kernels 1 and 3 have no gates
         n_slabs = float(slabs[0].sum()) if slabs else 0.0
         ops = float(tests_n.sum()) * per_test + n_slabs * OPS_SLAB
         nbytes = n * (8 * 4 + ex_bytes + (16 if q == "closest" else 1)) \
@@ -937,7 +1010,10 @@ def _check_captured(what, q, args, kw):
     sync()
     if q == "closest":
         err = check_closest(out, want, what)
-        frac = f"hit {float(out.valid.float().mean()):.4f}"
+        same = all(torch.equal(getattr(out, f), getattr(want, f))
+                   for f in "tuv")
+        frac = f"hit {float(out.valid.float().mean()):.4f}, t/u/v " \
+            f"{'identical' if same else 'within rtol'}"
     else:
         if not torch.equal(out, want):
             fail(f"{what}: occlusion differs on {int((out != want).sum())} "
@@ -946,10 +1022,19 @@ def _check_captured(what, q, args, kw):
         frac = f"occluded {float(out.float().mean()):.4f}"
     b = bound(ops, nbytes)
     print(f"{what}: {lanes}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"bits identical on every lane, {frac}; triangle tests per lane "
-          f"{tests}, bound {b[0]:.4f} ms ({b[1]})")
+          f"bits identical on every lane, {frac}{dead}; triangle tests per "
+          f"lane {tests}, bound {b[0]:.4f} ms ({b[1]})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b[0], "bound_by": b[1], "library_ms": None}
+
+
+def _gap(name, rows):
+    """Print launches x (kernel - bound) over one chunk's captured
+    launches of a kernel."""
+    gap = sum(r["ms"] - r["bound_ms"] for r in rows)
+    print(f"gap: {name}: {len(rows)} launches per chunk, kernel "
+          f"{sum(r['ms'] for r in rows):.4f} ms, bound "
+          f"{sum(r['bound_ms'] for r in rows):.4f} ms, gap {gap:.4f} ms")
 
 
 def _merge(row, extra):
@@ -969,32 +1054,69 @@ def phase_mesh_kernels(scene):
                 "mesh: camera closest hit", *closest[0]),
             "cluster_any_hit_nee": _check_captured(
                 "mesh: IBL bundle (K=16)", *ibl)}
-    _merge(rows["cluster_closest_hit"], _check_captured(
-        "mesh: glossy-chain closest hit", *closest[1]))
+    chain = _check_captured("mesh: glossy-chain closest hit", *closest[1])
+    _merge(rows["cluster_closest_hit"], chain)
     _merge(rows["cluster_any_hit_nee"], _check_captured(
         "mesh: sun bundle (K=8)", *sun))
+    _gap("kernel 4 (flat closest hit), mesh chunk",
+         [rows["cluster_closest_hit"], chain])
     return rows
 
 
 def phase_dirac_kernels(flat, brute):
     """Kernels 5 and 3 on every dirac light's captured shadow wavefronts
     (three lights, at the camera hit and at the glossy-chain hit); the row
-    is the point light's camera-hit wavefront."""
+    is the point light's camera-hit wavefront.  Also kernel 4 on the flat
+    variant's two closest-hit calls (its error only)."""
     rows = {}
     for name, scene, kernel in (("dirac flat", flat, "cluster_any_hit"),
                                 ("dirac brute", brute, "any_hit")):
-        anys = [c for c in _capture_calls(scene, MESH_RES) if c[0] == "any"]
+        calls = _capture_calls(scene, MESH_RES)
+        anys = [c for c in calls if c[0] == "any"]
+        if kernel == "cluster_any_hit":
+            closest = [_check_captured(
+                f"{name}: {hit} closest hit", *c) for hit, c in zip(
+                ("camera", "glossy-chain"),
+                [c for c in calls if c[0] == "closest"])]
+            rows["cluster_closest_hit"] = {"max_abs_err": max(
+                r["max_abs_err"] for r in closest)}
         if len(anys) != 6:
             fail(f"{name}: {len(anys)} shadow wavefronts in a chunk, not 6")
         lights = ("point", "spot", "directional")
+        per = []
         for i, call in enumerate(anys):
-            row = _check_captured(
+            per.append(_check_captured(
                 f"{name}: {lights[i % 3]} light shadow rays "
-                f"({'camera' if i < 3 else 'glossy-chain'} hit)", *call)
-            if i == 0:
-                rows[kernel] = row
-            else:
-                _merge(rows[kernel], row)
+                f"({'camera' if i < 3 else 'glossy-chain'} hit)", *call))
+        rows[kernel] = per[0]
+        for row in per[1:]:
+            _merge(rows[kernel], row)
+        which = "5 (flat" if kernel == "cluster_any_hit" else "3 (brute"
+        _gap(f"kernel {which} any hit), {name} chunk", per)
+    return rows
+
+
+def phase_cornell_kernels(scene):
+    """Kernels 1 and 2 on the inputs captured from one 256^2 chunk of the
+    Cornell path (see the header); the table keeps phase 2's rows, and
+    these merge their errors into them."""
+    calls = _capture_calls(scene, RES, _cornell_opts(AA_SAMPLES))
+    closest = [c for c in calls if c[0] == "closest"]
+    nees = [c for c in calls if c[0] == "nee"]
+    if len(closest) != BOUNCES + 1 or len(nees) != BOUNCES + 1:
+        fail(f"cornell: {len(closest)} closest-hit calls and {len(nees)} "
+             f"NEE bundles in a chunk, not {BOUNCES + 1} each")
+    rows = {}
+    for kernel, q, got in (("closest_hit", "closest", closest),
+                           ("any_hit_nee", "nee", nees)):
+        per = [_check_captured(
+            f"cornell: {'primary' if i == 0 else f'bounce {i}'} "
+            f"{'closest hit' if q == 'closest' else 'NEE bundle'}", *c)
+            for i, c in enumerate(got)]
+        rows[kernel] = {"max_abs_err": max(r["max_abs_err"] for r in per)}
+        _gap(f"kernel {1 if q == 'closest' else 2} (brute "
+             f"{'closest hit' if q == 'closest' else 'NEE bundle'}), "
+             "cornell chunk", per)
     return rows
 
 
@@ -1102,6 +1224,9 @@ def main():
     kt = timed("kernels", phase_kernels, scene)
     counts = timed("render", phase_render)
     timed("slice", phase_slice)
+    for name, row in timed("cornell kernels", phase_cornell_kernels,
+                           scene).items():
+        _merge(kt[name], row)
     big, _ = timed("big build", phase_big_build, BIG_RES)
     kt.update(timed("big kernels", phase_big_kernels, big))
     counts.update(timed("big render", phase_big_render, big))
@@ -1120,7 +1245,12 @@ def main():
     flat, _ = timed("dirac build", phase_mesh_build, MESH_RES, "dirac flat")
     brute, _ = timed("dirac build", phase_mesh_build, MESH_RES,
                      "dirac brute")
-    kt.update(timed("dirac kernels", phase_dirac_kernels, flat, brute))
+    for name, row in timed("dirac kernels", phase_dirac_kernels, flat,
+                           brute).items():
+        if name in kt:
+            _merge(kt[name], row)
+        else:
+            kt[name] = row
     # each path's own launches: kernel 5 on the flat dirac path (beside
     # kernel 4), kernel 3 on the brute one (beside kernel 1)
     counts["cluster_any_hit"] = timed(

@@ -1,16 +1,24 @@
-"""Kernels 5 to 8 of this checkout against other builds of them, timed in
-turns on the same captured main-path inputs, on one card.
+"""Kernels 2 and 4 to 8 of this checkout against other builds of them,
+timed in turns on the same captured main-path inputs, on one card.
 
-    python3 -m core_tpu_torch.bench_occlusion [--parent DIR] [--alt NAME=FILE]
+    python3 -m core_tpu_torch.bench_occlusion [--parent DIR]
+        [--alt NAME=FILE]
 
 Run from the root of the checkout (it reuses chip_smoke.py's scene builds,
 captures and checks).  --parent DIR: a checkout of the parent commit; its
 core_tpu_torch/csrc/*.cu are built into a library of their own, called
-through the same C interface.  --alt NAME=FILE (repeatable): a cluster.cu
-with this checkout's C interface, built beside this checkout's
-intersect.cu, for another design of kernels 5 to 8.
+through the same C interface.  --alt NAME=FILE (repeatable): a .cu file
+with this checkout's C interface that takes the place of the checkout's
+source of the same file name (cluster.cu or intersect.cu), for another
+design of the kernels in it.
 
 Inputs, as chip_smoke.py captures them:
+  kernel 2  the six NEE bundles of one 256^2 Cornell path-trace chunk
+            (light_samples=4, so K=8; the primary bundle at 65,536 lanes,
+            five bounce bundles at 524,288), and chip_smoke's synthetic
+            bounce-shape bundle (524,288 lanes, no lane all dead);
+  kernel 4  both closest-hit calls of one 256^2 mesh_scene chunk (camera
+            and glossy chain, 512 clusters);
   kernel 5  the six shadow wavefronts of one 256^2 chunk of the dirac
             variant of mesh_scene (73,602 triangles, flat; point, spot and
             directional light at the camera and at the glossy-chain hit);
@@ -21,10 +29,10 @@ Inputs, as chip_smoke.py captures them:
   kernel 8  every re-bucketed bundle of that chunk (IBL and sun at both
             hits).
 Each input first goes through chip_smoke's check of this checkout's kernel
-against the plain version (kernels 5 and 6: every lane; 7 and 8: a 65,536
-lane subset), which also times the plain version and computes the bound
-from its count of the triangle and slab tests.  Then every version's output
-is held against this checkout's on every lane, bit for bit, and the
+against the plain version (kernels 2, 4, 5 and 6: every lane; 7 and 8: a
+65,536 lane subset), which also times the plain version and computes the
+bound from its count of the triangle and slab tests.  Then every version's
+output is held against this checkout's on every lane, bit for bit, and the
 versions are timed in rounds, forward then backward: each visit's time is
 the median of `--reps` launches (CUDA events), and each version's median
 over its visits is printed with their spread (least and most).  Also
@@ -36,7 +44,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import statistics
 import subprocess
 from pathlib import Path
@@ -50,16 +57,10 @@ from core_tpu_torch.geometry import cuda_intersect as ck
 
 
 def _ptxas(path: Path, tag: str):
-    """Print the ptxas lines of the cluster kernels in a build's log."""
-    log = path.with_suffix(".log")
-    name = None
-    for ln in log.read_text().splitlines() if log.exists() else []:
-        m = re.search(r"Compiling entry function '(\w+)'", ln)
-        if m:
-            k = re.search(r"(cluster_\w+|grouped_\w+)_kernel", m.group(1))
-            name = k.group(1) if k else None
-        elif name and ("Used" in ln or "spill" in ln):
-            print(f"ptxas {tag} {name}: {ln.split(':', 1)[-1].strip()}")
+    """Print the ptxas lines of a build's kernels."""
+    from chip_smoke import ptxas_lines
+    for kernel, ln in ptxas_lines(path):
+        print(f"ptxas {tag} {kernel}: {ln}")
 
 
 def _libs(parent, alts):
@@ -75,7 +76,9 @@ def _libs(parent, alts):
         libs["parent"] = _build.open_library(path)
     for alt in alts:
         name, src = alt.split("=", 1)
-        path, _ = _build.build([Path(src), _build.SRC_DIR / "intersect.cu"])
+        src = Path(src)
+        path, _ = _build.build([src] + [s for s in _build._sources()
+                                        if s.name != src.name])
         _ptxas(path, name)
         libs[name] = _build.open_library(path)
     return libs
@@ -84,7 +87,7 @@ def _libs(parent, alts):
 def _runs(libs, entry, lead, outs, trail, dev, keep=()):
     """{version: fn() -> output tensors}: entry(*lead, *outputs, *trail,
     stream) in each library; outs: (dtype, numel) of each output; keep:
-    tensors behind pointers in lead, held as long as the runs."""
+    objects behind pointers in lead, held as long as the runs."""
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def make(lib):
@@ -118,6 +121,15 @@ def _nee_runs(libs, acc, o3, tmin, dirs, tcaps, ex0, ex1):
     return _runs(libs, "cti_cluster_any_hit_nee",
                  cc._flat_args(acc) + shared + [a.data_ptr() for a in stacked],
                  [(torch.bool, K * n)], [n, K], dev, keep=stacked)
+
+
+def _brute_nee_runs(libs, tri, o3, tmin, dirs, tcaps, ex0, ex1):
+    n, K = tmin.shape[0], len(dirs)
+    dev = tmin.device
+    shared, ptr_array = ck.nee_ptrs(o3, tmin, dirs, tcaps, ex0, ex1, n, dev)
+    return _runs(libs, "cti_any_hit_nee",
+                 [tri.data_ptr(), tri.shape[0]] + shared + [K, ptr_array],
+                 [(torch.bool, K * n)], [n], dev, keep=(ptr_array,))
 
 
 def _in_turns(runs, reps, rounds):
@@ -170,34 +182,45 @@ def _print(kernel, label, lanes, row):
                                   for k, (lo, hi) in row["spread"].items()))
 
 
-def main():
-    from chip_smoke import (BIG_IBL, BIG_RES, MESH_RES, _capture_calls,
-                            _capture_chunk, _check_big_kernel,
-                            _check_captured, cuda_time_ms, phase_big_build,
-                            phase_mesh_build)
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--parent")
-    ap.add_argument("--alt", action="append", default=[])
-    ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--rounds", type=int, default=2)
-    a = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("bench_occlusion: needs a CUDA GPU")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip()
-    print(f"card: {smi}")
-    libs = _libs(a.parent, a.alt)
-    out = {"card": smi, "kernel5": {}, "kernel6": {}, "kernel7": {},
-           "kernel8": {}}
+def _kernel2(libs, a, out):
+    from chip_smoke import (AA_SAMPLES, LIGHT_SAMPLES, PATH_SAMPLES, RES,
+                            _capture_calls, _check_captured, _cornell_opts,
+                            _nee_bundle)
+    from core_tpu_torch.scenes import cornell_box
+    scene = cornell_box(resx=RES, resy=RES, light_samples=LIGHT_SAMPLES,
+                        device="cuda")
+    nees = [c for c in _capture_calls(scene, RES, _cornell_opts(AA_SAMPLES))
+            if c[0] == "nee"]
+    # chip_smoke's synthetic bounce-shape bundle (phase 2's kind: no lane
+    # all dead), from a generator of its own
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    o3, tmin, dirs, tcaps, ex0, _ = _nee_bundle(
+        scene, RES * RES * PATH_SAMPLES, 2 * LIGHT_SAMPLES, gen)
+    nees.append(("nee", (scene.tri, o3, tmin, dirs, tcaps),
+                 {"exclude_prim": ex0}))
+    for i, (q, args, kw) in enumerate(nees):
+        tri, o3, tmin, dirs, tcaps = args
+        ex0, ex1 = kw.get("exclude_prim"), kw.get("exclude_prim2")
+        label = f"cornell {'primary' if i == 0 else f'bounce {i}'} NEE " \
+            f"K={len(dirs)}" if i < len(nees) - 1 else \
+            f"synthetic bounce-shape NEE K={len(dirs)}"
+        check = _check_captured(f"bench: {label}", q, args, kw)
+        runs = _brute_nee_runs(libs, tri, o3, tmin, dirs, tcaps, ex0, ex1)
+        row = _row(check, runs, label, a)
+        _print(2, label, f"{tmin.shape[0]} lanes", row)
+        out["kernel2"][label] = row
 
+
+def _flat_kernels(libs, a, out):
+    from chip_smoke import (MESH_RES, _capture_calls, _check_captured,
+                            cuda_time_ms, phase_mesh_build)
     scene, _ = phase_mesh_build(MESH_RES, "dirac flat")
     anys = [c for c in _capture_calls(scene, MESH_RES) if c[0] == "any"]
     for i, (q, args, kw) in enumerate(anys):
         acc, rays = args
         ex0, ex1 = kw.get("exclude_prim"), kw.get("exclude_prim2")
-        label = f"dirac {('point', 'spot', 'directional')[i % 3]} light " \
-            f"({'camera' if i < 3 else 'glossy-chain'} hit)"
+        label = f"dirac {('point', 'spot', 'directional')[i % 3]} " \
+            f"light ({'camera' if i < 3 else 'glossy-chain'} hit)"
         check = _check_captured(f"bench: {label}", q, args, kw)
         runs = _ray_runs(libs, "cti_cluster_any_hit", cc._flat_args(acc),
                          rays, ex0, ex1, closest=False)
@@ -205,9 +228,20 @@ def main():
         _print(5, label, f"{rays.tmin.shape[0]} rays", row)
         out["kernel5"][label] = row
     del scene, anys
-
     scene, _ = phase_mesh_build(MESH_RES)
-    nees = [c for c in _capture_calls(scene, MESH_RES) if c[0] == "nee"]
+    calls = _capture_calls(scene, MESH_RES)
+    closest = [c for c in calls if c[0] == "closest"]
+    nees = [c for c in calls if c[0] == "nee"]
+    for i, (q, args, kw) in enumerate(closest):
+        acc, rays = args
+        ex0, ex1 = kw.get("exclude_prim"), kw.get("exclude_prim2")
+        label = f"mesh {'camera' if i == 0 else 'glossy-chain'} closest hit"
+        check = _check_captured(f"bench: {label}", q, args, kw)
+        runs = _ray_runs(libs, "cti_cluster_closest_hit", cc._flat_args(acc),
+                         rays, ex0, ex1, closest=True)
+        row = _row(check, runs, label, a)
+        _print(4, label, f"{rays.tmin.shape[0]} rays", row)
+        out["kernel4"][label] = row
     for i, (q, args, kw) in enumerate(nees):
         acc, o3, tmin, dirs, tcaps = args
         K = len(dirs)
@@ -221,9 +255,11 @@ def main():
             acc, o3, tmin, dirs, tcaps, ex0, ex1), a.reps, warmup=1)[0]
         _print(6, label, f"{tmin.shape[0]} lanes", row)
         out["kernel6"][label] = row
-    del scene, nees, runs
-    torch.cuda.empty_cache()
 
+
+def _grouped_kernels(libs, a, out):
+    from chip_smoke import (BIG_IBL, BIG_RES, _capture_chunk,
+                            _check_big_kernel, cuda_time_ms, phase_big_build)
     scene, _ = phase_big_build(BIG_RES)
     acc = scene.accel
     args = cc._grouped_args(acc)
@@ -263,6 +299,29 @@ def main():
             warmup=1)[0]
         _print(8, label, f"{n} rays", row)
         out["kernel8"][label] = row
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent")
+    ap.add_argument("--alt", action="append", default=[])
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--rounds", type=int, default=2)
+    a = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_occlusion: needs a CUDA GPU")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"card: {smi}")
+    out = {"card": smi, "kernel2": {},
+           "kernel4": {}, "kernel5": {}, "kernel6": {}, "kernel7": {},
+           "kernel8": {}}
+    libs = _libs(a.parent, a.alt)
+    _kernel2(libs, a, out)
+    _flat_kernels(libs, a, out)
+    torch.cuda.empty_cache()
+    _grouped_kernels(libs, a, out)
     print(json.dumps(out))
 
 

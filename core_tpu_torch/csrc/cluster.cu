@@ -25,14 +25,7 @@
 // eps-guarded reciprocal, same min/max order), applied by each ray to its
 // own boxes with its own cap.
 //
-// Kernel 4: one thread per ray walks all clusters in build order, their
-// boxes staged in shared memory (at most 1,023 x 32 B), and runs
-// Moller-Trumbore over a passing cluster's triangles, read from global
-// memory, gating with tcap = min(tmax cap, best t) and keeping a hit only
-// if t < best t (ties keep the first triangle visited).  It leans on
-// coherent input order (camera rays in 32x32 pixel blocks).
-//
-// Kernels 5-8 are cooperative walks.  What bounds them on this card is not
+// All five are cooperative walks.  What bounds them on this card is not
 // the float work (~25 operations per slab test, 56-64 per triangle test;
 // the triangle tables, 2.7 MB at 73.6k triangles and ~38 MB at 1M, sit in
 // the 50 MB L2) but how a warp meets it.  Walked one ray (or one lane of K
@@ -46,15 +39,16 @@
 //     threads (thread i: direction i % K of lane i / K), so a warp holds
 //     rays of few origins; kernel 8's rays arrive re-bucketed by
 //     _nee_bucket_key (octahedral direction bin major, origin Morton cell
-//     minor); kernels 5 and 7 take the rays as they come (camera and
+//     minor); kernels 4, 5 and 7 take the rays as they come (camera and
 //     shadow rays in 32x32 pixel blocks);
-//   - a walk -- kernels 5 and 6 (one body, flat_walk): the block of 128
-//     threads; kernels 7 and 8: one warp -- gates each level with
-//     every thread's own slab test and takes the OR of the gates: the flat
-//     walk 32 cluster boxes at a time, staged in shared memory; the grouped
-//     walk the group box (read-only cache), then the group's octet and
-//     cluster boxes, staged in shared memory, skipping a level no ray of
-//     the warp passes;
+//   - a walk -- kernels 4, 5 and 6: the block of 128 threads (one body,
+//     flat_walk, with the gate's cap and the test as parameters); kernels
+//     7 and 8: one warp -- gates each
+//     level with every thread's own slab test and takes the OR of the
+//     gates: the flat walk 32 cluster boxes at a time, staged in shared
+//     memory; the grouped walk the group box (read-only cache), then the
+//     group's octet and cluster boxes, staged in shared memory, skipping a
+//     level no ray of the warp passes;
 //   - each cluster some thread passes is copied once into shared memory
 //     with cp.async (16-byte pieces; a cluster's [leaf, 9] block is
 //     contiguous), double-buffered so the next one loads while this one is
@@ -75,17 +69,21 @@
 // the bits are those of the plain versions: a triangle tested under a box
 // the ray's gate rejected could win at a box edge where the plain version
 // does not test it.  The OR of the gates only decides what is staged.
-// Kernel 7's gates follow its plain version's replay: the group box with
-// min(tcap, best t on entering the group), the octet box with the best t
-// on entering the octet, each cluster box with the best t now.  Best t
-// only falls, so the cluster gates at the octet's entry are a superset of
-// the gates at test time: their OR picks what is staged, and just before a
-// ray is tested against a staged cluster it takes its gate again with its
-// current best t (the box is in shared memory).  The visit order stays the
-// build order (groups, octets, clusters): a near-to-far order would change
-// which of two triangles at equal t wins.  Kernels 7 and 8 keep a body
+// The closest-hit gates follow the plain versions' replay: kernel 7 gates
+// the group box with min(tcap, best t on entering the group), the octet
+// box with the best t on entering the octet, each cluster box with the
+// best t now; kernel 4 gates its 32 cluster boxes of a ballot with the
+// best t at the ballot.  Best t only falls, so those cluster gates are a
+// superset of the gates at test time: their OR picks what is staged, and
+// just before a ray is tested against a staged cluster it takes its gate
+// again with its current best t (the box is in shared memory), which is
+// the gate of the sequential walk.  The visit order stays the build order
+// (groups, octets, clusters): a near-to-far order would change which of
+// two triangles at equal t wins.  Kernels 7 and 8 keep a body
 // each: one body with the cap and the test as parameters ran kernel 8
-// ~1% slower than its own (PERF.md, PR 5).  Kernel 6 keeps the
+// ~1% slower than its own.  Kernels 4, 5 and 6 share flat_walk: timed in
+// turns against a body of kernel 4's own, it cost none of the three more
+// than its spread (PERF.md).  Kernel 6 keeps the
 // shared-origin test's expression tree (origin terms m1, w, qvec, tnum,
 // then det, un, vn) for each ray.
 #include <cuda_pipeline.h>
@@ -213,37 +211,20 @@ __device__ __forceinline__ bool closest_test(const float* q, int id,
          t > l.r.tmin && t < l.tcap && t < bt && id != l.ex0 && id != l.ex1;
 }
 
-// Moller-Trumbore over cnt triangles (rows of 9 floats and ids; global
-// memory through the read-only cache, or shared memory) in order, keeping
-// t < best t.
-template <bool kShared>
-__device__ __forceinline__ void closest_loop(const float* __restrict__ tri,
-                                             const int* __restrict__ ids,
-                                             int cnt, const Lane& l,
-                                             Best& b) {
+// Moller-Trumbore over cnt staged triangles (rows of 9 floats and ids in
+// shared memory) in order, keeping t < best t.
+__device__ __forceinline__ void closest_loop(const float* tri,
+                                             const int* ids, int cnt,
+                                             const Lane& l, Best& b) {
   for (int k = 0; k < cnt; ++k) {
-    float q[9];
-#pragma unroll
-    for (int f = 0; f < 9; ++f) {
-      q[f] = kShared ? tri[k * 9 + f] : __ldg(tri + k * 9 + f);
-    }
-    const int id = kShared ? ids[k] : __ldg(ids + k);
     float t, u, v;
-    if (closest_test(q, id, l, b.t, t, u, v)) {
+    if (closest_test(tri + k * 9, ids[k], l, b.t, t, u, v)) {
       b.t = t;
-      b.prim = id;
+      b.prim = ids[k];
       b.u = u;
       b.v = v;
     }
   }
-}
-
-// Kernel 4's test of cluster c.
-__device__ __forceinline__ void cluster_closest(const Tris& a, int c,
-                                                const Lane& l, Best& b) {
-  closest_loop<false>(a.tris + static_cast<size_t>(c) * a.leaf * 9,
-                      a.tri_id + static_cast<size_t>(c) * a.leaf,
-                      __ldg(a.count + c), l, b);
 }
 
 // The division-free, sign-folded any-hit test of triangle q (9 floats, v0
@@ -517,14 +498,14 @@ __device__ __forceinline__ void warp_test(Stage s, int cnt, bool pass,
 // order in its own lane (closest_loop, broadcast reads): that costs cnt
 // tests, the triangle-parallel test popc * ceil(cnt / 32) and about a
 // third more for the broadcasts and the arg-min (24 of 32 rays on a full
-// cluster; measured, PERF.md).
+// cluster; measured against 16, 28 and never on kernels 7 and 4, PERF.md).
 __device__ __forceinline__ void warp_closest(Stage s, int cnt, bool pass,
                                              const Lane& l, Best& b) {
   constexpr int kNoSlot = 0x7fffffff;
   const int lane = threadIdx.x & 31;
   const uint32_t passing = __ballot_sync(kFull, pass);
   if (4 * __popc(passing) * ((cnt + 31) >> 5) >= 3 * cnt) {
-    if (pass) closest_loop<true>(s.tri, s.id, cnt, l, b);
+    if (pass) closest_loop(s.tri, s.id, cnt, l, b);
     return;
   }
   for (uint32_t m = passing; m; m &= m - 1) {
@@ -568,25 +549,7 @@ __device__ __forceinline__ void warp_closest(Stage s, int cnt, bool pass,
   }
 }
 
-// ---- flat sweep (kernels 4-6) ----
-
-__global__ void __launch_bounds__(kBlock) cluster_closest_hit_kernel(
-    const float* __restrict__ aabb, int n_clusters, Tris a, RayIn in,
-    float* __restrict__ t_out, int* __restrict__ prim_out,
-    float* __restrict__ u_out, float* __restrict__ v_out, int n) {
-  extern __shared__ float s_box[];
-  stage_boxes(s_box, aabb, n_clusters);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Lane l = load_lane(in, i);
-  Best b{kBig, 0.f, 0.f, -1};
-  for (int c = 0; c < n_clusters; ++c) {
-    if (slab<true>(s_box + c * 8, l.r, fminf(l.tcap, b.t))) {
-      cluster_closest(a, c, l, b);
-    }
-  }
-  store_best(b, i, t_out, prim_out, u_out, v_out);
-}
+// ---- flat walk (kernels 4-6) ----
 
 constexpr int kWarps = kBlock / 32;
 constexpr int kGateBits = 32;  // cluster gates per ballot
@@ -597,17 +560,20 @@ __host__ __device__ int flat_walk_floats(int n_clusters, int leaf) {
   return n_clusters * 8 + 2 * leaf * 10;
 }
 
-// The flat walk of kernels 5 and 6; the block is the walk.  Each thread
+// The flat walk of kernels 4, 5 and 6; the block is the walk.  Each thread
 // takes one ray -- load(l, done) fills it and returns the index of its
-// output bit, or -1 for none -- and gates it, 32 cluster boxes at a time,
-// with its own cap; the clusters in the OR of the block's gates are staged
-// in order and tested with occ (warp_test).  smem: flat_walk_floats.
-template <class Load, class Occ>
-__device__ __forceinline__ void flat_walk(const float* __restrict__ aabb,
-                                          int n_clusters, const Tris& a,
-                                          float* smem, uint32_t* s_or,
-                                          Load load, Occ occ,
-                                          uint8_t* __restrict__ hit_out) {
+// output, or -1 for none, and sets done for none or a dead ray -- and gates
+// it, 32 cluster boxes at a time, with cap(l), its cap at the ballot; the
+// clusters in the OR of the block's gates are staged in order, and
+// test(stage, cnt, pass, box, l, done) runs in every thread of the block
+// (pass: the thread's ballot gate of the cluster, and not done; box: the
+// cluster's box in shared memory).  The walk ends when every thread is
+// done.  Returns load's index.  smem: flat_walk_floats.
+template <class Load, class Cap, class Test>
+__device__ __forceinline__ int flat_walk(const float* __restrict__ aabb,
+                                         int n_clusters, const Tris& a,
+                                         float* smem, uint32_t* s_or,
+                                         Load load, Cap cap, Test test) {
   using B = Walk<kWarps>;
   float* s_box = smem;
   stage_boxes(s_box, aabb, n_clusters);
@@ -617,31 +583,76 @@ __device__ __forceinline__ void flat_walk(const float* __restrict__ aabb,
   Lane l{};
   bool done = true;
   const int out = load(l, done);
-  bool hit = false;
   uint32_t gate = 0;
-  auto test = [&](Stage s, int cnt, int j) {
-    warp_test(s, cnt, !done && ((gate >> j) & 1u), l, hit, done, occ);
+  int c0 = 0;
+  auto sweep = [&](Stage s, int cnt, int j) {
+    test(s, cnt, !done && ((gate >> j) & 1u), s_box + (c0 + j) * 8, l, done);
   };
   const bool vec = (a.leaf & 3) == 0;
   int par = 0;
   if (!B::all(done)) {
-    for (int c0 = 0; c0 < n_clusters; c0 += kGateBits) {
+    for (; c0 < n_clusters; c0 += kGateBits) {
       gate = 0;
       if (!done) {
+        const float c = cap(l);
         const int m = min(kGateBits, n_clusters - c0);
         for (int j = 0; j < m; ++j) {
           gate |= static_cast<uint32_t>(
-                      slab<true>(s_box + (c0 + j) * 8, l.r, l.tcap))
+                      slab<true>(s_box + (c0 + j) * 8, l.r, c))
                   << j;
         }
       }
       const uint32_t u = B::or_bits(gate, s_or, par);
-      if (u && staged_sweep<kWarps>(a, u, c0, buf, vec, done, test)) {
+      if (u && staged_sweep<kWarps>(a, u, c0, buf, vec, done, sweep)) {
         break;
       }
     }
   }
-  if (out >= 0) hit_out[out] = hit;
+  return out;
+}
+
+// Thread i's ray of kernels 4 and 5, in input order.
+__device__ __forceinline__ int load_ray(const RayIn& in, int n, Lane& l,
+                                        bool& done) {
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  if (i >= n) return -1;
+  l = load_lane(in, i);
+  // a dead ray (0 < tmax <= tmin) has no t in (tmin, tmax) to hit
+  const float tmax = in.tmax[i];
+  done = tmax > 0.f && tmax <= l.r.tmin;
+  return i;
+}
+
+// The any-hit test of kernels 5 and 6 for flat_walk: warp_test with
+// occ(row, id, ray), recording the thread's hit.
+template <class Occ>
+__device__ __forceinline__ auto any_test(bool& hit, Occ occ) {
+  return [&hit, occ](Stage s, int cnt, bool pass, const float*,
+                     const Lane& l, bool& done) {
+    warp_test(s, cnt, pass, l, hit, done, occ);
+  };
+}
+
+// Kernel 4: flat_walk with closest-hit gates.  Each thread gates its ray
+// with cap = min(tmax cap, best t) at the ballot, and takes its gate again
+// with its best t now just before its test (warp_closest; see the header).
+__global__ void __launch_bounds__(kBlock) cluster_closest_hit_kernel(
+    const float* __restrict__ aabb, int n_clusters, Tris a, RayIn in,
+    float* __restrict__ t_out, int* __restrict__ prim_out,
+    float* __restrict__ u_out, float* __restrict__ v_out, int n) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ uint32_t s_or[2 * kWarps];
+  Best b{kBig, 0.f, 0.f, -1};
+  const int i = flat_walk(
+      aabb, n_clusters, a, smem, s_or,
+      [&](Lane& l, bool& done) { return load_ray(in, n, l, done); },
+      [&](const Lane& l) { return fminf(l.tcap, b.t); },
+      [&](Stage s, int cnt, bool pass, const float* box, const Lane& l,
+          bool&) {
+        warp_closest(s, cnt, pass && slab<true>(box, l.r, fminf(l.tcap, b.t)),
+                     l, b);
+      });
+  if (i >= 0) store_best(b, i, t_out, prim_out, u_out, v_out);
 }
 
 // Kernel 5: one ray per thread, in input order.
@@ -650,19 +661,15 @@ __global__ void __launch_bounds__(kBlock) cluster_any_hit_kernel(
     uint8_t* __restrict__ hit_out, int n) {
   extern __shared__ __align__(16) float smem[];
   __shared__ uint32_t s_or[2 * kWarps];
-  flat_walk(
+  bool hit = false;
+  const int i = flat_walk(
       aabb, n_clusters, a, smem, s_or,
-      [&](Lane& l, bool& done) {
-        const int i = blockIdx.x * kBlock + threadIdx.x;
-        if (i >= n) return -1;
-        l = load_lane(in, i);
-        // a dead ray (0 < tmax <= tmin) has no t in (tmin, tmax) to hit
-        const float tmax = in.tmax[i];
-        done = tmax > 0.f && tmax <= l.r.tmin;
-        return i;
-      },
-      [](const float* q, int id, const Lane& r) { return occludes(q, id, r); },
-      hit_out);
+      [&](Lane& l, bool& done) { return load_ray(in, n, l, done); },
+      [](const Lane& l) { return l.tcap; },
+      any_test(hit, [](const float* q, int id, const Lane& r) {
+        return occludes(q, id, r);
+      }));
+  if (i >= 0) hit_out[i] = hit;
 }
 
 // A NEE bundle of K*n shadow rays: per lane [n] the shared origin, tmin
@@ -688,7 +695,8 @@ __global__ void __launch_bounds__(kBlock) cluster_any_hit_nee_kernel(
     uint8_t* __restrict__ hit_out, int n, int K) {
   extern __shared__ __align__(16) float smem[];
   __shared__ uint32_t s_or[2 * kWarps];
-  flat_walk(
+  bool hit = false;
+  const int out = flat_walk(
       aabb, n_clusters, a, smem, s_or,
       [&](Lane& l, bool& done) {
         const int i = blockIdx.x * kBlock + threadIdx.x;
@@ -708,10 +716,11 @@ __global__ void __launch_bounds__(kBlock) cluster_any_hit_nee_kernel(
         done = c > 0.f && c <= l.r.tmin;
         return r;
       },
-      [](const float* q, int id, const Lane& r) {
+      [](const Lane& l) { return l.tcap; },
+      any_test(hit, [](const float* q, int id, const Lane& r) {
         return id != r.ex0 && id != r.ex1 && occludes_nee(q, r);
-      },
-      hit_out);
+      }));
+  if (out >= 0) hit_out[out] = hit;
 }
 
 // ---- grouped walk (kernels 7-8) ----
@@ -879,10 +888,6 @@ __global__ void __launch_bounds__(kBlock) grouped_any_hit_kernel(
 
 int grid_of(int n, int block) { return (n + block - 1) / block; }
 
-size_t box_bytes(int n_clusters) {
-  return static_cast<size_t>(n_clusters) * 8 * sizeof(float);
-}
-
 size_t flat_walk_bytes(int n_clusters, int leaf) {
   return static_cast<size_t>(flat_walk_floats(n_clusters, leaf)) *
          sizeof(float);
@@ -910,8 +915,8 @@ extern "C" {
 // All return cudaGetLastError() after the launch (0 = success).  ex0/ex1
 // may be null (no exclusion).  The flat kernels stage the [n_clusters, 8]
 // boxes in shared memory (the flat path has fewer than 1,024 clusters).
-// Kernels 5-8 read the triangle tables in 16-byte pieces when leaf % 4 ==
-// 0: tris and tri_id must then be 16-byte aligned.
+// All five read the triangle tables in 16-byte pieces when leaf % 4 == 0:
+// tris and tri_id must then be 16-byte aligned.
 
 int cti_cluster_closest_hit(const float* aabb, const float* tris,
                             const int* tri_id, const int* count,
@@ -924,8 +929,10 @@ int cti_cluster_closest_hit(const float* aabb, const float* tris,
                             void* stream) {
   const Tris a{tris, tri_id, count, leaf};
   const RayIn in{ox, oy, oz, dx, dy, dz, tmin, tmax, ex0, ex1};
-  cluster_closest_hit_kernel<<<grid_of(n, kBlock), kBlock,
-                               box_bytes(n_clusters),
+  const size_t smem = flat_walk_bytes(n_clusters, leaf);
+  const cudaError_t e = allow_smem(cluster_closest_hit_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cluster_closest_hit_kernel<<<grid_of(n, kBlock), kBlock, smem,
                                static_cast<cudaStream_t>(stream)>>>(
       aabb, n_clusters, a, in, t_out, prim_out, u_out, v_out, n);
   return static_cast<int>(cudaGetLastError());

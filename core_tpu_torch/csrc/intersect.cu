@@ -17,16 +17,40 @@
 // identical prim and occlusion bits.  A later change may turn contraction on
 // under a measured tolerance.
 //
-// Design.  One thread per ray (closest hit, any hit) or per shading-point
-// lane (NEE bundle); ray components arrive as separate contiguous [N]
-// arrays, and the ragged tail is masked with a `live` flag rather than
+// Design.  One thread per ray (closest hit, any hit) or per live
+// shading-point lane (NEE bundle, below); ray components arrive as
+// separate contiguous [N] arrays, and the ragged tail is masked rather than
 // padded to a tile.
 // The [T, 9] triangle table (v0, e1, e2) is staged through shared memory in
-// chunks of kTriChunk rows (9 KB), so any T runs without the >48 KB opt-in;
-// every thread of a warp reads the same row, which shared memory broadcasts.
-// The occlusion kernels stop testing a lane at its first occluder (the
-// any-hit kernel) or once all its K rays are occluded (the NEE bundle); the
-// thread keeps taking part in the staging barriers.
+// chunks of kTriChunk rows (9 KB; 12 KB for the NEE bundle), so any T runs
+// without the >48 KB opt-in; every thread of a warp reads the same row,
+// which shared memory broadcasts.  The any-hit kernel stops testing a lane
+// at its first occluder; the thread keeps taking part in the staging
+// barriers.
+//
+// The NEE bundle (kernel 2) is built for the launches the path tracer
+// makes.  Each bounce gives NEE only to the lanes whose path is alive, and
+// every other lane gets dead caps (0 < tcap <= tmin, common._shadow_tcap):
+// about half the lanes of a Cornell bounce launch.  A dead ray can never
+// be occluded (for dd > 0, tcap * dd <= tmin * dd after rounding, so no tn
+// passes both tests), so it is done from the start, and a lane is done
+// once each of its rays is occluded or dead.  Dead and live lanes mix
+// inside a warp (lanes are in path and pixel order), and a warp runs as
+// long as its slowest thread, so the block compacts its live lanes first:
+// a ballot and a scan of the warps' counts in shared memory give each live
+// lane its rank, and thread j takes the j-th live lane of the block (its
+// origin, K directions and caps, exclusions) and writes that lane's bits;
+// a lane with no live ray writes its zeros itself.  Warps with no live
+// lane skip the triangle loop (they still stage), and a block stops
+// staging once none of its lanes is working.  There is no host sync and no
+// device-memory intermediate.  Each staged triangle's lane-independent
+// term m1 = e2 x e1 is computed once, at staging, into rows of 12 floats
+// (v0, e1, e2, m1; three 16-byte loads), with the same arithmetic, and the
+// sign fold flips sign bits (det = -0 or NaN flip where the product would
+// not, but there dd > 1e-12 fails), so the bits stay those of the plain
+// version; the flip measured 0-4% faster than the product (PERF.md).  On
+// the Cornell bounce launches what is left follows the busy warps of each
+// block, ceil(live lanes / 32) of 4, more than the live lanes (PERF.md).
 //
 // What bounds them on the H100: the Cornell box has 36 triangles, so a ray
 // costs ~36 * ~60 flops and 40 bytes of I/O; at the main path's 0.5M-lane
@@ -43,7 +67,9 @@ namespace {
 
 constexpr int kBlock = 128;
 constexpr int kTriChunk = 256;
+constexpr int kNeeRow = 12;   // v0, e1, e2, m1
 constexpr float kBig = 3.0e38f;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ void stage_tris(float* s_tri,
                                            const float* __restrict__ tri,
@@ -204,6 +230,23 @@ struct NeeDirs {
   const float* tcap[K];
 };
 
+// Rows base .. base + count - 1 of the [T, 9] table into shared rows of
+// kNeeRow floats: v0, e1, e2 and m1 = e2 x e1 (det = d . m1).
+__device__ __forceinline__ void stage_nee_tris(float* s_tri,
+                                               const float* __restrict__ tri,
+                                               int base, int count) {
+  for (int j = threadIdx.x; j < count; j += blockDim.x) {
+    const float* g = tri + (base + j) * 9;
+    const float e1x = g[3], e1y = g[4], e1z = g[5];
+    const float e2x = g[6], e2y = g[7], e2z = g[8];
+    float4* r = reinterpret_cast<float4*>(s_tri + j * kNeeRow);
+    r[0] = make_float4(g[0], g[1], g[2], e1x);
+    r[1] = make_float4(e1y, e1z, e2x, e2y);
+    r[2] = make_float4(e2z, e2y * e1z - e2z * e1y, e2z * e1x - e2x * e1z,
+                       e2x * e1y - e2y * e1x);
+  }
+}
+
 template <int K>
 __global__ void __launch_bounds__(kBlock) any_hit_nee_kernel(
     const float* __restrict__ tri, int n_tris,
@@ -211,49 +254,88 @@ __global__ void __launch_bounds__(kBlock) any_hit_nee_kernel(
     const float* __restrict__ oz_, const float* __restrict__ tmin_,
     const int* __restrict__ ex0_, const int* __restrict__ ex1_,
     NeeDirs<K> rays, uint8_t* __restrict__ hit_out, int n) {
-  __shared__ float s_tri[kTriChunk * 9];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
+  __shared__ __align__(16) float s_tri[kTriChunk * kNeeRow];
+  __shared__ int s_lane[kBlock];
+  __shared__ int s_count[kBlock / 32];
+  // this thread's own lane is live unless every ray is dead (0 < tcap <=
+  // tmin); a lane with no live ray is occluded on none
+  const int i = blockIdx.x * kBlock + threadIdx.x;
+  bool live = false;
+  if (i < n) {
+    const float tmin = tmin_[i];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const float c = rays.tcap[k][i];
+      live |= !(c > 0.f && c <= tmin);
+    }
+    if (!live) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) hit_out[static_cast<size_t>(k) * n + i] = 0;
+    }
+  }
+  // the live lanes' ranks in the block, in lane order
+  const int wl = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const uint32_t bal = __ballot_sync(kFull, live);
+  if (wl == 0) s_count[warp] = __popc(bal);
+  __syncthreads();
+  int rank = 0, n_live = 0;
+#pragma unroll
+  for (int w = 0; w < kBlock / 32; ++w) {
+    const int c = s_count[w];
+    rank += w < warp ? c : 0;
+    n_live += c;
+  }
+  if (live) s_lane[rank + __popc(bal & ((1u << wl) - 1u))] = i;
+  __syncthreads();
+  // thread j takes the j-th live lane
+  const int li = threadIdx.x < n_live ? s_lane[threadIdx.x] : -1;
   float ox = 0.f, oy = 0.f, oz = 0.f, tmin = 0.f;
   int ex0 = -2, ex1 = -2;
   float dx[K], dy[K], dz[K], tc[K];
+  uint32_t dead = 0u;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     dx[k] = dy[k] = dz[k] = tc[k] = 0.f;
   }
-  if (live) {
-    ox = ox_[i]; oy = oy_[i]; oz = oz_[i];
-    tmin = tmin_[i];
-    if (ex0_) ex0 = ex0_[i];
-    if (ex1_) ex1 = ex1_[i];
+  if (li >= 0) {
+    ox = ox_[li]; oy = oy_[li]; oz = oz_[li];
+    tmin = tmin_[li];
+    if (ex0_) ex0 = ex0_[li];
+    if (ex1_) ex1 = ex1_[li];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      dx[k] = rays.dx[k][i];
-      dy[k] = rays.dy[k][i];
-      dz[k] = rays.dz[k][i];
-      const float c = rays.tcap[k][i];
+      dx[k] = rays.dx[k][li];
+      dy[k] = rays.dy[k][li];
+      dz[k] = rays.dz[k][li];
+      const float c = rays.tcap[k][li];
       tc[k] = c > 0.f ? c : kBig;
+      dead |= static_cast<uint32_t>(c > 0.f && c <= tmin) << k;
     }
   }
   const uint32_t full = static_cast<uint32_t>((1ull << K) - 1ull);
-  uint32_t mask = 0u;
+  uint32_t mask = dead;  // the rays that are done: dead or occluded
+  bool working = li >= 0;
   for (int base = 0; base < n_tris; base += kTriChunk) {
+    // every thread has consumed the previous chunk; stop when no lane of
+    // the block is working
+    if (!__syncthreads_or(working)) break;
     const int count = min(kTriChunk, n_tris - base);
-    stage_tris(s_tri, tri, base, count);
-    if (!live || mask == full) continue;
+    stage_nee_tris(s_tri, tri, base, count);
+    __syncthreads();
+    if (!working) continue;
     for (int j = 0; j < count; ++j) {
-      const float* r = s_tri + j * 9;
-      const float v0x = r[0], v0y = r[1], v0z = r[2];
-      const float e1x = r[3], e1y = r[4], e1z = r[5];
-      const float e2x = r[6], e2y = r[7], e2z = r[8];
+      const float4* r = reinterpret_cast<const float4*>(s_tri + j * kNeeRow);
+      const float4 r0 = r[0], r1 = r[1], r2 = r[2];
+      const float v0x = r0.x, v0y = r0.y, v0z = r0.z;
+      const float e1x = r0.w, e1y = r1.x, e1z = r1.y;
+      const float e2x = r1.z, e2y = r1.w, e2z = r2.x;
+      // m1 = e2 x e1, staged  (det = d . m1)
+      const float m1x = r2.y, m1y = r2.z, m1z = r2.w;
       // origin-shared terms
       const float tx = ox - v0x;
       const float ty = oy - v0y;
       const float tz = oz - v0z;
-      // m1 = e2 x e1  (det = d . m1)
-      const float m1x = e2y * e1z - e2z * e1y;
-      const float m1y = e2z * e1x - e2x * e1z;
-      const float m1z = e2x * e1y - e2y * e1x;
       // w = e2 x tvec  (u_num = d . w)
       const float wx = e2y * tz - e2z * ty;
       const float wy = e2z * tx - e2x * tz;
@@ -268,24 +350,30 @@ __global__ void __launch_bounds__(kBlock) any_hit_nee_kernel(
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         const float det = dx[k] * m1x + dy[k] * m1y + dz[k] * m1z;
-        const float s = det < 0.f ? -1.f : 1.f;
+        // the sign fold as a sign-bit flip: the same bits as a product
+        // with s = det < 0 ? -1 : 1 wherever dd > 1e-12 can pass
+        const uint32_t sb = __float_as_uint(det) & 0x80000000u;
         const float dd = fabsf(det);
-        const float un = (dx[k] * wx + dy[k] * wy + dz[k] * wz) * s;
-        const float vn = (dx[k] * qx + dy[k] * qy + dz[k] * qz) * s;
-        const float tn = tnum * s;
+        const float un = __uint_as_float(
+            __float_as_uint(dx[k] * wx + dy[k] * wy + dz[k] * wz) ^ sb);
+        const float vn = __uint_as_float(
+            __float_as_uint(dx[k] * qx + dy[k] * qy + dz[k] * qz) ^ sb);
+        const float tn = __uint_as_float(__float_as_uint(tnum) ^ sb);
         const bool ok = dd > 1e-12f && un >= 0.f && vn >= 0.f &&
                         un + vn <= dd && tn > tmin * dd &&
                         tn < tc[k] * dd && not_excl;
         mask |= static_cast<uint32_t>(ok) << k;
       }
-      if (mask == full) break;  // every ray of the lane is occluded
+      if (mask == full) break;  // every ray of the lane is done
     }
+    working = mask != full;
   }
-  if (live) {
+  if (li >= 0) {
+    const uint32_t hit = mask & ~dead;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      hit_out[static_cast<size_t>(k) * n + i] =
-          static_cast<uint8_t>((mask >> k) & 1u);
+      hit_out[static_cast<size_t>(k) * n + li] =
+          static_cast<uint8_t>((hit >> k) & 1u);
     }
   }
 }

@@ -121,8 +121,9 @@ def any_hit_torch(tri, rays_s, exclude_prim=None, exclude_prim2=None,
                   count_tests=False):
     """Occlusion of one ray per lane (the dirac lights' shadow rays), with
     the division-free, sign-folded test of the kernel.  Returns [N] bool,
-    or with count_tests (bits, triangle tests per ray): the kernel stops
-    at a ray's first occluder."""
+    or with count_tests (bits, triangle tests per ray): the work the rays
+    need, tested in index order, up to a ray's first occluder (T if none);
+    a dead ray (0 < tmax <= tmin) needs none."""
     any_hit_torch.calls += 1
     n = rays_s.tmin.shape[0]
     T = tri.shape[0]
@@ -157,13 +158,15 @@ def any_hit_torch(tri, rays_s, exclude_prim=None, exclude_prim2=None,
             & (tn > tmin * dd) & (tn < tcap * dd) \
             & _not_excluded(tri_idx, exclude_prim, exclude_prim2, c0, c1)
         out[c0:c1] = ok.any(dim=1)
-        tests[c0:c1] = torch.where(out[c0:c1], ok.to(torch.uint8)
-                                   .argmax(dim=1) + 1, T)
+        stop = torch.where(out[c0:c1], ok.to(torch.uint8).argmax(dim=1) + 1,
+                           T)
+        dead = ((tmax > 0) & (tmax <= tmin))[:, 0]
+        tests[c0:c1] = torch.where(dead, 0, stop)
     return (out, tests) if count_tests else out
 
 
 def any_hit_nee_torch(tri, o3, tmin, dirs, tcaps, exclude_prim=None,
-                      exclude_prim2=None):
+                      exclude_prim2=None, count_tests=False):
     """Occlusion of K shadow rays per lane that share one origin (the NEE
     bundle), with the division-free, sign-folded test of the kernel.
 
@@ -171,10 +174,19 @@ def any_hit_nee_torch(tri, o3, tmin, dirs, tcaps, exclude_prim=None,
     K [N] caps (<= 0 -> open).  Returns [K*N] bool, sample-major (ray k of
     lane j at k*N + j).  Per triangle the origin-only terms (tvec, w =
     e2 x tvec, qvec = tvec x e1, tnum = e2 . qvec, the exclusions) are
-    computed once and shared by the K directions."""
+    computed once and shared by the K directions.
+
+    With count_tests, (bits, lane tests [N], direction tests [N]): the
+    work the bundle needs, tested in index order.  A dead ray (0 < tcap <=
+    tmin) needs no test; a live one is tested up to its first occluder (T
+    if none), and a lane's origin terms up to the last of its live rays'
+    stops."""
     any_hit_nee_torch.calls += 1
     K = len(dirs)
     n = tmin.shape[0]
+    T = tri.shape[0]
+    lane_tests = torch.zeros(n, dtype=torch.int64, device=tri.device)
+    dir_tests = torch.zeros(n, dtype=torch.int64, device=tri.device)
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = _tri_cols(tri)
     tri_idx = torch.arange(tri.shape[0], device=tri.device)[None, :]
     # m1 = e2 x e1  (det = d . m1)
@@ -202,8 +214,8 @@ def any_hit_nee_torch(tri, o3, tmin, dirs, tcaps, exclude_prim=None,
         rtmin = col(tmin)
         for k in range(K):
             dx, dy, dz = col(dirs[k].x), col(dirs[k].y), col(dirs[k].z)
-            tc = col(tcaps[k])
-            tc = torch.where(tc > 0, tc, BIG)
+            cap = col(tcaps[k])
+            tc = torch.where(cap > 0, cap, BIG)
             det = dx * m1x + dy * m1y + dz * m1z
             s = torch.where(det < 0.0, -1.0, 1.0)
             dd = det.abs()
@@ -212,8 +224,16 @@ def any_hit_nee_torch(tri, o3, tmin, dirs, tcaps, exclude_prim=None,
             tn = tnum * s
             ok = (dd > 1e-12) & (un >= 0.0) & (vn >= 0.0) & (un + vn <= dd) \
                 & (tn > rtmin * dd) & (tn < tc * dd) & not_excl
-            out[k * n + c0:k * n + c1] = ok.any(dim=1)
-    return out
+            hit = ok.any(dim=1)
+            out[k * n + c0:k * n + c1] = hit
+            if count_tests:
+                dead = ((cap > 0) & (cap <= rtmin))[:, 0]
+                stop = torch.where(hit, ok.to(torch.uint8).argmax(dim=1)
+                                   + 1, T)
+                stop = torch.where(dead, 0, stop)
+                dir_tests[c0:c1] += stop
+                lane_tests[c0:c1] = torch.maximum(lane_tests[c0:c1], stop)
+    return (out, lane_tests, dir_tests) if count_tests else out
 
 
 # call counters: a run can show which path its intersections took

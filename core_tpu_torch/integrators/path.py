@@ -5,7 +5,8 @@ Reference: src/integrators/pathtracer.cc:134-333 — per camera hit:
 emission + MIS direct lighting, then `path_samples` independent paths of up
 to `bounces` vertices; each bounce does next-event estimation with one
 Halton-chosen light and adds emission only on caustic (specular/glossy/
-filter) bounces.  All `path_samples` paths are batched into one
+filter) bounces; the background contributes on a primary miss and on a
+miss after a caustic bounce.  All `path_samples` paths are batched into one
 (path_samples x N)-lane SoA wavefront, so each bounce costs one BSDF
 sample, one closest-hit launch and one batched NEE.  QMC dimensions match
 the reference: path sample i uses
@@ -13,9 +14,8 @@ the reference: path sample i uses
   first bounce: s1 = RI_vdC(offs), s2 = scrHalton(2, offs)
   depth d >= 1: s1 = scrHalton(4d+3, offs), s2 = scrHalton(4d+4, offs).
 
-Scope: scenes without specular chains (no background is ported: a primary
-miss is black), caustic_type "path" or "none", no wavefront folding; the
-rest raises NotImplementedError.
+Scope: scenes without specular chains, caustic_type "path" or "none", no
+wavefront folding; the rest raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from dataclasses import dataclass
 import torch
 
 from core_tpu_torch import scene as scene_mod
+from core_tpu_torch.backgrounds import eval_background_s
 from core_tpu_torch.integrators import common
 from core_tpu_torch.materials import dispatch
 from core_tpu_torch.materials.base import BSDF, MatType, detach_sample
@@ -112,6 +113,12 @@ def _paths_batched(scene, types_present, sp0, p0, wo0, active0, n_paths,
                      tmin=torch.full_like(s1, MIN_RAYDIST),
                      tmax=torch.full_like(s1, -1.0))
         hits = scene_mod.closest_hit_s(scene, rays, exclude_prim=sp.prim)
+        # an escape after a caustic bounce sees the background
+        # (core_tpu/integrators/path.py:243-246)
+        if depth > 0 and scene.background is not None:
+            bg = eval_background_s(scene.background, sres.wi)
+            path_col = path_col + where3(active & ~hits.valid & caustic_mask,
+                                         throughput * bg, 0.0)
         active = active & hits.valid
 
         sp = scene_mod.surface_points_s(scene, rays, hits)
@@ -158,7 +165,8 @@ def integrate(scene, types_present, rays, pixel_sample, sampling_offs,
     col = col + _paths_batched(scene, types_present, sp, p, wo, nee0,
                                n_paths, pixel_sample, sampling_offs, opts)
 
-    col = where3(primary_valid, col, 0.0)
+    col = where3(primary_valid, col,
+                 eval_background_s(scene.background, rs.d))
     alpha = torch.where(primary_valid, 1.0,
                         0.0 if opts.transp_background else 1.0)
     return torch.stack([col.x, col.y, col.z, alpha], dim=-1)

@@ -43,6 +43,7 @@ def _config(name):
         return (cornell_box(resx=256, resy=256, light_samples=4,
                             device="cuda"),
                 RenderOptions(aa_samples=4, spp_chunk=1,
+                              integrator="pathtracing",
                               integrator_opts=PathOptions(
                                   path_samples=8, bounces=5, raydepth=2)))
     direct = RenderOptions(aa_samples=1, spp_chunk=1,

@@ -41,8 +41,8 @@ _BLOCK = 32   # pixel-block edge of cluster-scene camera wavefronts
 
 @dataclass(frozen=True)
 class RenderOptions:
-    """Same fields as core_tpu's RenderOptions where ported.  The path
-    tracer, the port's first integrator, stays the default here."""
+    """Same fields and defaults as core_tpu's RenderOptions where ported
+    (directlight is the default integrator)."""
     aa_passes: int = 1
     aa_samples: int = 1
     filter_type: FilterType = FilterType.BOX
@@ -51,9 +51,9 @@ class RenderOptions:
     clamp_rgb: bool = False
     premult: bool = False         # premultiply alpha at flush (reference)
     spp_chunk: int = 4            # samples per wavefront (memory bound)
-    integrator: str = "pathtracing"
+    integrator: str = "directlight"
     integrator_opts: PathOptions | DirectOptions = field(
-        default_factory=PathOptions)
+        default_factory=DirectOptions)
 
 
 def _check_supported(opts: RenderOptions):

@@ -164,3 +164,39 @@ def test_plain_versions_chunk_like_one_pass(geom, monkeypatch):
         assert torch.equal(a, b)
     assert torch.equal(whole_nee, part_nee)
 
+
+
+def test_count_tests_replay_each_ray(geom):
+    """count_tests of the brute occlusion plain versions: the tests each
+    ray needs in index order, against a replay one triangle at a time.  A
+    dead ray (0 < cap <= tmin) needs none; a live one is tested up to its
+    first occluder (T if none); a NEE lane's origin terms up to the last
+    of its live rays' stops."""
+    _, tri = geom
+    T = tri.shape[0]
+    rng = np.random.default_rng(11)
+    n, K = 96, 4
+    o = torch.from_numpy(rng.uniform(20.0, 530.0, (n, 3)).astype(np.float32))
+    dirs = [torch.from_numpy(_unit(rng, n)) for _ in range(K)]
+    kind = rng.integers(0, 3, (K, n))
+    caps = [torch.from_numpy(np.where(
+        kind[k] == 0, -1.0, np.where(kind[k] == 1, 2.5e-4, 300.0))
+        .astype(np.float32)) for k in range(K)]
+    tmin = torch.full((n,), 5e-4)
+    bits, lane_t, dir_t = isect.any_hit_nee_torch(
+        tri, tvec.v3(o), tmin, [tvec.v3(d) for d in dirs], caps,
+        count_tests=True)
+    rays = [tvec.RaysS(o=tvec.v3(o), d=tvec.v3(d), tmin=tmin, tmax=c)
+            for d, c in zip(dirs, caps)]
+    stops = torch.zeros((K, n), dtype=torch.int64)
+    for k in range(K):
+        hit = torch.stack([isect.any_hit_torch(tri[j:j + 1], rays[k])
+                           for j in range(T)])           # [T, n]
+        first = torch.where(hit.any(0), hit.to(torch.uint8).argmax(0) + 1, T)
+        stops[k] = torch.where(torch.from_numpy(kind[k] == 1), 0, first)
+        any_bits, any_t = isect.any_hit_torch(tri, rays[k], count_tests=True)
+        assert torch.equal(any_bits, bits[k * n:(k + 1) * n])
+        assert torch.equal(any_t, stops[k])
+    assert torch.equal(dir_t, stops.sum(0))
+    assert torch.equal(lane_t, stops.max(0).values)
+    assert 0 < int(stops.eq(0).sum()) and 0 < int(bits.sum()) < K * n

@@ -2,8 +2,10 @@
 the card (the small-size twin of chip_smoke.py's kernel phases): kernels
 1-3 on the Cornell box, the flat cluster kernels 4-6 on a 4,274-triangle
 mesh scene, the grouped kernels 7-8 on a forced-grouped small mesh scene,
-the edge cases of the cooperative walks of kernels 5-8, and renders
-through the kernels against renders through the plain versions.
+the edge cases of the cooperative walks of kernels 4-8, kernel 2 on
+bundles with all-dead lanes and dead rays at 36, 257 and 4,096
+triangles, and renders through the kernels against renders through the
+plain versions.
 
 Marked `cuda`: each test asks its fixture for a CUDA device and skips
 without one.  Run on a GPU host with
@@ -99,8 +101,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(device):
 
 
 def test_render_through_kernels_equals_plain(device):
-    opts = RenderOptions(aa_samples=1, integrator_opts=PathOptions(
-        path_samples=2, bounces=3, raydepth=2))
+    opts = RenderOptions(aa_samples=1, integrator="pathtracing",
+                         integrator_opts=PathOptions(path_samples=2,
+                                                     bounces=3, raydepth=2))
     imgs = []
     for isec in ("cuda", "torch"):
         scene = cornell_box(resx=16, resy=16, light_samples=2,
@@ -492,3 +495,161 @@ def test_grouped_closest_kernel_edge_cases(device, case):
         T = acc.count.sum().item() // 2
         assert bool((got.prim >= T).any()) and bool(
             (hit & (got.prim < T)).any())
+
+
+# ---- kernel 4 (the flat closest-hit walk) on edge cases ----
+
+FLAT_CLOSEST_CASES = ("n1", "n127", "n129", "miss", "excluded", "open",
+                      "tie", "coherent", "shrink", "c1023")
+
+
+def _flat_accel(device, vidx, max_leaf, n_clusters, leaf=None):
+    """The small mesh scene's triangles (rows vidx) clustered max_leaf to a
+    leaf, cut to the first n_clusters clusters, the triangle block padded
+    to `leaf` slots."""
+    from core_tpu_torch.geometry import cluster_intersect as ci
+    verts = _grouped_scene(device).geom.verts.cpu().numpy()
+    cl = ci.build_clusters(verts, vidx, max_leaf=max_leaf)
+    tris = cl.tris[:n_clusters]
+    if leaf is not None:
+        pad = np.zeros((n_clusters, leaf - tris.shape[1], 10), np.float32)
+        pad[:, :, 9] = -1.0
+        tris = np.concatenate([tris, pad], axis=1)
+    acc = ci.to_device(ci.ClusterData(aabb=cl.aabb[:n_clusters], tris=tris),
+                       device)
+    assert acc.aabb.shape[0] == n_clusters
+    return acc
+
+
+def _flat_closest_case(device, case):
+    """(flat accel, rays, ex0, ex1) of a kernel-4 edge case.  The rays are
+    those of _closest_case; the accel holds the small mesh scene's
+    triangles in 250 clusters of 10 slots (neither a multiple of 32
+    clusters nor of 4 slots, so clusters are staged word by word), for
+    "tie" and "coherent" the triangles twice over in 450 clusters of 12,
+    for "c1023" 1,023 clusters of 2 triangles padded to 256 slots (53,216
+    bytes of shared memory, above the 48 KB default).  "shrink": grazing
+    rays across the terrain, some of which find a hit among the first 32
+    clusters (the first ballot) and a nearer one after them."""
+    vidx = _grouped_scene(device).geom.tri_vidx.cpu().numpy()
+    acc = _flat_accel(device, vidx, 10, 250)
+    if case in ("tie", "coherent"):
+        acc = _flat_accel(device, np.concatenate([vidx, vidx]), 12, 450)
+    elif case == "c1023":
+        acc = _flat_accel(device, vidx, 2, 1023, leaf=256)
+    _, rays, ex0, ex1 = _closest_case(device, {"shrink": "open",
+                                               "c1023": "n129"}.get(case,
+                                                                    case))
+    if case == "shrink":
+        n = 4096
+        g = torch.Generator(device=device).manual_seed(77)
+        o = torch.stack([torch.full((n,), -4.0, device=device),
+                         torch.rand(n, generator=g, device=device) * 0.8
+                         + 0.3,
+                         torch.rand(n, generator=g, device=device) * 6 - 3],
+                        dim=1)
+        d = torch.stack([torch.ones(n, device=device),
+                         -torch.rand(n, generator=g, device=device) * 0.3,
+                         torch.randn(n, generator=g, device=device) * 0.3],
+                        dim=1)
+        rays = vec.RaysS(o=vec.v3(o), d=vec.v3(_unit(d)),
+                         tmin=torch.full((n,), 5e-4, device=device),
+                         tmax=torch.full((n,), -1.0, device=device))
+    return acc, rays, ex0, ex1
+
+
+@pytest.mark.parametrize("case", FLAT_CLOSEST_CASES)
+def test_flat_closest_kernel_edge_cases(device, case):
+    """Kernel 4 against its plain version on every lane, bit for bit."""
+    from core_tpu_torch.geometry import cluster_intersect as ci
+    from core_tpu_torch.geometry import cuda_cluster as cc
+    acc, rays, ex0, ex1 = _flat_closest_case(device, case)
+    launches = cc.closest_hit_flat_cuda.launches
+    got = cc.closest_hit_flat_cuda(acc, rays, ex0, ex1)
+    want = ci.closest_hit_flat_torch(acc, rays, ex0, ex1)
+    torch.cuda.synchronize()
+    assert cc.closest_hit_flat_cuda.launches == launches + 1
+    for f in ("prim", "t", "u", "v"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    hit = got.prim >= 0
+    C = acc.aabb.shape[0]
+    assert C % 32
+    assert acc.leaf % 4 == 0 if case in ("tie", "coherent", "c1023") \
+        else acc.leaf % 4
+    if case == "miss":
+        assert not bool(hit.any()) and bool((got.t == -1.0).all())
+    elif case == "excluded":
+        assert int(hit.sum()) > 0
+        assert not bool((hit & ((got.prim == ex0) | (got.prim == ex1)))
+                        .any())
+    elif case in ("tie", "coherent"):
+        # the copy visited first wins, whichever copy that is (the copies
+        # are the ids from T on)
+        T = (int(acc.tri_id.max()) + 1) // 2
+        assert bool((got.prim >= T).any()) and bool(
+            (hit & (got.prim < T)).any())
+    elif case == "shrink":
+        first = ci.closest_hit_flat_torch(ci.ClusterAccel(
+            *[a[:32] for a in acc]), rays)
+        shrank = (first.prim >= 0) & (got.t < first.t)
+        assert int(shrank.sum()) > 0
+    elif case == "c1023":
+        from core_tpu_torch.geometry.cuda_cluster import FLAT_MAX_CLUSTERS
+        assert C == FLAT_MAX_CLUSTERS and acc.leaf == 256
+        assert (C * 8 + 2 * acc.leaf * 10) * 4 > 48 * 1024
+        assert int(hit.sum()) > 0
+
+
+# ---- kernel 2 (the brute NEE bundle) with dead lanes ----
+
+def _tri_table(device, T, g):
+    """T triangles: the Cornell box's 36, then random ones inside it."""
+    tri = _inputs(device, 1)[1]
+    if T <= tri.shape[0]:
+        return tri[:T].contiguous()
+    m = T - tri.shape[0]
+    v0 = torch.tensor([10.0, 10.0, 10.0], device=device) + torch.rand(
+        (m, 3), generator=g, device=device) * 520.0
+    e = torch.randn((m, 6), generator=g, device=device) * 30.0
+    return torch.cat([tri, torch.cat([v0, e], dim=1)]).contiguous()
+
+
+@pytest.mark.parametrize("T", [36, 257, 4096])
+@pytest.mark.parametrize("K", ck.NEE_K)
+def test_any_hit_nee_kernel_dead_lanes(device, K, T):
+    """Kernel 2 on lanes in four runs: whole blocks of all-dead lanes,
+    all-dead lanes mixed one by one with live ones, lanes with some dead
+    rays, and all-live lanes; both exclusions; 1,000 lanes (not a
+    multiple of the block of 128); bits identical to the plain version."""
+    n = 1000
+    _, _, rays, ex, g = _inputs(device, n, seed=100 + K + T)
+    tri = _tri_table(device, T, g)
+    ex = torch.randint(-2, T, (n,), generator=g, device=device,
+                       dtype=torch.int32)
+    dirs = [vec.v3(_unit(torch.randn((n, 3), generator=g, device=device)))
+            for _ in range(K)]
+    tmin = torch.full((n,), 5e-4, device=device)
+    lane = torch.arange(n, device=device)
+    dead_lane = (lane < 256) | ((lane < 500) & (lane % 3 == 0))
+    caps = []
+    for k in range(K):
+        c = torch.where(torch.rand(n, generator=g, device=device) < 0.3,
+                        torch.full((n,), -1.0, device=device),
+                        torch.rand(n, generator=g, device=device) * 600)
+        some_dead = (lane >= 500) & (lane < 750) & (
+            torch.rand(n, generator=g, device=device) < 0.5)
+        # dead: 0 < tcap <= tmin, some exactly tmin
+        dead = torch.where(torch.rand(n, generator=g, device=device) < 0.1,
+                           tmin, torch.rand(n, generator=g, device=device)
+                           * 4.9e-4 + 1e-6)
+        caps.append(torch.where(dead_lane | some_dead, dead, c))
+    launches = ck.any_hit_nee_cuda.launches
+    got = ck.any_hit_nee_cuda(tri, rays.o, tmin, dirs, caps, ex, ex.flip(0))
+    want = isect.any_hit_nee_torch(tri, rays.o, tmin, dirs, caps, ex,
+                                   ex.flip(0))
+    torch.cuda.synchronize()
+    assert ck.any_hit_nee_cuda.launches == launches + 1
+    assert torch.equal(got, want)
+    bits = got.view(K, n)
+    assert not bool(bits[:, dead_lane].any())
+    assert 0.02 < float(bits[:, lane >= 750].float().mean()) < 0.98

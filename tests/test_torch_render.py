@@ -75,7 +75,7 @@ def test_render_chunk_matches_core_tpu(scenes, aa, spp):
 def test_render_image_is_chunked_render_chunk(scenes):
     """render_image's chunk loop + flush equals one render_chunk call."""
     _, ts = scenes
-    opts = RenderOptions(aa_samples=2, spp_chunk=1,
+    opts = RenderOptions(aa_samples=2, spp_chunk=1, integrator="pathtracing",
                          integrator_opts=PathOptions(**PATH))
     img, film = render_image(ts, opts)
     with torch.no_grad():

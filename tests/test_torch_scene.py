@@ -220,9 +220,11 @@ def test_unported_features_raise_by_name(scenes):
     with pytest.raises(NotImplementedError, match="chains"):
         render_image(convert.scene_from_numpy(*convert.scene_to_numpy(mirror),
                                               device="cpu"),
-                     RenderOptions())
+                     RenderOptions(integrator="pathtracing",
+                                   integrator_opts=PathOptions()))
     with pytest.raises(NotImplementedError, match="folding"):
         render_image(ts, RenderOptions(
+            integrator="pathtracing",
             integrator_opts=PathOptions(fold_interval=2)))
     with pytest.raises(NotImplementedError, match="photonmapping"):
         render_image(ts, RenderOptions(integrator="photonmapping"))
