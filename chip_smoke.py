@@ -62,10 +62,14 @@ Phases, with their seconds:
                a point, a spot and a directional light instead of the sun)
                at 73,602 triangles (flat: kernels 4 and 5) and at 1,634
                (brute: kernels 1 and 3), 256^2: each light's shadow
-               wavefront captured from one chunk, kernels 5 and 3 held
-               against their plain versions on every lane and timed, and
-               kernel 4 on the flat variant's two closest-hit calls; one
-               timed chunk each with launch counters and image checks
+               wavefront captured from one chunk (camera and glossy-chain
+               hit), kernels 5 and 3 held against their plain versions on
+               every lane and timed, with each wavefront's share of dead
+               rays (0 < tcap <= tmin); kernels 4 and 1 likewise on each
+               variant's two closest-hit calls (camera, glossy chain);
+               launches x (kernel - bound) per chunk for kernels 1, 3, 4
+               and 5; one timed chunk each with launch counters and image
+               checks
   9. mesh slice — 64^2 renders of mesh_scene and of both dirac sizes
                through the kernels and through the plain versions must be
                identical
@@ -1007,6 +1011,9 @@ def _check_captured(what, q, args, kw):
         tests = f"{float(tests_n.sum()) / n:.1f}, slab tests " \
             f"{n_slabs / n:.1f}"
         lanes = f"{n} lanes"
+        if q == "any":
+            is_dead = (rays.tmax > 0) & (rays.tmax <= rays.tmin)
+            dead = f"; dead rays {float(is_dead.float().mean()):.4f}"
     sync()
     if q == "closest":
         err = check_closest(out, want, what)
@@ -1066,20 +1073,23 @@ def phase_mesh_kernels(scene):
 def phase_dirac_kernels(flat, brute):
     """Kernels 5 and 3 on every dirac light's captured shadow wavefronts
     (three lights, at the camera hit and at the glossy-chain hit); the row
-    is the point light's camera-hit wavefront.  Also kernel 4 on the flat
-    variant's two closest-hit calls (its error only)."""
+    is the point light's camera-hit wavefront.  Also kernels 4 and 1 on
+    each variant's two closest-hit calls (their errors only in the
+    table)."""
     rows = {}
-    for name, scene, kernel in (("dirac flat", flat, "cluster_any_hit"),
-                                ("dirac brute", brute, "any_hit")):
+    for name, scene, kind, (kernel, k), (closest_kernel, kc) in (
+            ("dirac flat", flat, "flat", ("cluster_any_hit", 5),
+             ("cluster_closest_hit", 4)),
+            ("dirac brute", brute, "brute", ("any_hit", 3),
+             ("closest_hit", 1))):
         calls = _capture_calls(scene, MESH_RES)
         anys = [c for c in calls if c[0] == "any"]
-        if kernel == "cluster_any_hit":
-            closest = [_check_captured(
-                f"{name}: {hit} closest hit", *c) for hit, c in zip(
-                ("camera", "glossy-chain"),
-                [c for c in calls if c[0] == "closest"])]
-            rows["cluster_closest_hit"] = {"max_abs_err": max(
-                r["max_abs_err"] for r in closest)}
+        closest = [_check_captured(f"{name}: {hit} closest hit", *c)
+                   for hit, c in zip(("camera", "glossy-chain"),
+                                     [c for c in calls if c[0] == "closest"])]
+        rows[closest_kernel] = {"max_abs_err": max(
+            r["max_abs_err"] for r in closest)}
+        _gap(f"kernel {kc} ({kind} closest hit), {name} chunk", closest)
         if len(anys) != 6:
             fail(f"{name}: {len(anys)} shadow wavefronts in a chunk, not 6")
         lights = ("point", "spot", "directional")
@@ -1091,8 +1101,7 @@ def phase_dirac_kernels(flat, brute):
         rows[kernel] = per[0]
         for row in per[1:]:
             _merge(rows[kernel], row)
-        which = "5 (flat" if kernel == "cluster_any_hit" else "3 (brute"
-        _gap(f"kernel {which} any hit), {name} chunk", per)
+        _gap(f"kernel {k} ({kind} any hit), {name} chunk", per)
     return rows
 
 

@@ -4,8 +4,10 @@ the card (the small-size twin of chip_smoke.py's kernel phases): kernels
 mesh scene, the grouped kernels 7-8 on a forced-grouped small mesh scene,
 the edge cases of the cooperative walks of kernels 4-8, kernel 2 on
 bundles with all-dead lanes and dead rays at 36, 257 and 4,096
-triangles, and renders through the kernels against renders through the
-plain versions.
+triangles, kernels 1 and 3 on the edges of their tests (dead rays, edges
+and vertices, t at tmin and tcap, |det| near 1e-12, ties, exclusions) at
+36, 257, 1,634 and 4,096 triangles, and renders through the kernels
+against renders through the plain versions.
 
 Marked `cuda`: each test asks its fixture for a CUDA device and skips
 without one.  Run on a GPU host with
@@ -653,3 +655,163 @@ def test_any_hit_nee_kernel_dead_lanes(device, K, T):
     bits = got.view(K, n)
     assert not bool(bits[:, dead_lane].any())
     assert 0.02 < float(bits[:, lane >= 750].float().mean()) < 0.98
+
+
+# ---- kernels 1 and 3 on the edges of their tests ----
+
+HARD_CASES = ("dead", "edges", "t_limits", "det", "ties", "excluded",
+              "ragged")
+
+
+def _ulps(x, k, g):
+    """x (float32) moved by a random whole number of ulps in [-k, k]."""
+    step = torch.randint(-k, k + 1, x.shape, generator=g, device=x.device,
+                         dtype=torch.int32)
+    return (x.view(torch.int32) + step).view(torch.float32)
+
+
+def _aimed(tri, rows, a, b, dist, g):
+    """Rays from `dist` away toward the points v0 + a e1 + b e2 of the
+    given rows, in float64, then float32 with the origin moved by up to 3
+    ulps; tmin 5e-5, open caps."""
+    n = rows.shape[0]
+    dev = tri.device
+    t = tri.double()[rows]
+    p = t[:, 0:3] + a[:, None] * t[:, 3:6] + b[:, None] * t[:, 6:9]
+    d = torch.randn((n, 3), generator=g, device=dev, dtype=torch.float64)
+    d = d / d.norm(dim=1, keepdim=True)
+    o = _ulps((p - d * dist[:, None]).float(), 3, g)
+    return vec.RaysS(o=vec.v3(o), d=vec.v3(d.float()),
+                     tmin=torch.full((n,), 5e-5, device=dev),
+                     tmax=torch.full((n,), -1.0, device=dev))
+
+
+def _hard_case(device, T, case):
+    """[(tri, rays, ex0, ex1)] of one hard case at T triangles (the Cornell
+    box's, then random ones; 3,001 rays, not a multiple of a block):
+    "dead", whole blocks of dead rays (0 < tcap <= tmin, some exactly
+    tmin), then dead rays mixed one by one with live ones, then live ones;
+    "edges", rays aimed at edges (u = 0, v = 0, u + v = 1) and vertices
+    within a few ulps; "t_limits", tmin (first half) or tcap (second half)
+    within 2 ulps of the ray's closest t; "det", slivers near the
+    coordinate origin with |det| from 0.45e-12 to 2e-12 for their rays;
+    "ties", rows copied to higher indices (equal t: the lower index wins);
+    "excluded", the same with both exclusions on the aimed row and its
+    copy; "ragged", 1, 255 and 257 random rays."""
+    g = torch.Generator(device=device).manual_seed(
+        700 + T + 31 * HARD_CASES.index(case))
+    tri = _tri_table(device, T, g)
+    f64 = torch.float64
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=device, dtype=f64)
+
+    if case == "ragged":
+        out = []
+        for n in (1, 255, 257):
+            _, _, rays, ex, _ = _inputs(device, n, seed=T + n)
+            ex = torch.randint(-2, T, (n,), generator=g, device=device,
+                               dtype=torch.int32)
+            out.append((tri, rays, ex, ex.flip(0)))
+        return out
+    n = 3001
+    ex0 = ex1 = None
+    if case == "dead":
+        _, _, rays, _, _ = _inputs(device, n, seed=T)
+        lane = torch.arange(n, device=device)
+        tmin = torch.full((n,), 5e-4, device=device)
+        dead = (lane < 512) | ((lane < 1024) & (lane % 2 == 0))
+        cap = torch.where(rand(n) < 0.1, tmin, (rand(n) * 4.9e-4 + 1e-6)
+                          .float())
+        return [(tri, rays._replace(tmin=tmin, tmax=torch.where(
+            dead, cap, rays.tmax)), None, None)]
+    m = min(16, T // 2)
+    if case == "det":
+        # slivers: legs of 1.5e-6 at a right angle, 1e-3 from the origin
+        tri = tri.clone()
+        v0 = 1e-3 + rand(m, 3) * 1e-3
+        a = rand(m, 3) - 0.5
+        a = a / a.norm(dim=1, keepdim=True)
+        b = torch.linalg.cross(a, rand(m, 3) - 0.5)
+        b = b / b.norm(dim=1, keepdim=True)
+        tri[T - m:] = torch.cat([v0, 1.5e-6 * a, 1.5e-6 * b], 1).float()
+        rows = T - m + torch.randint(0, m, (n,), generator=g, device=device)
+        # directions at cos 0.2-0.9 to the sliver's normal, so |det| =
+        # 2.25e-12 cos
+        t = tri.double()[rows]
+        nrm = torch.linalg.cross(t[:, 3:6], t[:, 6:9])
+        nrm = nrm / nrm.norm(dim=1, keepdim=True)
+        side = torch.linalg.cross(nrm, t[:, 3:6])
+        side = side / side.norm(dim=1, keepdim=True)
+        c = 0.2 + rand(n) * 0.7
+        d = c[:, None] * nrm + (1 - c * c).sqrt()[:, None] * side
+        d = torch.where((rand(n) < 0.5)[:, None], d, -d)
+        p = t[:, 0:3] + 0.25 * t[:, 3:6] + 0.25 * t[:, 6:9]
+        o = (p - d * (1e-4 + rand(n) * 1e-3)[:, None]).float()
+        return [(tri, vec.RaysS(o=vec.v3(o), d=vec.v3(d.float()),
+                                tmin=torch.full((n,), 5e-5, device=device),
+                                tmax=torch.full((n,), -1.0, device=device)),
+                 None, None)]
+    if case in ("ties", "excluded"):
+        tri = tri.clone()
+        tri[T // 2:T // 2 + m] = tri[:m]
+        rows = torch.randint(0, m, (n,), generator=g, device=device)
+    else:
+        rows = torch.randint(0, T, (n,), generator=g, device=device)
+    x = rand(n)
+    kind = torch.randint(0, 6, (n,), generator=g, device=device)
+    if case in ("edges", "ties", "excluded"):
+        # (0, x), (x, 0), (x, 1 - x), and the vertices v0, v0 + e1, v0 + e2
+        a = torch.stack([0 * x, x, x, 0 * x, 1 + 0 * x, 0 * x])
+        b = torch.stack([x, 0 * x, 1 - x, 0 * x, 0 * x, 1 + 0 * x])
+        a = a.gather(0, kind[None])[0]
+        b = b.gather(0, kind[None])[0]
+    else:
+        a = x * 0.5
+        b = rand(n) * 0.5
+    rays = _aimed(tri, rows, a, b, 1.0 + rand(n) * 300.0, g)
+    if case == "t_limits":
+        t = isect.closest_hit_torch(tri, rays).t
+        near = _ulps(t, 2, g)
+        first = torch.arange(n, device=device) < n // 2
+        hit = t > 0
+        rays = rays._replace(
+            tmin=torch.where(first & hit, near, rays.tmin),
+            tmax=torch.where(~first & hit, near, rays.tmax))
+    if case == "excluded":
+        ex0 = rows.to(torch.int32)
+        ex1 = torch.where(rand(n) < 0.5, ex0 + T // 2, -2).to(torch.int32)
+    return [(tri, rays, ex0, ex1)]
+
+
+@pytest.mark.parametrize("case", HARD_CASES)
+@pytest.mark.parametrize("T", [36, 257, 1634, 4096])
+def test_closest_hit_kernel_hard_cases(device, T, case):
+    """Kernel 1 (division-free pre-test, then the exact test) against the
+    plain version, every output bit for bit."""
+    for tri, rays, ex0, ex1 in _hard_case(device, T, case):
+        launches = ck.closest_hit_cuda.launches
+        got = ck.closest_hit_cuda(tri, rays, ex0, ex1)
+        want = isect.closest_hit_torch(tri, rays, ex0, ex1)
+        torch.cuda.synchronize()
+        assert ck.closest_hit_cuda.launches == launches + 1
+        for f in ("prim", "t", "u", "v"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        if case in ("edges", "t_limits", "det", "ties", "excluded"):
+            assert float(got.valid.float().mean()) > 0.05
+
+
+@pytest.mark.parametrize("case", HARD_CASES)
+@pytest.mark.parametrize("T", [36, 257, 1634, 4096])
+def test_any_hit_kernel_hard_cases(device, T, case):
+    """Kernel 3 (compacted live rays, the triangle-parallel tail) against
+    the plain version, bit for bit; dead rays never occluded."""
+    for tri, rays, ex0, ex1 in _hard_case(device, T, case):
+        launches = ck.any_hit_cuda.launches
+        got = ck.any_hit_cuda(tri, rays, ex0, ex1)
+        want = isect.any_hit_torch(tri, rays, ex0, ex1)
+        torch.cuda.synchronize()
+        assert ck.any_hit_cuda.launches == launches + 1
+        assert torch.equal(got, want)
+        dead = (rays.tmax > 0) & (rays.tmax <= rays.tmin)
+        assert not bool(got[dead].any())
