@@ -34,6 +34,17 @@ Phases, with their seconds:
                tested up to its first occluder, dead rays none; the origin,
                exclusions and directions read only for live lanes and rays);
                launches x (kernel - bound) per chunk
+  4c. fwdbwd — bench_cuda.py's Cornell step at full width: value_and_grad
+               of the bench loss (256^2, 1 spp) with respect to
+               extract_params(geometry=False) through kernels 1 and 2;
+               launches of each kernel in one step, finite loss and
+               gradients, nonzero gradients of mat.diffuse_color and
+               light0.color, the median of 5 timed steps, rays counted at
+               the scene entry points, Mrays/s and peak device memory; then
+               at 64^2 the loss through the kernels bit-identical to the
+               loss through the plain versions and every gradient within
+               1e-4 x max|g| of its leaf, and the geometry=True leaf set
+               finite
   5. big     — the 1M-triangle direct-light path (core_tpu's bench_big_scene
                configuration): big_scene(1024^2, ibl_samples=4,
                sun_samples=2) built by the port alone; the inputs of kernels
@@ -77,8 +88,9 @@ The line before the last is the card's name and power limit (nvidia-smi),
 the one before that the kernel table as JSON, and the last line is
 {"ok": true, "device": {...}}.  Rows 1 and 2 of that table are phase 2's
 synthetic bounce-shape inputs (comparable with earlier runs); phase 4b
-prints the captured ones.  Any failure raises (non-zero exit).  Imports
-nothing of jax or core_tpu.
+prints the captured ones.  Each row's fwdbwd_launches is the kernel's
+launches in one fwd+bwd step of phase 4c.  Any failure raises (non-zero
+exit).  Imports nothing of jax or core_tpu.
 """
 from __future__ import annotations
 
@@ -418,31 +430,10 @@ def phase_kernels(scene, K=8):
 # --------------------------------------------------------------------------
 
 def counted_rays(fn):
-    """Run fn() with the scene-level trace entry points wrapped, counting
-    every wavefront lane of every closest-hit and NEE shadow query (the way
-    the JAX package's bench counts rays).  Returns (fn(), lanes)."""
-    from core_tpu_torch import scene as sm
-    counts = {"n": 0}
-    orig = (sm.closest_hit_s, sm.any_hit_s, sm.any_hit_nee_s)
-
-    def ch(scene, rays, *a, **k):
-        counts["n"] += rays.o.x.numel()
-        return orig[0](scene, rays, *a, **k)
-
-    def anyh(scene, rays, *a, **k):
-        counts["n"] += rays.o.x.numel()
-        return orig[1](scene, rays, *a, **k)
-
-    def nee(scene, origin, tmin, dirs, tcaps, *a, **k):
-        counts["n"] += origin.x.numel() * len(dirs)
-        return orig[2](scene, origin, tmin, dirs, tcaps, *a, **k)
-
-    sm.closest_hit_s, sm.any_hit_s, sm.any_hit_nee_s = ch, anyh, nee
-    try:
-        out = fn()
-    finally:
-        sm.closest_hit_s, sm.any_hit_s, sm.any_hit_nee_s = orig
-    return out, counts["n"]
+    """(fn(), the lanes of every closest-hit and shadow query fn traced),
+    counted as bench_cuda.py counts them."""
+    import bench_cuda
+    return bench_cuda.counted_rays(fn)
 
 
 def write_png(path: Path, img):
@@ -616,6 +607,104 @@ def phase_slice():
     print(f"slice: 64x64 render through the kernels == through the plain "
           f"versions (bit-identical), mean {float(a[..., :3].mean()):.6f}, "
           f"image sha256 {image_digest(a)}")
+
+
+# --------------------------------------------------------------------------
+# phase 4c: the Cornell path forward + backward
+# --------------------------------------------------------------------------
+
+FWDBWD_STEPS = 5
+# the 64^2 gradients through the kernels against those through the plain
+# versions: elementwise within GRAD_RTOL * max|g| of each leaf.  The forward
+# passes are bit-identical (phase 4); the backward of index_select (the
+# material-table gathers) accumulates with atomics in no fixed order, so a
+# leaf's sums may differ by a few ulps
+GRAD_RTOL = 1e-4
+
+
+def _grads_ok(loss, grads, what):
+    import torch
+    if not bool(torch.isfinite(loss)):
+        fail(f"fwd+bwd ({what}): the loss is {float(loss)}")
+    bad = [k for k, g in grads.items() if not bool(torch.isfinite(g).all())]
+    if bad:
+        fail(f"fwd+bwd ({what}): non-finite gradients of {bad}")
+
+
+def phase_fwdbwd():
+    """bench_cuda.py's Cornell step at full width: value_and_grad of the
+    bench loss (256^2, 1 spp, path_samples=8, bounces=5) through kernels 1
+    and 2; then the 64^2 gradients through the kernels against those
+    through the plain versions, and the geometry=True leaf set at 64^2.
+    Returns the launches of each kernel in one fwd+bwd step."""
+    import torch
+    import bench_cuda as bc
+    from core_tpu_torch import diff
+    from core_tpu_torch.geometry import cuda_intersect as ck
+
+    scene = bc.cornell_scene()
+    loss_fn = bc.cornell_loss(scene)
+    params = diff.extract_params(scene, geometry=False)
+    step = diff.value_and_grad(loss_fn)
+    with torch.no_grad():
+        _, rays = counted_rays(lambda: loss_fn(params))
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = step(params)
+    sync()
+    launches = {"closest_hit": ck.closest_hit_cuda.launches,
+                "any_hit_nee": ck.any_hit_nee_cuda.launches}
+    if min(launches.values()) <= 0:
+        fail(f"a kernel of the fwd+bwd step never launched: {launches}")
+    if plain_calls():
+        fail(f"the plain versions ran {plain_calls()} times in the step")
+    _grads_ok(loss, grads, f"{RES}^2")
+    for leaf in ("mat.diffuse_color", "light0.color"):
+        if float(grads[leaf].abs().max()) <= 0.0:
+            fail(f"fwd+bwd: the gradient of {leaf} is zero")
+    walls = bc.timed_steps(lambda: step(params), FWDBWD_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = sorted(walls)[len(walls) // 2]
+    print(f"fwdbwd: {RES}x{RES} cornell, 1 spp, path_samples={PATH_SAMPLES}, "
+          f"bounces={BOUNCES}, light_samples={LIGHT_SAMPLES}: loss "
+          f"{float(loss):.6f}, rays per step {rays}, median step "
+          f"{med * 1e3:.3f} ms over {FWDBWD_STEPS} (all "
+          f"{[round(w * 1e3, 3) for w in walls]}), "
+          f"{rays / med / 1e6:.3f} Mrays/s fwd+bwd; peak device memory "
+          f"{peak:.3f} GiB")
+    print(f"fwdbwd: launches in one fwd+bwd step {launches}, plain calls 0; "
+          f"max |grad| "
+          f"{ {k: float(g.abs().max()) for k, g in grads.items()} }")
+
+    # 64^2: through the kernels against through the plain versions
+    out = {}
+    for isec in ("cuda", "torch"):
+        sc = bc.cornell_scene(64, isec)
+        out[isec] = diff.value_and_grad(bc.cornell_loss(sc))(
+            diff.extract_params(sc, geometry=False))
+    (lk, gk), (lp, gp) = out["cuda"], out["torch"]
+    _grads_ok(lk, gk, "64^2")
+    if not torch.equal(lk, lp):
+        fail(f"64^2 losses differ: kernels {float(lk)}, plain {float(lp)}")
+    worst = 0.0
+    for k in gp:
+        scale = float(gp[k].abs().max())
+        err = float((gk[k] - gp[k]).abs().max())
+        if err > GRAD_RTOL * scale:
+            fail(f"64^2 gradient of {k}: kernels vs plain max abs "
+                 f"{err} > {GRAD_RTOL} * {scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+    sc = bc.cornell_scene(64)
+    lg, gg = diff.value_and_grad(bc.cornell_loss(sc))(
+        diff.extract_params(sc, geometry=True))
+    _grads_ok(lg, gg, "64^2 geometry=True")
+    print(f"fwdbwd slice: 64x64 loss through the kernels == through the "
+          f"plain versions ({float(lk):.6f}); gradients within {GRAD_RTOL} "
+          f"x max|g| of each leaf (worst {worst:.3e}); geometry=True "
+          f"leaves finite, max |grad| of light0.corner "
+          f"{float(gg['light0.corner'].abs().max()):.6e}, geom.obj_offset "
+          f"{float(gg['geom.obj_offset'].abs().max()):.6e}")
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -1236,6 +1325,7 @@ def main():
     for name, row in timed("cornell kernels", phase_cornell_kernels,
                            scene).items():
         _merge(kt[name], row)
+    fwdbwd = timed("fwdbwd", phase_fwdbwd)
     big, _ = timed("big build", phase_big_build, BIG_RES)
     kt.update(timed("big kernels", phase_big_kernels, big))
     counts.update(timed("big render", phase_big_render, big))
@@ -1290,8 +1380,10 @@ def main():
                                 "core_tpu_torch/csrc/cluster.cu"),
         "grouped_any_hit": ("core_tpu/geometry/cluster_intersect.py:1129",
                             "core_tpu_torch/csrc/cluster.cu")}
+    # fwdbwd_launches: the kernel's launches in one Cornell fwd+bwd step
     table = [{"name": name, "route": "cuda", "source": src,
-              "replaces": rep, "launches": counts[name], **kt[name]}
+              "replaces": rep, "launches": counts[name], **kt[name],
+              "fwdbwd_launches": fwdbwd.get(name, 0)}
              for name, (rep, src) in replaces.items()]
     print(json.dumps({"kernels": table}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

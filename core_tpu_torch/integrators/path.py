@@ -26,6 +26,7 @@ import torch
 from core_tpu_torch import scene as scene_mod
 from core_tpu_torch.backgrounds import eval_background_s
 from core_tpu_torch.integrators import common
+from core_tpu_torch.lights import base as light_base
 from core_tpu_torch.materials import dispatch
 from core_tpu_torch.materials.base import BSDF, MatType, detach_sample
 from core_tpu_torch.mathutils import MIN_RAYDIST
@@ -63,11 +64,34 @@ def _check_supported(scene, types_present, opts: PathOptions):
                                   "not ported to core_tpu_torch yet")
 
 
+def _nee_lanes(scene) -> int:
+    """Shadow-ray lanes per shading point of one NEE estimate: both MIS
+    sides of each area-like light's samples, one ray per dirac light
+    (core_tpu's count, path.py:256-261)."""
+    return 2 * sum(1 if light_base.dirac(li)
+                   else max(1, light_base.n_samples(li))
+                   for li in scene.lights)
+
+
+def _count(stats, n_lanes: int, useful_mask, per_lane: int = 1):
+    """Add n_lanes traced lane-rays and the useful ones (those whose path
+    was alive at the launch) to stats; `useful` stays a device tensor, so
+    counting reads nothing back to the host."""
+    stats["traced"] += per_lane * n_lanes
+    stats["useful"] = stats["useful"] \
+        + per_lane * useful_mask.sum(dtype=torch.float32)
+
+
 def _paths_batched(scene, types_present, sp0, p0, wo0, active0, n_paths,
-                   pixel_sample, sampling_offs, opts: PathOptions):
+                   pixel_sample, sampling_offs, opts: PathOptions,
+                   stats=None):
     """All indirect paths as one (n_paths*N)-lane wavefront; returns V3 [N]
     (already averaged over n_paths).  Lane layout matches vec.tile*: path i
-    occupies lanes [i*N, (i+1)*N)."""
+    occupies lanes [i*N, (i+1)*N).
+
+    stats: optional dict accumulating {"traced", "useful"} lane-ray counts
+    of the closest-hit and NEE shadow lanes (useful = lanes whose path was
+    still alive at the launch), as core_tpu's _paths_batched does."""
     trace_caustics = opts.caustic_type == "path"
     base = (n_paths * pixel_sample + sampling_offs) & qmc.MASK32
     offs = ((torch.arange(n_paths, dtype=torch.int64,
@@ -112,6 +136,8 @@ def _paths_batched(scene, types_present, sp0, p0, wo0, active0, n_paths,
         rays = RaysS(o=sp.p, d=sres.wi,
                      tmin=torch.full_like(s1, MIN_RAYDIST),
                      tmax=torch.full_like(s1, -1.0))
+        if stats is not None:
+            _count(stats, offs.shape[0], active)
         hits = scene_mod.closest_hit_s(scene, rays, exclude_prim=sp.prim)
         # an escape after a caustic bounce sees the background
         # (core_tpu/integrators/path.py:243-246)
@@ -126,6 +152,8 @@ def _paths_batched(scene, types_present, sp0, p0, wo0, active0, n_paths,
         wo = -sres.wi
         has_diffuse = (p.flags & BSDF.DIFFUSE) != 0
         nee_active = active & has_diffuse if depth > 0 else active
+        if stats is not None:
+            _count(stats, offs.shape[0], nee_active, _nee_lanes(scene))
         lcol = common.estimate_one_direct_s(scene, types_present, p, sp, wo,
                                             offs, pixel_sample_b,
                                             sampling_offs_b, nee_active)
@@ -142,13 +170,19 @@ def _paths_batched(scene, types_present, sp0, p0, wo0, active0, n_paths,
 
 
 def integrate(scene, types_present, rays, pixel_sample, sampling_offs,
-              opts: PathOptions):
+              opts: PathOptions, stats=None):
     """Path-tracer integrate() for a camera wavefront -> rgba [N, 4].
 
     rays: types.Rays ([N, 3] o, d); pixel_sample, sampling_offs: [N] int64
-    tensors holding uint32 values."""
+    tensors holding uint32 values.  stats: optional dict accumulating
+    "traced" (an int) and "useful" (a float32 tensor) lane-ray counts, the
+    primary rays all useful (core_tpu/integrators/path.py:305-316)."""
     _check_supported(scene, types_present, opts)
     rs = rays_to_soa(rays)
+    n = rs.tmin.shape[0]
+    if stats is not None:
+        stats["traced"] = stats.get("traced", 0) + n
+        stats["useful"] = stats.get("useful", 0.0) + n
     hits = scene_mod.closest_hit_s(scene, rs)
     primary_valid = hits.valid
 
@@ -158,12 +192,15 @@ def integrate(scene, types_present, rays, pixel_sample, sampling_offs,
 
     col = where3(primary_valid, dispatch.emit_ss(types_present, p), 0.0)
     nee0 = primary_valid & ((p.flags & BSDF.DIFFUSE) != 0)
+    if stats is not None:
+        _count(stats, n, nee0, _nee_lanes(scene))
     col = col + common.estimate_all_direct_s(scene, types_present, p, sp, wo,
                                              pixel_sample, sampling_offs,
                                              nee0)
     n_paths = max(1, opts.path_samples)
     col = col + _paths_batched(scene, types_present, sp, p, wo, nee0,
-                               n_paths, pixel_sample, sampling_offs, opts)
+                               n_paths, pixel_sample, sampling_offs, opts,
+                               stats=stats)
 
     col = where3(primary_valid, col,
                  eval_background_s(scene.background, rs.d))

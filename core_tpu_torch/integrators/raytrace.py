@@ -77,7 +77,10 @@ def recursive_raytrace(scene, types_present, rays_s: RaysS, hits, sp, p,
         # materials, so the total is the glossy lobe's
         total = lum_g
         take_gloss = active & (total > 1e-7) & (lum_g > 0.0)
-        branch_p = (lum_g * (1.0 / total.clamp_min(1e-20))).clamp_min(0.0)
+        # the branch pick is part of the sampling, so its probability is
+        # held constant in the backward pass (core_tpu raytrace.py:136)
+        branch_p = (lum_g * (1.0 / total.clamp_min(1e-20))).clamp_min(
+            0.0).detach()
         branch_dir = where3(take_gloss, gres.wi, -cur_wo)
         tb = g_col3 if throughput is None else throughput * g_col3
         den = branch_p.clamp_min(1e-6)

@@ -3,13 +3,18 @@
     python3 -m core_tpu_torch.profile_chunk            # the Cornell bench
     python3 -m core_tpu_torch.profile_chunk big        # the 1M-tri scene
     python3 -m core_tpu_torch.profile_chunk mesh       # the 73.6k-tri scene
+    python3 -m core_tpu_torch.profile_chunk cornell fwdbwd  # a fwd+bwd step
 
 Run from the root of a checkout on a machine with a CUDA card.  "cornell"
 renders cornell_box(light_samples=4) with PathOptions(path_samples=8,
 bounces=5, raydepth=2) at 256^2; "big" renders big_scene(ibl_samples=4,
 sun_samples=2) with DirectOptions(raydepth=1) at 1024^2; "mesh" renders
 mesh_scene() at its defaults (256^2, ibl_samples=8, sun_samples=4; the
-flat cluster kernels) with DirectOptions(raydepth=1).  It times RUNS
+flat cluster kernels) with DirectOptions(raydepth=1).  With "fwdbwd" it
+profiles bench_cuda.py's step instead of a forward chunk: value_and_grad
+of the loss of one 1-spp chunk (Cornell: the mean squared RGB against a
+zero target; big and mesh: the mean RGB) with respect to
+diff.extract_params(geometry=False).  It times RUNS
 unprofiled chunks on the host clock (each ending in a synchronise), then
 profiles one chunk under torch.profiler and prints: the unprofiled median
 wall, the profiled wall, device kernel time and launch count per chunk, the
@@ -24,8 +29,10 @@ import sys
 import time
 
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from core_tpu_torch import diff
 from core_tpu_torch import film as film_mod
 from core_tpu_torch.integrators.direct import DirectOptions
 from core_tpu_torch.integrators.path import PathOptions
@@ -58,9 +65,26 @@ def _config(name):
                      "(cornell, big or mesh)")
 
 
-def main(name="cornell"):
+def _fwdbwd_step(name, scene, opts):
+    """bench_cuda.py's fwd+bwd step on a named configuration."""
+    types = scene_material_types(scene)
+
+    def loss_fn(params):
+        img = diff.render_flat(diff.apply_params(scene, params), opts, 1,
+                               types)[..., :3]
+        return torch.mean(img * img) if name == "cornell" else img.mean()
+
+    params = diff.extract_params(scene, geometry=False)
+    vg = diff.value_and_grad(loss_fn)
+    return lambda: vg(params)
+
+
+def main(name="cornell", mode="fwd"):
     if not torch.cuda.is_available():
         raise SystemExit("profile_chunk: needs a CUDA card")
+    if mode not in ("fwd", "fwdbwd"):
+        raise SystemExit(f"profile_chunk: unknown mode {mode!r} (fwd or "
+                         "fwdbwd)")
 
     scene, opts = _config(name)
     types = scene_material_types(scene)
@@ -70,6 +94,9 @@ def main(name="cornell"):
         with torch.no_grad():
             film = film_mod.make_film(res_y, res_x, device="cuda")
             return render_chunk(scene, types, opts, film, 0, 1, 0)
+
+    if mode == "fwdbwd":
+        chunk = _fwdbwd_step(name, scene, opts)
 
     for _ in range(2):
         chunk()
@@ -81,7 +108,7 @@ def main(name="cornell"):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     med = statistics.median(walls)
-    print(f"{name} chunk {res_x}x{res_y}: unprofiled wall ms median "
+    print(f"{name} {mode} chunk {res_x}x{res_y}: unprofiled wall ms median "
           f"{med:.3f} over {RUNS} runs, all "
           f"{sorted(round(w, 3) for w in walls)}")
 
@@ -94,10 +121,12 @@ def main(name="cornell"):
         wall = (time.perf_counter() - t0) * 1e3
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     ka = prof.key_averages()
-    # device kernels carry device time and are not aten:: op records
+    # device kernels are the records of device type CUDA; the host-side
+    # records (aten ops, and in a backward pass the autograd nodes) carry
+    # their kernels' device time too and are left out of the sum
     kern = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in ka
-                   if e.device_time_total > 0
-                   and not e.key.startswith("aten::")),
+                   if e.device_type == DeviceType.CUDA
+                   and e.device_time_total > 0),
                   key=lambda x: -x[1])
     dev_ms = sum(d for _, d, _ in kern)
     launches = sum(c for _, _, c in kern)
@@ -110,9 +139,11 @@ def main(name="cornell"):
     for k, d, c in kern[:TOP]:
         print(f"  {d:9.3f} ms {c:6d}x  {k[:110]}")
     ops = sorted(((e.key, e.device_time_total / 1e3, e.cpu_time_total / 1e3,
-                   e.count) for e in ka if e.key.startswith("aten::")),
+                   e.count) for e in ka if e.key.startswith(
+                       ("aten::", "autograd::engine::evaluate_function"))),
                  key=lambda x: -x[1])
-    print("aten ops by device time:")
+    print("aten ops and autograd nodes by device time (nested; they "
+          "overlap):")
     for k, d, cpu, c in ops[:12]:
         print(f"  {d:9.3f} ms dev {cpu:9.3f} ms cpu {c:6d}x {k}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -122,4 +153,4 @@ def main(name="cornell"):
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:2])
+    main(*sys.argv[1:3])
