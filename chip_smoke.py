@@ -84,12 +84,32 @@ Phases, with their seconds:
   9. mesh slice — 64^2 renders of mesh_scene and of both dirac sizes
                through the kernels and through the plain versions must be
                identical
+  10-12. the specular chains and composite materials, each at 256^2 and
+               full width: cornell256_spec_pt_fwd (glossy + glass blocks,
+               light_samples=8, path_samples=8, bounces=3, raydepth=5),
+               cornell256_spec_dl_fwd (the same box, directlight raydepth
+               5) and cornell256_blend_dl_fwd (blend_diff + blend_cross
+               blocks, directlight raydepth 5): counts at 0, a warm-up
+               chunk with rays counted, 4 timed 1-spp chunks; kernels 1
+               and 2 launched (their launches per chunk), kernel 3 and
+               the plain versions not; the share of live lanes in each
+               chain depth's closest-hit wavefront; peak memory; a finite
+               image whose block pixels differ from the white-block box's;
+               a 64^2 slice through the kernels bit-identical to one
+               through the plain versions
+  spec extras — the 64^2 dispersive box (glass dispersion 0.1) finite and
+               different from the plain one; the 64^2 fwd+bwd of the
+               glossy + glass path-traced box: finite gradients, nonzero
+               for filter_color and mirror_color on the glass row, the
+               loss through the kernels bit-identical to the plain
+               versions' and each gradient within 1e-4 x max|g|
 The line before the last is the card's name and power limit (nvidia-smi),
 the one before that the kernel table as JSON, and the last line is
 {"ok": true, "device": {...}}.  Rows 1 and 2 of that table are phase 2's
 synthetic bounce-shape inputs (comparable with earlier runs); phase 4b
 prints the captured ones.  Each row's fwdbwd_launches is the kernel's
-launches in one fwd+bwd step of phase 4c.  Any failure raises (non-zero
+launches in one fwd+bwd step of phase 4c, its chain_launches those per
+chunk of each phase 10-12 configuration.  Any failure raises (non-zero
 exit).  Imports nothing of jax or core_tpu.
 """
 from __future__ import annotations
@@ -513,6 +533,29 @@ def reset_counts():
     cuda_cluster.reset_counts()
 
 
+def all_launches():
+    """Every kernel's launch count, by its row name in the kernels line."""
+    from core_tpu_torch.geometry import cuda_cluster as cc
+    from core_tpu_torch.geometry import cuda_intersect as ck
+    wrappers = {"closest_hit": ck.closest_hit_cuda,
+                "any_hit_nee": ck.any_hit_nee_cuda,
+                "any_hit": ck.any_hit_cuda,
+                "cluster_closest_hit": cc.closest_hit_flat_cuda,
+                "cluster_any_hit": cc.any_hit_flat_cuda,
+                "cluster_any_hit_nee": cc.any_hit_nee_flat_cuda,
+                "grouped_closest_hit": cc.closest_hit_grouped_cuda,
+                "grouped_any_hit": cc.any_hit_grouped_cuda}
+    return {name: f.launches for name, f in wrappers.items()}
+
+
+def brute_only(launches, what):
+    """Fails unless kernels 1 and 2 launched and no other kernel did."""
+    others = {k: n for k, n in launches.items()
+              if k not in ("closest_hit", "any_hit_nee") and n}
+    if min(launches["closest_hit"], launches["any_hit_nee"]) <= 0 or others:
+        fail(f"{what}: kernels 1 and 2 must launch and no other: {launches}")
+
+
 def plain_calls():
     from core_tpu_torch.geometry import cuda_cluster
     from core_tpu_torch.geometry import intersect as isect
@@ -640,7 +683,6 @@ def phase_fwdbwd():
     import torch
     import bench_cuda as bc
     from core_tpu_torch import diff
-    from core_tpu_torch.geometry import cuda_intersect as ck
 
     scene = bc.cornell_scene()
     loss_fn = bc.cornell_loss(scene)
@@ -652,10 +694,8 @@ def phase_fwdbwd():
     torch.cuda.reset_peak_memory_stats()
     loss, grads = step(params)
     sync()
-    launches = {"closest_hit": ck.closest_hit_cuda.launches,
-                "any_hit_nee": ck.any_hit_nee_cuda.launches}
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the fwd+bwd step never launched: {launches}")
+    launches = all_launches()
+    brute_only(launches, "the fwd+bwd step")
     if plain_calls():
         fail(f"the plain versions ran {plain_calls()} times in the step")
     _grads_ok(loss, grads, f"{RES}^2")
@@ -1294,6 +1334,237 @@ def phase_mesh_slice():
               f"{float(imgs[0][..., :3].mean()):.6f}")
 
 
+# --------------------------------------------------------------------------
+# phases 10-12: the specular chains and the composite materials
+# --------------------------------------------------------------------------
+
+# name -> (block materials, integrator); full width, not cut: the
+# dl_spec / pt_spec / dl_blend goldens' scenes and options at 256^2
+SPEC = {"cornell256_spec_pt_fwd": (("glossy", "glass"), "pathtracing"),
+        "cornell256_spec_dl_fwd": (("glossy", "glass"), "directlight"),
+        "cornell256_blend_dl_fwd": (("blend_diff", "blend_cross"),
+                                    "directlight")}
+SPEC_LIGHT_SAMPLES = 8
+SPEC_AA = 4                  # timed 1-spp chunks (one request)
+BLOCK_DIFF = 0.02            # least mean |rgb| change of the block pixels
+
+
+def _spec_scene(res, blocks, intersector="auto", dispersion=0.0):
+    """The Cornell box with the given blocks at light_samples=8; the glass
+    rows' dispersion set to `dispersion` (tests/test_spectrum.py's 0.1)."""
+    import dataclasses
+    import torch
+    from core_tpu_torch.materials.base import MatType
+    from core_tpu_torch.scenes import cornell_box
+    scene = cornell_box(resx=res, resy=res, light_samples=SPEC_LIGHT_SAMPLES,
+                        block_materials=blocks, intersector=intersector,
+                        device="cuda")
+    if dispersion:
+        m = scene.materials
+        disp = torch.where(m.mtype == int(MatType.GLASS), dispersion,
+                           m.dispersion)
+        scene = dataclasses.replace(scene,
+                                    materials=m._replace(dispersion=disp))
+    return scene
+
+
+def _spec_opts(integrator, aa=SPEC_AA):
+    """pt_spec's PathOptions(path_samples=8, bounces=3, raydepth=5) or the
+    dl goldens' DirectOptions(raydepth=5), in 1-spp chunks."""
+    from core_tpu_torch.integrators.direct import DirectOptions
+    from core_tpu_torch.integrators.path import PathOptions
+    from core_tpu_torch.render import RenderOptions
+    if integrator == "pathtracing":
+        return RenderOptions(aa_samples=aa, spp_chunk=1,
+                             integrator="pathtracing",
+                             integrator_opts=PathOptions(
+                                 path_samples=8, bounces=3, raydepth=5))
+    return RenderOptions(aa_samples=aa, spp_chunk=1,
+                         integrator_opts=DirectOptions(raydepth=5))
+
+
+def _chain_live(scene, opts):
+    """The share of live lanes in each chain depth's closest-hit wavefront
+    of one 1-spp camera wavefront (pixel centres, sample 0)."""
+    import torch
+    from core_tpu_torch.cameras import shoot_ray
+    from core_tpu_torch.render import (_INTEGRATORS, _pixel_grid_raster,
+                                       scene_material_types)
+    from core_tpu_torch.sampling import qmc
+    cam = scene.camera
+    x, y, s = _pixel_grid_raster(cam.resy, cam.resx, 1, scene.device)
+    offs = qmc.fnv32a((y * qmc.fnv32a(x)) & qmc.MASK32)
+    rays, _ = shoot_ray(cam, x.float() + 0.5, y.float() + 0.5)
+    stats = {}
+    with torch.no_grad():
+        _INTEGRATORS[opts.integrator][0](scene, scene_material_types(scene),
+                                         rays, s, offs, opts.integrator_opts,
+                                         stats=stats)
+    return [round(float(c) / x.numel(), 4) for c in stats["chain_live"]]
+
+
+def _block_pixels(scene):
+    """[H, W] bool: pixels whose centre's camera ray hits a block (the
+    materials after cornell_box's four)."""
+    import torch
+    from core_tpu_torch import scene as sm
+    from core_tpu_torch import vec
+    from core_tpu_torch.cameras import shoot_ray
+    h, w = scene.camera.resy, scene.camera.resx
+    ys, xs = torch.meshgrid(torch.arange(h, device=scene.device),
+                            torch.arange(w, device=scene.device),
+                            indexing="ij")
+    rays, _ = shoot_ray(scene.camera, xs.reshape(-1).float() + 0.5,
+                        ys.reshape(-1).float() + 0.5)
+    hits = sm.closest_hit_s(scene, vec.rays_to_soa(rays))
+    mat = scene.geom.tri_mat[hits.prim.clamp_min(0).long()]
+    return (hits.valid & (mat >= 4)).reshape(h, w)
+
+
+def _render_chunks(scene, opts, chunks):
+    """`chunks` 1-spp chunks (samples 0..chunks-1) into one film; the
+    flushed image."""
+    import torch
+    from core_tpu_torch import film as film_mod
+    from core_tpu_torch.render import render_chunk, scene_material_types
+    types = scene_material_types(scene)
+    film = film_mod.make_film(scene.camera.resy, scene.camera.resx,
+                              device=scene.device)
+    with torch.no_grad():
+        for s in range(chunks):
+            film = render_chunk(scene, types, opts, film, 0, 1, s)
+    return film_mod.flush(film)
+
+
+def phase_spec(name):
+    """One chain configuration at 256^2: counts at 0, a warm-up chunk (rays
+    counted), SPEC_AA timed 1-spp chunks; kernels 1 and 2 launched, no
+    plain version; the live-lane share per chain depth; a finite image
+    whose block pixels differ from the white-block box's; a 64^2 slice
+    through the kernels bit-identical to one through the plain versions.
+    Returns the launches of every kernel per chunk."""
+    import torch
+    blocks, integ = SPEC[name]
+    scene = _spec_scene(RES, blocks)
+    if scene.intersector != "cuda" or scene.accel is not None:
+        fail(f"{name}: not on the brute kernels ({scene.intersector})")
+    opts = _spec_opts(integ)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    _, rays = counted_rays(lambda: _render_chunks(scene, opts, 1))
+    sync()
+    t_warm = time.perf_counter() - t0
+    launches = all_launches()
+    brute_only(launches, name)
+    t0 = time.perf_counter()
+    img = _render_chunks(scene, opts, SPEC_AA)
+    sync()
+    dt = time.perf_counter() - t0
+    total = all_launches()
+    if any(total[k] != (SPEC_AA + 1) * launches[k] for k in total):
+        fail(f"{name}: launches per chunk {launches}, in all {total}")
+    if plain_calls():
+        fail(f"{name}: the plain versions ran {plain_calls()} times")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    live = _chain_live(scene, opts)
+    if not bool(torch.isfinite(img).all()):
+        fail(f"{name}: image has non-finite values")
+    white = _render_chunks(_spec_scene(RES, ("white", "white")), opts,
+                           SPEC_AA)
+    blk = _block_pixels(scene)
+    change = float((img[..., :3] - white[..., :3]).abs()[blk].mean())
+    if not change > BLOCK_DIFF:
+        fail(f"{name}: block pixels differ from the white blocks' by "
+             f"{change} <= {BLOCK_DIFF}")
+    write_png(BUILD / f"chip_smoke_{name}.png", img.cpu().numpy())
+    per = dt / SPEC_AA
+    print(f"{name}: {RES}x{RES} {integ}, blocks {blocks}, light_samples="
+          f"{SPEC_LIGHT_SAMPLES}, {opts.integrator_opts}: rays per chunk "
+          f"{rays}, warm-up chunk {t_warm:.4f} s, {SPEC_AA} timed chunks "
+          f"{dt:.4f} s: {per * 1e3:.3f} ms/chunk, {rays / per / 1e6:.3f} "
+          f"Mrays/s forward; peak device memory {peak:.3f} GiB")
+    print(f"{name}: launches per chunk {launches}, plain calls 0; "
+          f"live-lane share per chain depth {live}; "
+          f"image mean {float(img[..., :3].mean()):.6f}, block pixels "
+          f"{int(blk.sum())} differ from the white blocks' by {change:.6f}; "
+          f"image sha256 {image_digest(img)}, png build/chip_smoke_{name}"
+          ".png")
+    # 64^2: through the kernels == through the plain versions
+    imgs = [_render_chunks(_spec_scene(64, blocks, isec), _spec_opts(integ),
+                           1) for isec in ("cuda", "torch")]
+    sync()
+    if not torch.equal(*imgs):
+        fail(f"{name}: 64^2 kernel and plain renders differ: max abs "
+             f"{float((imgs[0] - imgs[1]).abs().max())}")
+    print(f"{name} slice: 64x64 render through the kernels == through the "
+          f"plain versions (bit-identical), mean "
+          f"{float(imgs[0][..., :3].mean()):.6f}")
+    return launches
+
+
+def phase_spec_extras():
+    """Once: the 64^2 dispersive variant of the glossy + glass box
+    (directlight, raydepth 5) finite and different from the plain one;
+    the 64^2 fwd+bwd of cornell256_spec_pt_fwd's scene (one 1-spp chunk,
+    mean squared RGB against zero, extract_params(geometry=False)) with
+    finite gradients, nonzero for mat.filter_color and mat.mirror_color
+    on the glass row, and through the kernels within GRAD_RTOL x max|g|
+    of the gradients through the plain versions."""
+    import torch
+    from core_tpu_torch import diff
+    from core_tpu_torch.materials.base import MatType
+    blocks = SPEC["cornell256_spec_pt_fwd"][0]
+    dl = _spec_opts("directlight", 1)
+    plain_img = _render_chunks(_spec_scene(64, blocks), dl, 1)
+    disp_img = _render_chunks(_spec_scene(64, blocks, dispersion=0.1), dl, 1)
+    if not bool(torch.isfinite(disp_img).all()):
+        fail("dispersion: image has non-finite values")
+    moved = float((disp_img - plain_img).abs().max())
+    if not moved > 0.0:
+        fail("dispersion: the dispersive image equals the plain one")
+    print(f"dispersion: 64x64 glossy+glass box, glass dispersion 0.1, "
+          f"directlight raydepth 5: finite, max |rgb| change {moved:.6f} "
+          f"over the plain image, mean {float(disp_img[..., :3].mean()):.6f}"
+          f" vs {float(plain_img[..., :3].mean()):.6f}")
+
+    out = {}
+    for isec in ("cuda", "torch"):
+        sc = _spec_scene(64, blocks, isec)
+        target = torch.zeros((64, 64, 4), device=sc.device)
+        loss_fn = diff.make_loss_fn(sc, _spec_opts("pathtracing", 1), 1,
+                                    target)
+        out[isec] = diff.value_and_grad(loss_fn)(
+            diff.extract_params(sc, geometry=False))
+    (lk, gk), (lp, gp) = out["cuda"], out["torch"]
+    _grads_ok(lk, gk, "64^2 spec")
+    glass = int(torch.nonzero(sc.materials.mtype == int(MatType.GLASS))[0])
+    for leaf in ("mat.filter_color", "mat.mirror_color"):
+        if float(gk[leaf][glass].abs().max()) <= 0.0:
+            fail(f"spec fwd+bwd: the gradient of {leaf} on the glass row "
+                 "is zero")
+    if not torch.equal(lk, lp):
+        fail(f"spec 64^2 losses differ: kernels {float(lk)}, plain "
+             f"{float(lp)}")
+    worst = 0.0
+    for k in gp:
+        scale = float(gp[k].abs().max())
+        err = float((gk[k] - gp[k]).abs().max())
+        if err > GRAD_RTOL * scale:
+            fail(f"spec 64^2 gradient of {k}: kernels vs plain max abs "
+                 f"{err} > {GRAD_RTOL} * {scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+    print(f"spec fwdbwd: 64x64 glossy+glass box, path_samples=8, bounces=3, "
+          f"raydepth=5: loss through the kernels == through the plain "
+          f"versions ({float(lk):.6f}); gradients finite, within "
+          f"{GRAD_RTOL} x max|g| of each leaf (worst {worst:.3e}); glass row "
+          f"|grad| filter_color "
+          f"{float(gk['mat.filter_color'][glass].abs().max()):.6e}, "
+          f"mirror_color "
+          f"{float(gk['mat.mirror_color'][glass].abs().max()):.6e}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1362,6 +1633,9 @@ def main():
          "any_hit": ck.any_hit_cuda}, 1)["any_hit"]
     del flat, brute
     timed("mesh slice", phase_mesh_slice)
+    # the chains' own launches per chunk, each configuration on its own
+    spec = {name: timed(name, phase_spec, name) for name in SPEC}
+    timed("spec extras", phase_spec_extras)
 
     replaces = {     # kernels 1 to 8
         "closest_hit": ("core_tpu/geometry/pallas_intersect.py:55",
@@ -1380,10 +1654,12 @@ def main():
                                 "core_tpu_torch/csrc/cluster.cu"),
         "grouped_any_hit": ("core_tpu/geometry/cluster_intersect.py:1129",
                             "core_tpu_torch/csrc/cluster.cu")}
-    # fwdbwd_launches: the kernel's launches in one Cornell fwd+bwd step
+    # fwdbwd_launches: the kernel's launches in one Cornell fwd+bwd step;
+    # chain_launches: its launches per chunk of each chain configuration
     table = [{"name": name, "route": "cuda", "source": src,
               "replaces": rep, "launches": counts[name], **kt[name],
-              "fwdbwd_launches": fwdbwd.get(name, 0)}
+              "fwdbwd_launches": fwdbwd[name],
+              "chain_launches": {c: spec[c][name] for c in spec}}
              for name, (rep, src) in replaces.items()]
     print(json.dumps({"kernels": table}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

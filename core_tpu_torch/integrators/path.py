@@ -14,8 +14,13 @@ the reference: path sample i uses
   first bounce: s1 = RI_vdC(offs), s2 = scrHalton(2, offs)
   depth d >= 1: s1 = scrHalton(4d+3, offs), s2 = scrHalton(4d+4, offs).
 
-Scope: scenes without specular chains, caustic_type "path" or "none", no
-wavefront folding; the rest raises NotImplementedError.
+Camera-visible specular and glossy chains go through the same stochastic
+recursiveRaytrace as the direct integrator (raytrace.py); each chain hit
+gets emission on specular branches, MIS direct light and its own batched
+indirect paths (PathOptions.chain_path_samples).
+
+Scope: caustic_type "path" or "none", no wavefront folding; photon caustics
+and folding raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -25,10 +30,10 @@ import torch
 
 from core_tpu_torch import scene as scene_mod
 from core_tpu_torch.backgrounds import eval_background_s
-from core_tpu_torch.integrators import common
+from core_tpu_torch.integrators import common, raytrace
 from core_tpu_torch.lights import base as light_base
 from core_tpu_torch.materials import dispatch
-from core_tpu_torch.materials.base import BSDF, MatType, detach_sample
+from core_tpu_torch.materials.base import BSDF, detach_sample
 from core_tpu_torch.mathutils import MIN_RAYDIST
 from core_tpu_torch.sampling import qmc
 from core_tpu_torch.vec import (RaysS, luminance3, rays_to_soa, tile1, tile3,
@@ -43,25 +48,23 @@ class PathOptions:
     no_recursive: bool = False
     caustic_type: str = "path"    # none|path (photon|both not ported)
     transp_background: bool = False
+    # indirect paths at camera-visible specular/glossy chain vertices (the
+    # reference re-enters integrate() behind mirrors and glass,
+    # mcintegrator.cc:421-628 -> pathtracer.cc:134): 0 = path_samples,
+    # -1 = none (chain vertices get emission and direct light only)
+    chain_path_samples: int = 0
     # wavefront folding (core_tpu PathOptions.fold_interval): 0 = off, the
     # only value ported so far
     fold_interval: int = 0
 
 
-def _check_supported(scene, types_present, opts: PathOptions):
+def _check_supported(opts: PathOptions):
     if opts.fold_interval != 0:
         raise NotImplementedError("wavefront folding (fold_interval > 0) is "
                                   "not ported to core_tpu_torch yet")
     if opts.caustic_type not in ("path", "none"):
         raise NotImplementedError(f"caustic_type {opts.caustic_type!r} "
                                   "(photon caustics) is not ported yet")
-    glossy = {int(MatType.GLOSSY), int(MatType.COATED_GLOSSY),
-              int(MatType.ROUGH_GLASS)}
-    chain = (scene.has_specular or bool(glossy & set(types_present))) \
-        and opts.raydepth > 0 and not opts.no_recursive
-    if chain:
-        raise NotImplementedError("specular/glossy chains (raytrace.py) are "
-                                  "not ported to core_tpu_torch yet")
 
 
 def _nee_lanes(scene) -> int:
@@ -148,7 +151,8 @@ def _paths_batched(scene, types_present, sp0, p0, wo0, active0, n_paths,
         active = active & hits.valid
 
         sp = scene_mod.surface_points_s(scene, rays, hits)
-        p = scene_mod.material_params_s(scene, sp)
+        p = scene_mod.material_params_s(
+            scene, sp, pick_seed=(offs + 31 * (depth + 1)) & qmc.MASK32)
         wo = -sres.wi
         has_diffuse = (p.flags & BSDF.DIFFUSE) != 0
         nee_active = active & has_diffuse if depth > 0 else active
@@ -175,9 +179,12 @@ def integrate(scene, types_present, rays, pixel_sample, sampling_offs,
 
     rays: types.Rays ([N, 3] o, d); pixel_sample, sampling_offs: [N] int64
     tensors holding uint32 values.  stats: optional dict accumulating
-    "traced" (an int) and "useful" (a float32 tensor) lane-ray counts, the
-    primary rays all useful (core_tpu/integrators/path.py:305-316)."""
-    _check_supported(scene, types_present, opts)
+    "traced" (an int) and "useful" (a float32 tensor) lane-ray counts of the
+    camera rays and the camera hits' paths, the camera rays all useful
+    (core_tpu/integrators/path.py:305-316); as in core_tpu, the chains'
+    rays are not counted there, but each chain depth's live lanes are
+    (raytrace.recursive_raytrace's "chain_live")."""
+    _check_supported(opts)
     rs = rays_to_soa(rays)
     n = rs.tmin.shape[0]
     if stats is not None:
@@ -187,7 +194,9 @@ def integrate(scene, types_present, rays, pixel_sample, sampling_offs,
     primary_valid = hits.valid
 
     sp = scene_mod.surface_points_s(scene, rs, hits)
-    p = scene_mod.material_params_s(scene, sp)
+    p = scene_mod.material_params_s(
+        scene, sp, pick_seed=(9781 * pixel_sample + sampling_offs)
+        & qmc.MASK32)
     wo = -rs.d
 
     col = where3(primary_valid, dispatch.emit_ss(types_present, p), 0.0)
@@ -206,4 +215,45 @@ def integrate(scene, types_present, rays, pixel_sample, sampling_offs,
                  eval_background_s(scene.background, rs.d))
     alpha = torch.where(primary_valid, 1.0,
                         0.0 if opts.transp_background else 1.0)
+
+    chain = (scene.has_specular or raytrace.has_glossy(types_present)) \
+        and opts.raydepth > 0 and not opts.no_recursive
+    if chain:
+        col = col + raytrace.recursive_raytrace(
+            scene, types_present, rs, hits, sp, p,
+            _chain_shade_fn(scene, types_present, pixel_sample,
+                            sampling_offs, opts),
+            pixel_sample, sampling_offs, opts.raydepth, stats=stats)
     return torch.stack([col.x, col.y, col.z, alpha], dim=-1)
+
+
+def _chain_shade_fn(scene, types_present, pixel_sample, sampling_offs,
+                    opts: PathOptions):
+    """The shading of chain hits (core_tpu/integrators/path.py:376-425):
+    emission on specular branches only, MIS direct light, and the hit's
+    own batched indirect paths, chain depth d on the QMC stream
+    sampling_offs + 7919 * (d + 1).  Blends pick with seed 0 there."""
+    n_chain = opts.chain_path_samples
+    if n_chain == 0:
+        n_chain = max(1, opts.path_samples)
+    depth = [0]
+
+    def shade_fn(nrays, nhits, include_lights, active):
+        nsp = scene_mod.surface_points_s(scene, nrays, nhits)
+        np_ = scene_mod.material_params_s(scene, nsp)
+        nwo = -nrays.d
+        scol = where3(((np_.flags & BSDF.EMIT) != 0) & include_lights,
+                      dispatch.emit_ss(types_present, np_), 0.0)
+        live = active & ((np_.flags & BSDF.DIFFUSE) != 0)
+        scol = scol + common.estimate_all_direct_s(
+            scene, types_present, np_, nsp, nwo, pixel_sample,
+            sampling_offs, live)
+        if n_chain > 0 and opts.bounces > 0:
+            depth[0] += 1
+            scol = scol + _paths_batched(
+                scene, types_present, nsp, np_, nwo, live, n_chain,
+                pixel_sample, (sampling_offs + 7919 * depth[0])
+                & qmc.MASK32, opts)
+        return scol, nsp, np_
+
+    return shade_fn

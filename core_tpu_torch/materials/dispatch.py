@@ -3,19 +3,23 @@
 
 Each material family present in the scene is evaluated on the whole
 wavefront and its results are selected by type mask.  `types_present` is a
-static tuple of MatType values.  The shiny-diffuse and glossy families are
-ported; any other family raises NotImplementedError by name.
+static tuple of MatType values.  The shiny-diffuse, glossy, glass and
+rough-glass families are ported; coated glossy and translucent raise
+NotImplementedError by name.  Blend and mask rows never reach dispatch:
+scene.material_params_s resolves them to a sub-material's row.
 """
 from __future__ import annotations
 
 import torch
 
-from core_tpu_torch.materials import glossy, shinydiffuse
+from core_tpu_torch.materials import glass, glossy, shinydiffuse
 from core_tpu_torch.materials.base import BSDF, MatType
 from core_tpu_torch.vec import V3, where3, zeros3
 
 _FAMILIES = {int(MatType.SHINY_DIFFUSE): shinydiffuse,
-             int(MatType.GLOSSY): glossy}
+             int(MatType.GLOSSY): glossy,
+             int(MatType.GLASS): glass,
+             int(MatType.ROUGH_GLASS): glass}
 
 
 def _modules(types_present):
@@ -78,3 +82,23 @@ def pdf_bsdf_s(types_present, p, sps, wo, wi, req_flags: int = BSDF.ALL):
 def emit_ss(types_present, p):
     # every family shares the emit convention (emit_strength * diffuse_color)
     return shinydiffuse.emit_s(p)
+
+
+def get_specular_s(types_present, p, sps, wo):
+    """Perfect specular reflect/refract branches (getSpecular) of each
+    lane's family."""
+    out = None
+    for _, m in _modules(types_present):
+        r = m.get_specular_s(p, sps, wo)
+        out = r if out is None else _where_mask_s(
+            _mask_for(p, m, types_present), r, out)
+    return out
+
+
+def transparency_ss(types_present, p, sps, wo):
+    """Shadow-ray transmittance (getTransparency) of each lane's family."""
+    out = zeros3(p.c_diff)
+    for _, m in _modules(types_present):
+        out = _where_mask_s(_mask_for(p, m, types_present),
+                            m.transparency_s(p, sps, wo), out)
+    return out

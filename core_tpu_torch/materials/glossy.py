@@ -24,8 +24,9 @@ from core_tpu_torch.materials.shinydiffuse import (SampleResultS,
                                                    SpecularResultS,
                                                    _on_factor,
                                                    face_forward_s)
+from core_tpu_torch.mathutils import reflect_dir
 from core_tpu_torch.sampling.utils import sample_cos_hemisphere_s
-from core_tpu_torch.vec import V3, dot3, normalize3, reflect3, where3, zeros3
+from core_tpu_torch.vec import V3, dot3, normalize3, where3, zeros3
 
 DIFFUSE_RATIO = 0.387507688  # microfacet.h:29
 
@@ -133,7 +134,7 @@ def sample_bsdf_s(p: MatParamsS, sp, wo: V3, s1, s2,
     hx, hy, hz = _sample_blinn_h(p.exp_u, s1g.clamp(0.0, 1.0), s2)
     h = sp.nu * hx + sp.nv * hy + n * hz
     h = where3(dot3(wo, h) < 0.0, n * (2.0 * dot3(n, h)) - h, h)
-    wi_g = reflect3(h, wo)
+    wi_g = reflect_dir(h, wo)
 
     wi = where3(take_diffuse, wi_d, wi_g)
     same_side = (dot3(sp.ng, wi) * cos_ng_wo) >= 0.0
@@ -188,8 +189,17 @@ def pdf_bsdf_s(p: MatParamsS, sp, wo: V3, wi: V3,
 
 
 def get_specular_s(p: MatParamsS, sp, wo: V3) -> SpecularResultS:
-    """Plain glossy has no specular branch (glossy2.cc): both invalid."""
+    """Plain glossy has no specular branch (glossy2.cc): both invalid.
+    core_tpu's invalid reflect branch carries kr * mirror_color where this
+    one carries 0; a lane never takes an invalid branch, so the chain's
+    radiance and gradients are the same (core_tpu glossy.py:297-307)."""
     none = torch.zeros_like(p.as_diffuse)
     z = zeros3(wo.x)
-    return SpecularResultS(none, reflect3(face_forward_s(sp.ng, sp.n, wo), wo),
-                           z, none, -wo, z)
+    return SpecularResultS(
+        none, reflect_dir(face_forward_s(sp.ng, sp.n, wo), wo), z, none, -wo,
+        z)
+
+
+def transparency_s(p: MatParamsS, sp, wo: V3) -> V3:
+    """Glossy surfaces are opaque to shadow rays (core_tpu glossy.py)."""
+    return zeros3(wo.x)

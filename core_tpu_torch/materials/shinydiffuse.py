@@ -18,8 +18,9 @@ from typing import NamedTuple
 import torch
 
 from core_tpu_torch.materials.base import BSDF, MatParamsS
+from core_tpu_torch.mathutils import fresnel_dielectric, reflect_dir
 from core_tpu_torch.sampling.utils import sample_cos_hemisphere_s
-from core_tpu_torch.vec import V3, dot3, normalize3, reflect3, where3, zeros3
+from core_tpu_torch.vec import V3, dot3, normalize3, where3, zeros3
 
 # per-component BSDF flags in reference cFlags order (shinydiffuse config())
 _COMP_FLAGS = (
@@ -35,22 +36,9 @@ def face_forward_s(ng: V3, n: V3, wo: V3) -> V3:
     return n * torch.where(dot3(ng, wo) < 0.0, -1.0, 1.0)
 
 
-def fresnel_dielectric_s(cos_i, ior):
-    """Unpolarized dielectric Fresnel (reference vector3d.h `fresnel`)."""
-    c = cos_i.abs()
-    g2 = ior * ior + c * c - 1.0
-    tir = g2 <= 0.0
-    g = torch.sqrt(g2.clamp_min(0.0))
-    aux = c * (g + c)
-    num = (g - c) / (g + c).clamp_min(1e-12)
-    frac = (aux - 1.0) / (aux + 1.0).clamp_min(1e-12)
-    kr = 0.5 * num * num * (1.0 + frac * frac)
-    return torch.where(tir, 1.0, kr.clamp(0.0, 1.0))
-
-
 def kr_fresnel_s(p: MatParamsS, wo: V3, n: V3):
     """Mirror weight Kr: Fresnel if enabled else 1 (getFresnel)."""
-    return torch.where(p.fresnel, fresnel_dielectric_s(dot3(wo, n), p.ior),
+    return torch.where(p.fresnel, fresnel_dielectric(dot3(wo, n), p.ior),
                        1.0)
 
 
@@ -177,7 +165,7 @@ def sample_bsdf_s(p: MatParamsS, sp, wo: V3, s1, s2,
     s1r = ((s1 - cdf_prev) / width_safe).clamp(0.0, 1.0)
 
     # candidate 0: specular mirror reflect
-    wi0 = reflect3(n, wo)
+    wi0 = reflect_dir(n, wo)
     col0 = p.mirror_color * (accum[0] / dot3(sp.n, wi0).abs().clamp_min(1e-6))
     pdf0 = width
 
@@ -236,3 +224,31 @@ def pdf_bsdf_s(p: MatParamsS, sp, wo: V3, wi: V3,
     ok = total > 1e-5
     total_safe = torch.where(ok, total, 1.0)
     return torch.where(ok, pdf / total_safe, 0.0)
+
+
+def get_specular_s(p: MatParamsS, sp, wo: V3) -> SpecularResultS:
+    """Perfect specular branches (shinydiffuse.cc getSpecular): the mirror
+    reflect about the wo-side normal, and the transparent layer's straight
+    refraction (-wo) filtered by the diffuse colour."""
+    backface = dot3(wo, sp.ng) < 0.0
+    n = where3(backface, -sp.n, sp.n)
+    kr = kr_fresnel_s(p, wo, n)
+
+    refr_valid = (p.flags & BSDF.FILTER) != 0
+    tcol = p.diffuse_color * p.transmit_filter + (1.0 - p.transmit_filter)
+    refr_col = tcol * ((1.0 - p.c_mirror * kr) * p.c_transp)
+
+    refl_valid = (p.c_mirror * kr) > 1e-7
+    refl_col = p.mirror_color * (p.c_mirror * kr)
+    return SpecularResultS(refl_valid, reflect_dir(n, wo), refl_col,
+                           refr_valid & (p.c_transp > 1e-7), -wo, refr_col)
+
+
+def transparency_s(p: MatParamsS, sp, wo: V3) -> V3:
+    """Attenuation of a transparent shadow ray (shinydiffuse.cc
+    getTransparency)."""
+    n = face_forward_s(sp.ng, sp.n, wo)
+    kr = kr_fresnel_s(p, wo, n)
+    tcol = p.diffuse_color * p.transmit_filter + (1.0 - p.transmit_filter)
+    att = tcol * ((1.0 - p.c_mirror * kr) * p.c_transp)
+    return where3((p.flags & BSDF.FILTER) != 0, att, 0.0)

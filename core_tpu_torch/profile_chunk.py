@@ -4,13 +4,19 @@
     python3 -m core_tpu_torch.profile_chunk big        # the 1M-tri scene
     python3 -m core_tpu_torch.profile_chunk mesh       # the 73.6k-tri scene
     python3 -m core_tpu_torch.profile_chunk cornell fwdbwd  # a fwd+bwd step
+    python3 -m core_tpu_torch.profile_chunk spec_pt    # a specular chain
 
 Run from the root of a checkout on a machine with a CUDA card.  "cornell"
 renders cornell_box(light_samples=4) with PathOptions(path_samples=8,
 bounces=5, raydepth=2) at 256^2; "big" renders big_scene(ibl_samples=4,
 sun_samples=2) with DirectOptions(raydepth=1) at 1024^2; "mesh" renders
 mesh_scene() at its defaults (256^2, ibl_samples=8, sun_samples=4; the
-flat cluster kernels) with DirectOptions(raydepth=1).  With "fwdbwd" it
+flat cluster kernels) with DirectOptions(raydepth=1); "spec_pt",
+"spec_dl" and "blend_dl" render chip_smoke's chain configurations at
+256^2: cornell_box(light_samples=8) with glossy + glass blocks under
+PathOptions(path_samples=8, bounces=3, raydepth=5) or
+DirectOptions(raydepth=5), and with blend_diff + blend_cross blocks under
+DirectOptions(raydepth=5).  With "fwdbwd" it
 profiles bench_cuda.py's step instead of a forward chunk: value_and_grad
 of the loss of one 1-spp chunk (Cornell: the mean squared RGB against a
 zero target; big and mesh: the mean RGB) with respect to
@@ -19,7 +25,9 @@ unprofiled chunks on the host clock (each ending in a synchronise), then
 profiles one chunk under torch.profiler and prints: the unprofiled median
 wall, the profiled wall, device kernel time and launch count per chunk, the
 device's busy share against both walls, peak device memory, the kernels and
-aten ops with the most device time, and the card's name and power limit.
+aten ops with the most device time, the CUDA runtime calls with the most
+host time (a pageable copy or a synchronise there stalls the host until
+the device drains), and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -61,8 +69,19 @@ def _config(name):
                           sun_samples=2, device="cuda"), direct)
     if name == "mesh":
         return mesh_scene(device="cuda"), direct
+    chains = {"spec_pt": (("glossy", "glass"), "pathtracing"),
+              "spec_dl": (("glossy", "glass"), "directlight"),
+              "blend_dl": (("blend_diff", "blend_cross"), "directlight")}
+    if name in chains:
+        blocks, integ = chains[name]
+        iopts = (PathOptions(path_samples=8, bounces=3, raydepth=5)
+                 if integ == "pathtracing" else DirectOptions(raydepth=5))
+        return (cornell_box(resx=256, resy=256, light_samples=8,
+                            block_materials=blocks, device="cuda"),
+                RenderOptions(aa_samples=4, spp_chunk=1, integrator=integ,
+                              integrator_opts=iopts))
     raise SystemExit(f"profile_chunk: unknown configuration {name!r} "
-                     "(cornell, big or mesh)")
+                     "(cornell, big, mesh, spec_pt, spec_dl or blend_dl)")
 
 
 def _fwdbwd_step(name, scene, opts):
@@ -146,6 +165,11 @@ def main(name="cornell", mode="fwd"):
           "overlap):")
     for k, d, cpu, c in ops[:12]:
         print(f"  {d:9.3f} ms dev {cpu:9.3f} ms cpu {c:6d}x {k}")
+    rt = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in ka
+                 if e.key.startswith("cuda")), key=lambda x: -x[1])
+    print("CUDA runtime calls by host time:")
+    for k, cpu, c in rt[:6]:
+        print(f"  {cpu:9.3f} ms cpu {c:6d}x {k}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)

@@ -1,7 +1,7 @@
 """Built-in example scenes (counterpart of core_tpu/scenes.py).
 
-cornell_box: the classic Cornell box with an area light and shiny-diffuse
-walls and blocks.
+cornell_box: the classic Cornell box with an area light, shiny-diffuse
+walls and white, mirror, glass, glossy or blend blocks.
 mesh_scene: a displaced terrain grid and a smooth torus with marble and
 voronoi textured materials, a clouds environment with importance-sampled
 IBL and a sun light; big_scene is its 1,017,202-triangle size.
@@ -54,11 +54,13 @@ def _box(a, m, corner, size_x, size_z, height, angle_deg, mat):
 
 
 def cornell_box(resx=256, resy=256, light_samples=16, light_power=30.0,
-                with_blocks=True, show_light_geo=True, intersector="auto", *,
+                with_blocks=True, block_materials=("white", "white"),
+                show_light_geo=True, intersector="auto", *,
                 device="cuda") -> Scene:
-    """The Cornell box with its default white blocks (core_tpu's
-    cornell_box with block_materials=("white", "white")).  The mirror,
-    glass, glossy and blend blocks come with their material families."""
+    """The Cornell box with an area light (core_tpu's cornell_box).
+    block_materials picks 'white', 'mirror', 'glass', 'glossy',
+    'blend_diff' or 'blend_cross' for the short and the tall block; the
+    rows are core_tpu's, appended in the same order."""
     device = check_device(device)
     WHITE, RED, GREEN, LIGHTMAT = 0, 1, 2, 3
     mats = [
@@ -68,6 +70,46 @@ def cornell_box(resx=256, resy=256, light_samples=16, light_power=30.0,
         MaterialDef(name="light", diffuse_color=(1.0, 1.0, 1.0),
                     diffuse_strength=0.0, emit_strength=light_power),
     ]
+
+    def glossy(name):
+        # refgold/driver.cc's glossymat: as_diffuse=False, so the lobe goes
+        # through the glossy indirect branch
+        return MaterialDef(name=name, mtype=MatType.GLOSSY,
+                           diffuse_color=(0.3, 0.3, 0.3),
+                           glossy_color=(0.8, 0.8, 0.8), glossy_reflect=0.7,
+                           exp_u=120.0, exp_v=120.0, as_diffuse=False)
+
+    def glass(name):
+        return MaterialDef(name=name, mtype=MatType.GLASS, ior=1.5,
+                           filter_color=(1.0, 1.0, 1.0), transmit_filter=1.0)
+
+    extra = {"white": WHITE}
+    for bm in block_materials:
+        if bm in extra:
+            continue
+        if bm == "mirror":
+            mats.append(MaterialDef(name="mirror", mirror_strength=1.0,
+                                    diffuse_strength=0.0,
+                                    mirror_color=(0.9, 0.9, 0.9)))
+        elif bm == "glossy":
+            mats.append(glossy("glossy"))
+        elif bm == "glass":
+            mats.append(glass("glass"))
+        elif bm == "blend_diff":
+            # same-family blend: white (+) red at 0.35 (blend.cc)
+            mats.append(MaterialDef(name="blend_diff", mtype=MatType.BLEND,
+                                    sub_mat0=WHITE, sub_mat1=RED,
+                                    blend_val=0.35))
+        elif bm == "blend_cross":
+            # cross-family blend: glossy (+) glass at 0.5, one sub-material
+            # picked per sample (scene.composite_pick)
+            mats += [glossy("bglossy"), glass("bglass"),
+                     MaterialDef(name="blend_cross", mtype=MatType.BLEND,
+                                 sub_mat0=len(mats), sub_mat1=len(mats) + 1,
+                                 blend_val=0.5)]
+        else:
+            raise ValueError(f"unknown block material {bm!r}")
+        extra[bm] = len(mats) - 1
 
     a = MeshAssembler()
     m = a.start_mesh()
@@ -88,8 +130,10 @@ def cornell_box(resx=256, resy=256, light_samples=16, light_power=30.0,
               (556, 548.8, 559.2), (556, 548.8, 0), RED)
 
     if with_blocks:
-        _box(a, m, (130.0, 0.0, 65.0), 160, 160, 165, -18.0, WHITE)
-        _box(a, m, (265.0, 0.0, 296.0), 160, 160, 330, 17.0, WHITE)
+        _box(a, m, (130.0, 0.0, 65.0), 160, 160, 165, -18.0,
+             extra[block_materials[0]])
+        _box(a, m, (265.0, 0.0, 296.0), 160, 160, 330, 17.0,
+             extra[block_materials[1]])
 
     # area light quad on the ceiling, slightly below it, facing down (-y):
     # with the reference convention fnormal = toY x toX must point +y.

@@ -95,11 +95,6 @@ def where3(m, a: V3, b) -> V3:
               torch.where(m, a.z, b.z))
 
 
-def reflect3(n: V3, w: V3) -> V3:
-    """2*(n.w)*n - w  (reference vector3d.h reflect_plane convention)."""
-    return n * (2.0 * dot3(n, w)) - w
-
-
 def luminance3(c: V3):
     """Reference color_t::energy: (r+g+b)/3."""
     return (c.x + c.y + c.z) * (1.0 / 3.0)

@@ -210,18 +210,14 @@ def test_unported_features_raise_by_name(scenes):
     from core_tpu_torch.materials.base import MatType
     from core_tpu_torch.render import RenderOptions, render_image
     js, ts = scenes
-    with pytest.raises(NotImplementedError, match="GLASS"):
-        dispatch._modules((int(MatType.SHINY_DIFFUSE), int(MatType.GLASS)))
-    mirror = j_cornell_box(resx=4, resy=4, light_samples=1,
-                           block_materials=("mirror", "white"),
-                           intersector="brute")
-    # a mirror block converts (it is a shiny-diffuse row) but its
-    # specular chain is not ported
-    with pytest.raises(NotImplementedError, match="chains"):
-        render_image(convert.scene_from_numpy(*convert.scene_to_numpy(mirror),
-                                              device="cpu"),
-                     RenderOptions(integrator="pathtracing",
-                                   integrator_opts=PathOptions()))
+    for family in ("COATED_GLOSSY", "TRANSLUCENT"):
+        with pytest.raises(NotImplementedError, match=family):
+            dispatch._modules((int(MatType.SHINY_DIFFUSE),
+                               int(MatType[family])))
+    with pytest.raises(NotImplementedError, match="photon"):
+        render_image(ts, RenderOptions(
+            integrator="pathtracing",
+            integrator_opts=PathOptions(caustic_type="photon")))
     with pytest.raises(NotImplementedError, match="folding"):
         render_image(ts, RenderOptions(
             integrator="pathtracing",
