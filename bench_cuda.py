@@ -118,21 +118,25 @@ def cornell_scene(res=RES, intersector="auto"):
                        intersector=intersector, device="cuda")
 
 
-def cornell_opts():
+def cornell_opts(**fold):
+    """bench.py's Cornell options; `fold` sets PathOptions' folding fields
+    (fold_interval, fold_start, fold_sort)."""
     from core_tpu_torch.integrators.path import PathOptions
     from core_tpu_torch.render import RenderOptions
     return RenderOptions(integrator="pathtracing", integrator_opts=PathOptions(
-        path_samples=PATH_SAMPLES, bounces=BOUNCES, raydepth=RAYDEPTH))
+        path_samples=PATH_SAMPLES, bounces=BOUNCES, raydepth=RAYDEPTH,
+        **fold))
 
 
-def cornell_loss(scene):
+def cornell_loss(scene, **fold):
     """The bench loss (bench.py:166-177): mean squared RGB of one 1-spp
     chunk against a zero target, as a function of the params dict."""
     import torch
     from core_tpu_torch import diff
     cam = scene.camera
     target = torch.zeros((cam.resy, cam.resx, 4), device=scene.device)
-    return diff.make_loss_fn(scene, cornell_opts(), SPP_PER_STEP, target)
+    return diff.make_loss_fn(scene, cornell_opts(**fold), SPP_PER_STEP,
+                             target)
 
 
 def forward_step(loss_fn, params):
@@ -187,9 +191,9 @@ def check_kernel_parity() -> str:
     return "ok" if prim_ok and t_ok else "FAIL"
 
 
-def active_lane_fraction(scene) -> float:
+def active_lane_fraction(scene, **fold) -> float:
     """useful / traced lane-rays of the path tracer on the full raster at
-    1 spp (bench.py:187-211)."""
+    1 spp (bench.py:187-211), under cornell_opts(**fold)."""
     import torch
     from core_tpu_torch.cameras import shoot_ray
     from core_tpu_torch.integrators import path as path_mod
@@ -202,7 +206,8 @@ def active_lane_fraction(scene) -> float:
     stats = {}
     with torch.no_grad():
         path_mod.integrate(scene, scene_material_types(scene), rays, s,
-                           offs, cornell_opts().integrator_opts, stats=stats)
+                           offs, cornell_opts(**fold).integrator_opts,
+                           stats=stats)
     return float(stats["useful"]) / stats["traced"]
 
 

@@ -103,14 +103,42 @@ Phases, with their seconds:
                for filter_color and mirror_color on the glass row, the
                loss through the kernels bit-identical to the plain
                versions' and each gradient within 1e-4 x max|g|
+  13-15. the integrator options at 256^2 through the brute kernels, each
+               with counts at 0, a warm-up chunk with rays counted, 2 timed
+               1-spp chunks, every kernel's launches per chunk, peak memory
+               and a 64^2 render through the kernels bit-identical to one
+               through the plain versions: cornell256_ao_dl_fwd
+               (cornell_box(light_samples=4), DirectOptions(raydepth=5,
+               use_ao=True, ao_samples=32, ao_dist=100): kernel 3 launched
+               once per AO sample); pane256_ts_dl_fwd (the scene of
+               tests/test_shadow_sentinel.py:141-193 built by the port,
+               DirectOptions(transp_shad=True, shadow_depth=4): the walks
+               on kernel 1, kernels 2 and 3 idle; at floor points under the
+               pane, estimate_all_direct_s blocked without transp_shad and
+               green with it, core_tpu's three assertions);
+               cornell256_glass_ts_dl_fwd (glass blocks, DirectOptions(
+               raydepth=5, transp_shad=True): glass has no FILTER flag, so
+               the image equals the opaque-shadow one on >= 99.9% of the
+               pixels)
+  16. fold table — bench.py:52-68's five folding rows on the
+               cornell256_pt_fwdbwd step: median of 3 timed steps (one
+               step of each row in turn, row order, reverse, row order), rays
+               counted at the scene entry points, Mrays/s,
+               active_lane_fraction, useful Mrays/s, peak memory, the
+               launches per step, and the equal-spp MSE of a 64^2 4-spp
+               render against a 64-spp fold-0 reference on other QMC
+               streams; then the folded (fold_interval=2, sorted) 64^2
+               gradients through the kernels within 1e-4 x max|g| of the
+               plain versions'
 The line before the last is the card's name and power limit (nvidia-smi),
 the one before that the kernel table as JSON, and the last line is
 {"ok": true, "device": {...}}.  Rows 1 and 2 of that table are phase 2's
 synthetic bounce-shape inputs (comparable with earlier runs); phase 4b
 prints the captured ones.  Each row's fwdbwd_launches is the kernel's
-launches in one fwd+bwd step of phase 4c, its chain_launches those per
-chunk of each phase 10-12 configuration.  Any failure raises (non-zero
-exit).  Imports nothing of jax or core_tpu.
+launches in one fwd+bwd step of phase 4c, its chain_launches and
+option_launches those per chunk of each phase 10-12 and 13-15
+configuration, its fold_launches those per step of each fold-table row.
+Any failure raises (non-zero exit).  Imports nothing of jax or core_tpu.
 """
 from __future__ import annotations
 
@@ -1565,6 +1593,313 @@ def phase_spec_extras():
           f"{float(gk['mat.mirror_color'][glass].abs().max()):.6e}")
 
 
+# --------------------------------------------------------------------------
+# phases 13-15: the integrator options; phase 16: the fold table
+# --------------------------------------------------------------------------
+
+OPT_AA = 2                   # timed 1-spp chunks of each option phase
+AO_SAMPLES = 32
+EQUAL_SHARE = 0.999          # least share of glass pixels equal to opaque
+
+
+def pane_scene(res, intersector="auto", device="cuda"):
+    """tests/test_shadow_sentinel.py:141-193's scene, built by the port: a
+    white 40 x 40 floor at y = 0, a green pane (transparency 0.8) at y = 5
+    over its -x half, a point light at (-7, 30, 0), the camera 15 above
+    the floor looking down."""
+    from core_tpu_torch.cameras import make_perspective
+    from core_tpu_torch.geometry.mesh import MeshAssembler
+    from core_tpu_torch.lights.point import make_point_light
+    from core_tpu_torch.materials.base import (MaterialDef,
+                                               build_material_table)
+    from core_tpu_torch.scene import Scene, resolve_intersector
+    a = MeshAssembler()
+    m = a.start_mesh()
+    for quad, mat in ((((-20, 0, -20), (-20, 0, 20), (20, 0, 20),
+                        (20, 0, -20)), 0),
+                      (((-12, 5, -12), (-12, 5, 12), (-2, 5, 12),
+                        (-2, 5, -12)), 1)):
+        ids = [a.add_vertex(m, *q) for q in quad]
+        a.add_triangle(m, ids[0], ids[1], ids[2], mat)
+        a.add_triangle(m, ids[0], ids[2], ids[3], mat)
+    mats = [MaterialDef(name="white", diffuse_color=(0.8, 0.8, 0.8)),
+            MaterialDef(name="pane", diffuse_color=(0.1, 0.9, 0.1),
+                        transparency=0.8, transmit_filter=1.0,
+                        diffuse_strength=0.2)]
+    return Scene(geom=a.build(device),
+                 materials=build_material_table(mats, device),
+                 lights=(make_point_light(pos=(-7, 30, 0), color=(1, 1, 1),
+                                          power=4000.0, device=device),),
+                 camera=make_perspective(pos=(0, 15, 0), look=(0, 0, 0),
+                                         up=(0, 15, 1), resx=res, resy=res,
+                                         focal=1.0, device=device),
+                 has_specular=True, has_transparency=True, mat_types=(0,),
+                 intersector=resolve_intersector(intersector, device))
+
+
+def option_config(name, res, intersector="auto", device="cuda", **extra):
+    """(scene, RenderOptions in 1-spp chunks) of an option phase; `extra`
+    overrides DirectOptions fields."""
+    from core_tpu_torch.integrators.direct import DirectOptions
+    from core_tpu_torch.render import RenderOptions
+    from core_tpu_torch.scenes import cornell_box
+    if name == "pane256_ts_dl_fwd":
+        scene = pane_scene(res, intersector, device)
+        iopts = dict(transp_shad=True, shadow_depth=4)
+    else:
+        blocks = ("glass", "glass") if name == "cornell256_glass_ts_dl_fwd" \
+            else ("white", "white")
+        scene = cornell_box(resx=res, resy=res, light_samples=LIGHT_SAMPLES,
+                            block_materials=blocks, intersector=intersector,
+                            device=device)
+        iopts = (dict(raydepth=5, use_ao=True, ao_samples=AO_SAMPLES,
+                      ao_dist=100.0) if name == "cornell256_ao_dl_fwd"
+                 else dict(raydepth=5, transp_shad=True))
+    iopts.update(extra)
+    return scene, RenderOptions(aa_samples=OPT_AA, spp_chunk=1,
+                                integrator_opts=DirectOptions(**iopts))
+
+
+OPTIONS = ("cornell256_ao_dl_fwd", "pane256_ts_dl_fwd",
+           "cornell256_glass_ts_dl_fwd")
+
+
+def _pane_floor_light(scene, transp_shad):
+    """core_tpu's test_transparent_shadows (tests/test_shadow_sentinel.py:
+    175-189) on the card: the mean direct light of 16 floor points under
+    the pane, with opaque or transparent shadows (shadow_depth 4)."""
+    import torch
+    from core_tpu_torch import scene as sm
+    from core_tpu_torch.integrators import common
+    from core_tpu_torch.render import scene_material_types
+    from core_tpu_torch.vec import SPS, V3
+    dev = scene.device
+    n = 16
+    xs = torch.tensor([-8.0, -7.0, -6.0, -7.5] * 4, device=dev)
+    zero, one = torch.zeros(n, device=dev), torch.ones(n, device=dev)
+    up = V3(zero, one, zero)
+    ids = torch.zeros(n, dtype=torch.int32, device=dev)
+    sp = SPS(p=V3(xs, zero, torch.linspace(-1.0, 1.0, n, device=dev)),
+             n=up, ng=up, nu=V3(one, zero, zero), nv=V3(zero, zero, one),
+             u=zero, v=zero, mat=ids, light=ids - 1, prim=ids, obj=ids)
+    with torch.no_grad():
+        col = common.estimate_all_direct_s(
+            scene, scene_material_types(scene),
+            sm.material_params_s(scene, sp), sp, up,
+            torch.arange(n, device=dev), torch.zeros(n, dtype=torch.int64,
+                                                     device=dev),
+            torch.ones(n, dtype=torch.bool, device=dev),
+            transp_shad=transp_shad, shadow_depth=4)
+    return [float(c.mean()) for c in col]
+
+
+def phase_option(name):
+    """One option configuration at 256^2: counts at 0, a warm-up chunk
+    (rays counted), OPT_AA timed 1-spp chunks, the launches of all eight
+    kernels per chunk; each configuration's own checks; a 64^2 render
+    through the kernels identical to one through the plain versions.
+    Returns the launches per chunk."""
+    import torch
+    scene, opts = option_config(name, RES)
+    if scene.intersector != "cuda" or scene.accel is not None:
+        fail(f"{name}: not on the brute kernels ({scene.intersector})")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    _, rays = counted_rays(lambda: _render_chunks(scene, opts, 1))
+    sync()
+    t_warm = time.perf_counter() - t0
+    launches = all_launches()
+    t0 = time.perf_counter()
+    img = _render_chunks(scene, opts, OPT_AA)
+    sync()
+    dt = time.perf_counter() - t0
+    total = all_launches()
+    if any(total[k] != (OPT_AA + 1) * launches[k] for k in total):
+        fail(f"{name}: launches per chunk {launches}, in all {total}")
+    if plain_calls():
+        fail(f"{name}: the plain versions ran {plain_calls()} times")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not bool(torch.isfinite(img).all()):
+        fail(f"{name}: image has non-finite values")
+    others = {k: v for k, v in launches.items()
+              if k not in ("closest_hit", "any_hit_nee", "any_hit") and v}
+    if others or launches["closest_hit"] <= 0:
+        fail(f"{name}: kernel 1 must launch and no cluster kernel: "
+             f"{launches}")
+    extra = ""
+    if name == "cornell256_ao_dl_fwd":
+        # one occlusion wavefront per AO sample, at the camera hits only
+        # (the white box has no chain)
+        if launches["any_hit"] != AO_SAMPLES:
+            fail(f"{name}: kernel 3 launched {launches['any_hit']} times a "
+                 f"chunk, not once per AO sample ({AO_SAMPLES})")
+    else:
+        # transparent shadows walk closest hits: no NEE bundle, no any hit
+        if launches["any_hit_nee"] or launches["any_hit"]:
+            fail(f"{name}: a shadow kernel launched under transp_shad: "
+                 f"{launches}")
+    if name == "pane256_ts_dl_fwd":
+        blocked = _pane_floor_light(scene, False)
+        filtered = _pane_floor_light(scene, True)
+        if not (max(blocked) < 1e-4 and filtered[1] > 1e-3
+                and filtered[1] > 3.0 * max(filtered[0], filtered[2])):
+            fail(f"{name}: floor under the pane, opaque {blocked}, "
+                 f"transparent {filtered}")
+        extra = (f"; floor under the pane: opaque shadows {blocked} (max < "
+                 f"1e-4), transparent {filtered} (green > 1e-3 and > 3x "
+                 "red, blue)")
+    if name == "cornell256_glass_ts_dl_fwd":
+        _, opaque_opts = option_config(name, RES, transp_shad=False)
+        opaque = _render_chunks(scene, opaque_opts, OPT_AA)
+        same = (img == opaque).all(dim=-1)
+        share = float(same.float().mean())
+        diff = float((img - opaque).abs().max())
+        if share < EQUAL_SHARE:
+            fail(f"{name}: only {share} of the pixels equal the "
+                 f"opaque-shadow image's (max abs difference {diff})")
+        extra = (f"; equal to the opaque-shadow image on {share:.6f} of the "
+                 f"pixels ({int((~same).sum())} differ, max abs {diff:.6e})")
+    write_png(BUILD / f"chip_smoke_{name}.png", img.cpu().numpy())
+    per = dt / OPT_AA
+    print(f"{name}: {RES}x{RES}, {opts.integrator_opts}: rays per chunk "
+          f"{rays}, warm-up chunk {t_warm:.4f} s, {OPT_AA} timed chunks "
+          f"{dt:.4f} s: {per * 1e3:.3f} ms/chunk, {rays / per / 1e6:.3f} "
+          f"Mrays/s forward; peak device memory {peak:.3f} GiB")
+    print(f"{name}: launches per chunk {launches}, plain calls 0; image "
+          f"mean {float(img[..., :3].mean()):.6f}, sha256 "
+          f"{image_digest(img)}, png build/chip_smoke_{name}.png{extra}")
+    imgs = [_render_chunks(*option_config(name, 64, isec), 1)
+            for isec in ("cuda", "torch")]
+    sync()
+    if not torch.equal(*imgs):
+        fail(f"{name}: 64^2 kernel and plain renders differ: max abs "
+             f"{float((imgs[0] - imgs[1]).abs().max())}")
+    print(f"{name} slice: 64x64 render through the kernels == through the "
+          f"plain versions (bit-identical), mean "
+          f"{float(imgs[0][..., :3].mean()):.6f}")
+    return launches
+
+
+# bench.py:52-68's folding table: row -> PathOptions folding fields
+FOLD_ROWS = {"fold 0": {},
+             "fold 2 plain": dict(fold_interval=2, fold_sort=False),
+             "fold 2 sorted": dict(fold_interval=2),
+             "fold 1 sorted": dict(fold_interval=1),
+             "fold 1 start 2 sorted": dict(fold_interval=1, fold_start=2)}
+FOLD_TIMED = 3
+FOLD_RES = 64                # the equal-spp MSE renders
+FOLD_SPP = 4                 # spp of each row's render; the reference 16x
+
+
+def _fold_render(scene, fold, spp, pass_offs):
+    """A flushed FOLD_RES^2 render of spp samples (in chunks of at most 16)
+    under the Cornell options with the given folding; its samples' QMC
+    streams start at pixel sample pass_offs."""
+    import torch
+    import bench_cuda as bc
+    from core_tpu_torch import film as film_mod
+    from core_tpu_torch.render import (RenderOptions, render_chunk,
+                                       scene_material_types)
+    opts = RenderOptions(aa_samples=spp, integrator="pathtracing",
+                         integrator_opts=bc.cornell_opts(**fold)
+                         .integrator_opts)
+    film = film_mod.make_film(FOLD_RES, FOLD_RES, device=scene.device)
+    with torch.no_grad():
+        for s0 in range(0, spp, 16):
+            film = render_chunk(scene, scene_material_types(scene), opts,
+                                film, pass_offs, min(16, spp - s0), s0)
+    return film_mod.flush(film)
+
+
+def phase_fold_table():
+    """bench.py:52-68's fold table on the card: each row's
+    cornell256_pt_fwdbwd step (rays counted as bench_cuda counts them; the
+    median of FOLD_TIMED steps, timed in turns: one step of each row in
+    row order, then in reverse order, then in row order), its active-lane
+    fraction and useful Mrays/s, peak memory, and the equal-spp MSE of a
+    FOLD_RES^2 render of FOLD_SPP samples against a fold-0 reference of
+    16 x FOLD_SPP samples on other QMC streams; then the folded 64^2
+    gradients (fold 2 sorted) through the kernels within GRAD_RTOL x
+    max|g| of the plain versions'.  Returns each row's launches per
+    step."""
+    import torch
+    import bench_cuda as bc
+    from core_tpu_torch import diff
+    scene = bc.cornell_scene()
+    small = bc.cornell_scene(FOLD_RES)
+    ref = _fold_render(small, {}, 16 * FOLD_SPP, 0)
+    params = diff.extract_params(scene, geometry=False)
+    rows, steps, launches, mse0 = {}, {}, {}, None
+    for row, fold in FOLD_ROWS.items():
+        loss_fn = bc.cornell_loss(scene, **fold)
+        step = steps[row] = diff.value_and_grad(loss_fn)
+        with torch.no_grad():
+            _, rays = counted_rays(lambda: loss_fn(params))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        loss, grads = step(params)
+        sync()
+        launches[row] = all_launches()
+        brute_only(launches[row], f"fold table {row}")
+        _grads_ok(loss, grads, row)
+        img = _fold_render(small, fold, FOLD_SPP, 16 * FOLD_SPP)
+        mse = float(((img[..., :3] - ref[..., :3]) ** 2).mean())
+        mse0 = mse if mse0 is None else mse0
+        rows[row] = {"rays": rays,
+                     "active_lane_fraction": round(
+                         bc.active_lane_fraction(scene, **fold), 4),
+                     "peak_mib": round(torch.cuda.max_memory_allocated()
+                                       / 2**20, 1),
+                     "mse": mse,
+                     "mse_vs_fold0_pct": round((mse / mse0 - 1) * 100, 2),
+                     "launches": {k: v for k, v in launches[row].items()
+                                  if v},
+                     "steps_ms": []}
+    order = list(FOLD_ROWS)
+    for turn in range(FOLD_TIMED):
+        for row in (order if turn % 2 == 0 else order[::-1]):
+            wall = bc.timed_steps(lambda: steps[row](params), 1)[0]
+            rows[row]["steps_ms"].append(round(wall * 1e3, 3))
+    for row, r in rows.items():
+        med = sorted(r["steps_ms"])[len(r["steps_ms"]) // 2]
+        mrays = r["rays"] / med * 1e-3
+        r.update(step_ms=med, mrays=round(mrays, 3),
+                 useful_mrays=round(mrays * r["active_lane_fraction"], 3))
+        print(f"fold table {row}: {json.dumps(r)}")
+    print(f"fold table: {RES}x{RES} cornell fwd+bwd steps (path_samples="
+          f"{PATH_SAMPLES}, bounces={BOUNCES}, light_samples={LIGHT_SAMPLES}"
+          f"), steps timed in turns, MSE of {FOLD_RES}x{FOLD_RES} renders "
+          f"of {FOLD_SPP} spp against a fold-0 reference of "
+          f"{16 * FOLD_SPP} spp: {json.dumps(rows)}")
+
+    fold = FOLD_ROWS["fold 2 sorted"]
+    out = {}
+    for isec in ("cuda", "torch"):
+        sc = bc.cornell_scene(64, isec)
+        out[isec] = diff.value_and_grad(bc.cornell_loss(sc, **fold))(
+            diff.extract_params(sc, geometry=False))
+    (lk, gk), (lp, gp) = out["cuda"], out["torch"]
+    _grads_ok(lk, gk, "64^2 folded")
+    if not torch.equal(lk, lp):
+        fail(f"folded 64^2 losses differ: kernels {float(lk)}, plain "
+             f"{float(lp)}")
+    worst = 0.0
+    for k in gp:
+        scale = float(gp[k].abs().max())
+        err = float((gk[k] - gp[k]).abs().max())
+        if err > GRAD_RTOL * scale:
+            fail(f"folded 64^2 gradient of {k}: kernels vs plain max abs "
+                 f"{err} > {GRAD_RTOL} * {scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+    print(f"fold fwdbwd slice: 64x64, fold_interval=2 sorted: loss through "
+          f"the kernels == through the plain versions ({float(lk):.6f}); "
+          f"gradients finite, within {GRAD_RTOL} x max|g| of each leaf "
+          f"(worst {worst:.3e})")
+    return launches
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1636,6 +1971,9 @@ def main():
     # the chains' own launches per chunk, each configuration on its own
     spec = {name: timed(name, phase_spec, name) for name in SPEC}
     timed("spec extras", phase_spec_extras)
+    # the integrator options' launches per chunk, the fold table's per step
+    options = {name: timed(name, phase_option, name) for name in OPTIONS}
+    folds = timed("fold table", phase_fold_table)
 
     replaces = {     # kernels 1 to 8
         "closest_hit": ("core_tpu/geometry/pallas_intersect.py:55",
@@ -1655,11 +1993,15 @@ def main():
         "grouped_any_hit": ("core_tpu/geometry/cluster_intersect.py:1129",
                             "core_tpu_torch/csrc/cluster.cu")}
     # fwdbwd_launches: the kernel's launches in one Cornell fwd+bwd step;
-    # chain_launches: its launches per chunk of each chain configuration
+    # chain_launches / option_launches: its launches per chunk of each
+    # chain / option configuration; fold_launches: per step of each fold
+    # table row
     table = [{"name": name, "route": "cuda", "source": src,
               "replaces": rep, "launches": counts[name], **kt[name],
               "fwdbwd_launches": fwdbwd[name],
-              "chain_launches": {c: spec[c][name] for c in spec}}
+              "chain_launches": {c: spec[c][name] for c in spec},
+              "option_launches": {c: options[c][name] for c in options},
+              "fold_launches": {r: folds[r][name] for r in folds}}
              for name, (rep, src) in replaces.items()]
     print(json.dumps({"kernels": table}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -13,9 +13,12 @@ Dirac lights (point, spot, directional) take one sample per shading point
 and one occlusion ray each, through scene.any_hit_s (kernel 3 on a brute
 scene, 5 on a flat one, 8 on a grouped one).
 
-Scope: opaque shadow rays only (transparent shadows are no option of the
-ported integrators) and no volume transmittance (the port's scenes carry
-no volumes).
+Transparent shadows (transp_shad, on a scene with transparency) replace
+those occlusion queries with transparent_shadow's walks of closest hits
+(kernel 1, 4 or 7); the light-side and BSDF-side walks of an area light's
+samples share one wavefront.
+
+Scope: no volume transmittance (the port's scenes carry no volumes).
 """
 from __future__ import annotations
 
@@ -27,8 +30,10 @@ from core_tpu_torch.materials import dispatch
 from core_tpu_torch.materials.base import BSDF, detach_sample
 from core_tpu_torch.mathutils import MIN_RAYDIST, SHADOW_BIAS
 from core_tpu_torch.sampling import qmc
-from core_tpu_torch.vec import (SPS, V3, RaysS, dot3, tile1, tile3,
+from core_tpu_torch.vec import (V3, RaysS, dot3, map_lanes, tile1, tile3,
                                 untile_sum3, where3, zeros3)
+
+_DEAD_TCAP = 0.5 * SHADOW_BIAS   # 0 < tcap <= tmin: an empty t interval
 
 LOFFS_DELTA = 4567  # reference mcintegrator.cc:42
 
@@ -40,43 +45,83 @@ def _shadow_tcap(valid, dist):
     Invalid lanes and valid-but-sub-bias distances get a dead cap
     (0 < tcap <= tmin -> empty t interval), so they never report occlusion.
     """
-    dead = 0.5 * SHADOW_BIAS
-    bounded = torch.where(dist > SHADOW_BIAS, dist - SHADOW_BIAS, dead)
-    return torch.where(valid, torch.where(dist > 0, bounded, -1.0), dead)
+    bounded = torch.where(dist > SHADOW_BIAS, dist - SHADOW_BIAS, _DEAD_TCAP)
+    return torch.where(valid, torch.where(dist > 0, bounded, -1.0),
+                       _DEAD_TCAP)
 
 
-def _tile_sp(sps: SPS, n: int) -> SPS:
-    return SPS(p=tile3(sps.p, n), n=tile3(sps.n, n), ng=tile3(sps.ng, n),
-               nu=tile3(sps.nu, n), nv=tile3(sps.nv, n),
-               u=tile1(sps.u, n), v=tile1(sps.v, n),
-               mat=tile1(sps.mat, n), light=tile1(sps.light, n),
-               prim=tile1(sps.prim, n), obj=tile1(sps.obj, n))
+def _walk_tcap(valid, dist):
+    """A transparent-shadow walk's t cap, as core_tpu gives it
+    (common.py:125-131): dist - SHADOW_BIAS, or -1 (open) where dist <= 0,
+    so a valid sample nearer than the bias walks an open ray.  Lanes that
+    are not valid get a dead cap: their attenuation is masked out after."""
+    return torch.where(valid, torch.where(dist > 0, dist - SHADOW_BIAS, -1.0),
+                       _DEAD_TCAP)
 
 
-def _tile_params(p, n: int):
-    return type(p)(*[tile3(a, n) if isinstance(a, V3) else tile1(a, n)
-                     for a in p])
+def _cat3(a: V3, b: V3) -> V3:
+    return V3(*(torch.cat([p, q]) for p, q in zip(a, b)))
+
+
+def transparent_shadow(scene, types_present, o: V3, d: V3, tcap,
+                       exclude_prim, depth: int) -> V3:
+    """Transparent-shadow attenuation (core_tpu common.py:62-92; reference
+    scene_t::isShadowed TS variant, scene.cc:904): walk max(1, depth)
+    closest hits along each shadow segment (tcap <= 0 = open); a hit on a
+    FILTER material multiplies its transparency colour in, any other hit
+    blocks (attenuation 0).  After a hit the walk goes on from just past
+    it, with that hit's triangle excluded.  It always runs its full depth:
+    whether every lane is done is never read back to the host.  Returns
+    the attenuation, V3 [N]."""
+    ones = torch.ones_like(tcap)
+    att = V3(ones, ones, ones)
+    tmin = torch.full_like(tcap, SHADOW_BIAS)
+    tmax = torch.where(tcap > 0, tcap, -1.0)
+    excl = exclude_prim
+    wo = -d
+    for _ in range(max(1, depth)):
+        rays = RaysS(o=o, d=d, tmin=tmin, tmax=tmax)
+        hits = scene_mod.closest_hit_s(scene, rays, exclude_prim=excl)
+        hit_in = hits.valid & ((tcap <= 0) | (hits.t < tcap))
+        sp = scene_mod.surface_points_s(scene, rays, hits)
+        p = scene_mod.material_params_s(scene, sp)       # no pick seed
+        tr = dispatch.transparency_ss(types_present, p, sp, wo)
+        tr = where3((p.flags & BSDF.FILTER) != 0, tr, 0.0)
+        att = where3(hit_in, att * tr, att)
+        tmin = torch.where(hit_in, hits.t + SHADOW_BIAS, tmin)
+        excl = torch.where(hit_in, hits.prim, excl)
+    return att
 
 
 def do_light_estimation_s(scene, types_present, p, sps, wo: V3, light,
-                          loffs, pixel_sample, sampling_offs, active):
+                          loffs, pixel_sample, sampling_offs, active,
+                          transp_shad=False, shadow_depth=5):
     """One light's direct contribution (mcintegrator.cc:73-196), SoA.
 
     pixel_sample, sampling_offs: [N] int64 tensors holding uint32 values.
-    active: [N] bool — lanes whose shading is meaningful.  Returns V3 [N].
+    active: [N] bool — lanes whose shading is meaningful.  transp_shad:
+    shadow rays walk through FILTER materials (transparent_shadow, up to
+    shadow_depth hits) on a scene with transparency.  Returns V3 [N].
     """
+    walk = transp_shad and scene.has_transparency
     if light_base.dirac(light):
         ls = light_base.illuminate_s(light, sps)
         surf = dispatch.eval_bsdf_s(types_present, p, sps, wo, ls.wi,
                                     BSDF.ALL)
         contrib = surf * ls.col * dot3(sps.n, ls.wi).abs()
+        ok = active & ls.valid
+        if walk:
+            att = transparent_shadow(
+                scene, types_present, sps.p, ls.wi,
+                _walk_tcap(ok, ls.dist), sps.prim, shadow_depth)
+            return where3(ok, contrib * att, 0.0)
         # dead caps on inactive lanes; an infinite directional light's
         # dist -1 gives an open ray
         ray = RaysS(o=sps.p, d=ls.wi,
                     tmin=torch.full_like(ls.dist, SHADOW_BIAS),
-                    tmax=_shadow_tcap(active & ls.valid, ls.dist))
+                    tmax=_shadow_tcap(ok, ls.dist))
         shadowed = scene_mod.any_hit_s(scene, ray, exclude_prim=sps.prim)
-        return where3(active & ls.valid & ~shadowed, contrib, 0.0)
+        return where3(ok & ~shadowed, contrib, 0.0)
     l_offs = (loffs * LOFFS_DELTA) & qmc.MASK32
 
     # batch the light's n samples into one (n*N)-lane wavefront
@@ -88,8 +133,7 @@ def do_light_estimation_s(scene, types_present, p, sps, wo: V3, light,
             + offs[None, :]) & qmc.MASK32).reshape(-1)
     s1 = qmc.ri_vdc(idx)
     s2 = qmc.radical_inverse(3, idx)
-    spb = _tile_sp(sps, n)
-    pb = _tile_params(p, n)
+    spb, pb = map_lanes(lambda t: tile1(t, n), (sps, p))
     wob = tile3(wo, n)
     activeb = tile1(active, n)
 
@@ -123,15 +167,28 @@ def do_light_estimation_s(scene, types_present, p, sps, wo: V3, light,
                          tmin=torch.full_like(s1, MIN_RAYDIST),
                          tmax=torch.full_like(s1, -1.0)))
         lcontrib = surf * ls.col * (cos_term * w / ls.pdf.clamp_min(1e-12))
-        # ONE shadow launch for both MIS sides; lanes whose MIS side is
-        # invalid (or inactive) get dead caps
-        l_tcap = _shadow_tcap(activeb & ls.valid, ls.dist)
-        b_tcap = _shadow_tcap(activeb & lh.valid, lh.t)
-        shad = scene_mod.any_hit_nee_s(
-            scene, sps.p, tmin_nee, slices3(ls.wi) + slices3(sres.wi),
-            slices1(l_tcap) + slices1(b_tcap), exclude_prim=sps.prim)
-        l_shadowed = shad[:n * N]
-        b_shadowed = shad[n * N:]
+        if walk:
+            # both MIS sides walk as one wavefront (core_tpu walks them
+            # one after the other; every lane is independent)
+            att = transparent_shadow(
+                scene, types_present, _cat3(spb.p, spb.p),
+                _cat3(ls.wi, sres.wi),
+                torch.cat([_walk_tcap(activeb & ls.valid, ls.dist),
+                           _walk_tcap(activeb & lh.valid, lh.t)]),
+                torch.cat([spb.prim, spb.prim]), shadow_depth)
+            lcontrib = lcontrib * V3(*(c[:n * N] for c in att))
+            b_att = V3(*(c[n * N:] for c in att))
+            l_shadowed = b_shadowed = torch.zeros_like(ls.valid)
+        else:
+            # ONE shadow launch for both MIS sides; lanes whose MIS side
+            # is invalid (or inactive) get dead caps
+            l_tcap = _shadow_tcap(activeb & ls.valid, ls.dist)
+            b_tcap = _shadow_tcap(activeb & lh.valid, lh.t)
+            shad = scene_mod.any_hit_nee_s(
+                scene, sps.p, tmin_nee, slices3(ls.wi) + slices3(sres.wi),
+                slices1(l_tcap) + slices1(b_tcap), exclude_prim=sps.prim)
+            l_shadowed = shad[:n * N]
+            b_shadowed = shad[n * N:]
         l_ok = activeb & ls.valid & (~l_shadowed) & (ls.pdf > 1e-6)
 
         lpdf = 1.0 / lh.ipdf.clamp_min(1e-12)
@@ -139,33 +196,45 @@ def do_light_estimation_s(scene, types_present, p, sps, wo: V3, light,
         m2b = sres.pdf * sres.pdf
         wb = m2b / (l2b + m2b).clamp_min(1e-20)
         bcontrib = sres.col * lh.col * (wb * sres.w)
+        if walk:
+            bcontrib = bcontrib * b_att
         b_ok = activeb & lh.valid & (~b_shadowed) & (sres.pdf > 1e-6) \
             & (lh.ipdf > 1e-6)
         total = where3(l_ok, lcontrib, 0.0) + where3(b_ok, bcontrib, 0.0)
     else:
         contrib = surf * ls.col * (cos_term / ls.pdf.clamp_min(1e-12))
-        l_tcap = _shadow_tcap(activeb & ls.valid, ls.dist)
-        shadowed = scene_mod.any_hit_nee_s(
-            scene, sps.p, tmin_nee, slices3(ls.wi), slices1(l_tcap),
-            exclude_prim=sps.prim)
+        if walk:
+            contrib = contrib * transparent_shadow(
+                scene, types_present, spb.p, ls.wi,
+                _walk_tcap(activeb & ls.valid, ls.dist), spb.prim,
+                shadow_depth)
+            shadowed = torch.zeros_like(ls.valid)
+        else:
+            l_tcap = _shadow_tcap(activeb & ls.valid, ls.dist)
+            shadowed = scene_mod.any_hit_nee_s(
+                scene, sps.p, tmin_nee, slices3(ls.wi), slices1(l_tcap),
+                exclude_prim=sps.prim)
         ok = activeb & ls.valid & (~shadowed) & (ls.pdf > 1e-6)
         total = where3(ok, contrib, 0.0)
     return untile_sum3(total, n) * inv_n
 
 
 def estimate_all_direct_s(scene, types_present, p, sps, wo, pixel_sample,
-                          sampling_offs, active) -> V3:
+                          sampling_offs, active, transp_shad=False,
+                          shadow_depth=5) -> V3:
     """Sum over all scene lights (mcintegrator.cc estimateAllDirectLight)."""
     col = zeros3(active)
     for loffs, light in enumerate(scene.lights):
         col = col + do_light_estimation_s(scene, types_present, p, sps, wo,
                                           light, loffs, pixel_sample,
-                                          sampling_offs, active)
+                                          sampling_offs, active, transp_shad,
+                                          shadow_depth)
     return col
 
 
 def estimate_one_direct_s(scene, types_present, p, sps, wo, n_index,
-                          pixel_sample, sampling_offs, active) -> V3:
+                          pixel_sample, sampling_offs, active,
+                          transp_shad=False, shadow_depth=5) -> V3:
     """Pick one light by Halton CDF and weight by light count
     (mcintegrator.cc estimateOneDirectLight) — used at path bounces."""
     num = len(scene.lights)
@@ -174,12 +243,14 @@ def estimate_one_direct_s(scene, types_present, p, sps, wo, n_index,
     if num == 1:
         return do_light_estimation_s(scene, types_present, p, sps, wo,
                                      scene.lights[0], 0, pixel_sample,
-                                     sampling_offs, active)
+                                     sampling_offs, active, transp_shad,
+                                     shadow_depth)
     pick = (qmc.ri_vdc(n_index) * num).to(torch.int32).clamp_max(num - 1)
     col = zeros3(active)
     for lnum, light in enumerate(scene.lights):
         col = col + do_light_estimation_s(scene, types_present, p, sps, wo,
                                           light, lnum, pixel_sample,
                                           sampling_offs,
-                                          active & (pick == lnum))
+                                          active & (pick == lnum),
+                                          transp_shad, shadow_depth)
     return col * float(num)

@@ -19,8 +19,14 @@ recursiveRaytrace as the direct integrator (raytrace.py); each chain hit
 gets emission on specular branches, MIS direct light and its own batched
 indirect paths (PathOptions.chain_path_samples).
 
-Scope: caustic_type "path" or "none", no wavefront folding; photon caustics
-and folding raise NotImplementedError.
+Every NEE takes transp_shad / shadow_depth (transparent shadows), but the
+direct light at chain hits, which core_tpu estimates with opaque shadows
+(its path.py:404-406); the chain hits' own paths take them.  Wavefront
+folding (fold_interval, fold_start, fold_sort) halves the path wavefront
+at the bounces core_tpu folds at, with its pairing pick (_fold).  The
+ambient-occlusion fields are carried and ignored, as core_tpu's path
+tracer ignores them.  Scope: caustic_type "path" or "none"; photon
+caustics raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -36,32 +42,45 @@ from core_tpu_torch.materials import dispatch
 from core_tpu_torch.materials.base import BSDF, detach_sample
 from core_tpu_torch.mathutils import MIN_RAYDIST
 from core_tpu_torch.sampling import qmc
-from core_tpu_torch.vec import (RaysS, luminance3, rays_to_soa, tile1, tile3,
-                                untile_sum3, where3, zeros3)
+from core_tpu_torch.vec import (RaysS, luminance3, map_lanes, rays_to_soa,
+                                tile1, tile3, untile_sum3, where3, zeros3)
 
 
 @dataclass(frozen=True)
 class PathOptions:
+    """core_tpu's PathOptions (core_tpu/integrators/path.py:41-93) but its
+    photon-caustic and SSS fields."""
     path_samples: int = 32        # reference "path_samples" (nPaths)
     bounces: int = 5              # reference "bounces" (maxBounces)
     raydepth: int = 5             # specular recursion depth
     no_recursive: bool = False
     caustic_type: str = "path"    # none|path (photon|both not ported)
+    transp_shad: bool = False     # reference transpShad
+    shadow_depth: int = 5         # reference shadowDepth
     transp_background: bool = False
+    # ambient occlusion: carried and ignored, as core_tpu's path tracer
+    # ignores it
+    use_ao: bool = False
+    ao_samples: int = 32
+    ao_dist: float = 1.0
+    ao_color: tuple = (1.0, 1.0, 1.0)
     # indirect paths at camera-visible specular/glossy chain vertices (the
     # reference re-enters integrate() behind mirrors and glass,
     # mcintegrator.cc:421-628 -> pathtracer.cc:134): 0 = path_samples,
     # -1 = none (chain vertices get emission and direct light only)
     chain_path_samples: int = 0
-    # wavefront folding (core_tpu PathOptions.fold_interval): 0 = off, the
-    # only value ported so far
+    # wavefront folding: every fold_interval bounces (from depth
+    # max(fold_interval, fold_start)) the path wavefront is halved by
+    # pairing lane i with lane i + N/2 and keeping one of the two: the
+    # live one, or a QMC pick with its throughput doubled when both live
+    # (unbiased).  0 = off.  fold_sort first stable-sorts the lanes by
+    # aliveness, so dead lanes pair with live ones first.
     fold_interval: int = 0
+    fold_start: int = 0
+    fold_sort: bool = True
 
 
 def _check_supported(opts: PathOptions):
-    if opts.fold_interval != 0:
-        raise NotImplementedError("wavefront folding (fold_interval > 0) is "
-                                  "not ported to core_tpu_torch yet")
     if opts.caustic_type not in ("path", "none"):
         raise NotImplementedError(f"caustic_type {opts.caustic_type!r} "
                                   "(photon caustics) is not ported yet")
@@ -85,6 +104,51 @@ def _count(stats, n_lanes: int, useful_mask, per_lane: int = 1):
         + per_lane * useful_mask.sum(dtype=torch.float32)
 
 
+def _fold_due(opts: PathOptions, depth: int, width: int) -> bool:
+    """core_tpu's fold trigger (path.py:135-138)."""
+    return (opts.fold_interval > 0 and depth > 0 and depth >= opts.fold_start
+            and depth % opts.fold_interval == 0 and width % 2 == 0
+            and width >= 256)
+
+
+def _fold(state, active, offs, depth: int, sort: bool):
+    """One wavefront fold (core_tpu path.py:139-237).  state: a tuple of
+    per-lane records (V3, SPS, MatParamsS or tensors).  With `sort`, every
+    lane is first gathered into a stable order by aliveness (live lanes
+    first).  Then lane i of the first half pairs with lane i of the
+    second: pick_a takes the first where it lives and the second is dead
+    or scr_halton(41 + depth, offs_a + offs_b) < 0.5.  w2 is 2 where both
+    lived, else 1: the caller doubles the survivor's throughput by it.
+    Returns (state, active, offs, pick_a, w2, sort_idx or None)."""
+    sort_idx = None
+    if sort:
+        sort_idx = torch.sort((~active).to(torch.int32), stable=True).indices
+        state, active, offs = map_lanes(
+            lambda t: t.index_select(0, sort_idx), (state, active, offs))
+    h = offs.shape[0] // 2
+    alive_a, alive_b = active[:h], active[h:]
+    r_pick = qmc.scr_halton(41 + depth, (offs[:h] + offs[h:]) & qmc.MASK32)
+    pick_a = alive_a & (~alive_b | (r_pick < 0.5))
+    w2 = torch.where(alive_a & alive_b, 2.0, 1.0)
+    state, offs = map_lanes(lambda t: torch.where(pick_a, t[:h], t[h:]),
+                            (state, offs))
+    return state, alive_a | alive_b, offs, pick_a, w2, sort_idx
+
+
+def _unfold(path_col, pick_a, frozen, sort_idx):
+    """Undo one fold: each survivor's later radiance goes back to its own
+    lane of the wider wavefront (the other lane of its pair gets 0), in
+    the order before the sort, on top of the radiance frozen at the fold
+    (core_tpu path.py:287-299)."""
+    def up(c):
+        c = torch.cat([torch.where(pick_a, c, 0.0),
+                       torch.where(pick_a, 0.0, c)])
+        if sort_idx is not None:
+            c = torch.zeros_like(c).index_copy(0, sort_idx, c)
+        return c
+    return frozen + map_lanes(up, path_col)
+
+
 def _paths_batched(scene, types_present, sp0, p0, wo0, active0, n_paths,
                    pixel_sample, sampling_offs, opts: PathOptions,
                    stats=None):
@@ -94,15 +158,15 @@ def _paths_batched(scene, types_present, sp0, p0, wo0, active0, n_paths,
 
     stats: optional dict accumulating {"traced", "useful"} lane-ray counts
     of the closest-hit and NEE shadow lanes (useful = lanes whose path was
-    still alive at the launch), as core_tpu's _paths_batched does."""
+    still alive at the launch), as core_tpu's _paths_batched does; a
+    folded wavefront counts at its own width."""
     trace_caustics = opts.caustic_type == "path"
     base = (n_paths * pixel_sample + sampling_offs) & qmc.MASK32
     offs = ((torch.arange(n_paths, dtype=torch.int64,
                           device=base.device)[:, None]
              + base[None, :]) & qmc.MASK32).reshape(-1)
 
-    sp = common._tile_sp(sp0, n_paths)
-    p = common._tile_params(p0, n_paths)
+    sp, p = map_lanes(lambda t: tile1(t, n_paths), (sp0, p0))
     wo = tile3(wo0, n_paths)
     active = tile1(active0, n_paths)
     pixel_sample_b = tile1(pixel_sample, n_paths)
@@ -110,7 +174,16 @@ def _paths_batched(scene, types_present, sp0, p0, wo0, active0, n_paths,
 
     path_col = zeros3(offs)
     throughput = None
+    folds = []      # (pick_a, path_col frozen at the fold, sort_idx)
     for depth in range(opts.bounces):
+        if _fold_due(opts, depth, offs.shape[0]):
+            state = (sp, p, wo, pixel_sample_b, sampling_offs_b, throughput)
+            state, active, offs, pick_a, w2, sort_idx = _fold(
+                state, active, offs, depth, opts.fold_sort)
+            sp, p, wo, pixel_sample_b, sampling_offs_b, throughput = state
+            throughput = throughput * w2
+            folds.append((pick_a, path_col, sort_idx))
+            path_col = zeros3(offs)
         if depth == 0:
             s1 = qmc.ri_vdc(offs)
             s2 = qmc.scr_halton(2, offs)
@@ -160,7 +233,9 @@ def _paths_batched(scene, types_present, sp0, p0, wo0, active0, n_paths,
             _count(stats, offs.shape[0], nee_active, _nee_lanes(scene))
         lcol = common.estimate_one_direct_s(scene, types_present, p, sp, wo,
                                             offs, pixel_sample_b,
-                                            sampling_offs_b, nee_active)
+                                            sampling_offs_b, nee_active,
+                                            opts.transp_shad,
+                                            opts.shadow_depth)
         # Emission pickup at path vertices (pathtracer.cc:240,295): only
         # through caustic chains onto SPECULAR|EMIT materials (see core_tpu)
         if depth > 0:
@@ -170,6 +245,8 @@ def _paths_batched(scene, types_present, sp0, p0, wo0, active0, n_paths,
             lcol = lcol + where3(emit_mask, emit_c, 0.0)
         path_col = path_col + where3(active, lcol * throughput, 0.0)
 
+    for pick_a, frozen, sort_idx in reversed(folds):
+        path_col = _unfold(path_col, pick_a, frozen, sort_idx)
     return untile_sum3(path_col, n_paths) * (1.0 / float(n_paths))
 
 
@@ -205,7 +282,8 @@ def integrate(scene, types_present, rays, pixel_sample, sampling_offs,
         _count(stats, n, nee0, _nee_lanes(scene))
     col = col + common.estimate_all_direct_s(scene, types_present, p, sp, wo,
                                              pixel_sample, sampling_offs,
-                                             nee0)
+                                             nee0, opts.transp_shad,
+                                             opts.shadow_depth)
     n_paths = max(1, opts.path_samples)
     col = col + _paths_batched(scene, types_present, sp, p, wo, nee0,
                                n_paths, pixel_sample, sampling_offs, opts,
@@ -230,9 +308,11 @@ def integrate(scene, types_present, rays, pixel_sample, sampling_offs,
 def _chain_shade_fn(scene, types_present, pixel_sample, sampling_offs,
                     opts: PathOptions):
     """The shading of chain hits (core_tpu/integrators/path.py:376-425):
-    emission on specular branches only, MIS direct light, and the hit's
-    own batched indirect paths, chain depth d on the QMC stream
-    sampling_offs + 7919 * (d + 1).  Blends pick with seed 0 there."""
+    emission on specular branches only, MIS direct light with opaque
+    shadows (core_tpu passes no transp_shad there, :404-406), and the
+    hit's own batched indirect paths under the full options, chain depth d
+    on the QMC stream sampling_offs + 7919 * (d + 1).  Blends pick with
+    seed 0 there."""
     n_chain = opts.chain_path_samples
     if n_chain == 0:
         n_chain = max(1, opts.path_samples)

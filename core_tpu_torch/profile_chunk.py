@@ -5,6 +5,8 @@
     python3 -m core_tpu_torch.profile_chunk mesh       # the 73.6k-tri scene
     python3 -m core_tpu_torch.profile_chunk cornell fwdbwd  # a fwd+bwd step
     python3 -m core_tpu_torch.profile_chunk spec_pt    # a specular chain
+    python3 -m core_tpu_torch.profile_chunk ao_dl      # an integrator option
+    python3 -m core_tpu_torch.profile_chunk cornell_fold2 fwdbwd  # folded
 
 Run from the root of a checkout on a machine with a CUDA card.  "cornell"
 renders cornell_box(light_samples=4) with PathOptions(path_samples=8,
@@ -16,7 +18,12 @@ flat cluster kernels) with DirectOptions(raydepth=1); "spec_pt",
 256^2: cornell_box(light_samples=8) with glossy + glass blocks under
 PathOptions(path_samples=8, bounces=3, raydepth=5) or
 DirectOptions(raydepth=5), and with blend_diff + blend_cross blocks under
-DirectOptions(raydepth=5).  With "fwdbwd" it
+DirectOptions(raydepth=5).  "ao_dl", "pane_ts_dl" and "glass_ts_dl" render
+chip_smoke.py's option configurations (cornell256_ao_dl_fwd,
+pane256_ts_dl_fwd, cornell256_glass_ts_dl_fwd: ambient occlusion, and
+transparent shadows on the pane scene and on the glass-block box), taken
+from chip_smoke.py itself; "cornell_fold2" is "cornell" with
+fold_interval=2 (sorted), chip_smoke's fold table row.  With "fwdbwd" it
 profiles bench_cuda.py's step instead of a forward chunk: value_and_grad
 of the loss of one 1-spp chunk (Cornell: the mean squared RGB against a
 zero target; big and mesh: the mean RGB) with respect to
@@ -52,15 +59,24 @@ RUNS = 5
 TOP = 18
 
 
+OPTIONS = {"ao_dl": "cornell256_ao_dl_fwd", "pane_ts_dl": "pane256_ts_dl_fwd",
+           "glass_ts_dl": "cornell256_glass_ts_dl_fwd"}
+
+
 def _config(name):
     """(scene, options) of a named configuration."""
-    if name == "cornell":
+    if name in ("cornell", "cornell_fold2"):
+        fold = dict(fold_interval=2) if name == "cornell_fold2" else {}
         return (cornell_box(resx=256, resy=256, light_samples=4,
                             device="cuda"),
                 RenderOptions(aa_samples=4, spp_chunk=1,
                               integrator="pathtracing",
                               integrator_opts=PathOptions(
-                                  path_samples=8, bounces=5, raydepth=2)))
+                                  path_samples=8, bounces=5, raydepth=2,
+                                  **fold)))
+    if name in OPTIONS:
+        import chip_smoke       # from the root of the checkout
+        return chip_smoke.option_config(OPTIONS[name], 256)
     direct = RenderOptions(aa_samples=1, spp_chunk=1,
                            integrator="directlight",
                            integrator_opts=DirectOptions(raydepth=1))
@@ -81,7 +97,8 @@ def _config(name):
                 RenderOptions(aa_samples=4, spp_chunk=1, integrator=integ,
                               integrator_opts=iopts))
     raise SystemExit(f"profile_chunk: unknown configuration {name!r} "
-                     "(cornell, big, mesh, spec_pt, spec_dl or blend_dl)")
+                     "(cornell, cornell_fold2, big, mesh, spec_pt, spec_dl, "
+                     "blend_dl, ao_dl, pane_ts_dl or glass_ts_dl)")
 
 
 def _fwdbwd_step(name, scene, opts):
@@ -91,7 +108,8 @@ def _fwdbwd_step(name, scene, opts):
     def loss_fn(params):
         img = diff.render_flat(diff.apply_params(scene, params), opts, 1,
                                types)[..., :3]
-        return torch.mean(img * img) if name == "cornell" else img.mean()
+        return torch.mean(img * img) if name.startswith("cornell") \
+            else img.mean()
 
     params = diff.extract_params(scene, geometry=False)
     vg = diff.value_and_grad(loss_fn)

@@ -122,6 +122,15 @@ def tile3(a: V3, reps: int) -> V3:
     return V3(tile1(a.x, reps), tile1(a.y, reps), tile1(a.z, reps))
 
 
+def map_lanes(fn, x):
+    """fn applied to every per-lane tensor of x: a tensor, or a V3, SPS,
+    MatParamsS (any NamedTuple of them) or plain tuple of them."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    out = (map_lanes(fn, a) for a in x)
+    return tuple(out) if type(x) is tuple else type(x)(*out)
+
+
 def untile_sum3(a: V3, reps: int) -> V3:
     """Inverse of tile3 + sum over the sample axis: [reps*N] -> [N]."""
     def u(c):

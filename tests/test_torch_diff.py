@@ -9,9 +9,12 @@ against its own central finite differences.
   extract_params(geometry=True): the geometry=False leaves and the light
   geometry and geom.obj_offset at 0 (ROADMAP Queue 3: geometry gradients
   at a nonzero offset shade against a stale accel).  core_tpu's gradient is
-  compiled once, in a module fixture.  The loss agrees within rtol 1e-4;
-  each leaf elementwise within 1e-3 * max|g_core_tpu| of that leaf (a leaf
-  whose core_tpu gradient is 0 must be exactly 0).  No leaf needs more.
+  compiled once per test run: under pytest-xdist the first worker to need
+  it computes it under a file lock and saves it beside the workers' temp
+  directories, and the others load that file.  The loss agrees within
+  rtol 1e-4; each leaf elementwise within 1e-3 * max|g_core_tpu| of that
+  leaf (a leaf whose core_tpu gradient is 0 must be exactly 0).  No leaf
+  needs more.
 - extract/apply round trip: apply_params(scene, extract_params(scene))
   renders bit-identically to the scene.
 - The port's AD against its own central FD, at the settings and tolerances
@@ -37,12 +40,15 @@ against its own central finite differences.
   a cosine to the 80th power, so ulps of XLA's FMAs grow there).
 """
 import dataclasses
+import os
+import sys
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from filelock import FileLock
 
 from core_tpu import diff as jdiff
 from core_tpu import scene as jscene_mod
@@ -86,21 +92,53 @@ def cornell():
                                         device="cpu")
 
 
-@pytest.fixture(scope="module")
-def grads(cornell):
-    """(loss, grads) of core_tpu and of the port on the bench loss."""
-    js, ts = cornell
+def _core_tpu_grads(js):
+    """core_tpu's jitted value_and_grad of the bench loss: {"loss": [],
+    leaf: gradient}."""
     jopts = JRenderOptions(integrator="pathtracing",
                            integrator_opts=JPathOptions(**PATH))
     jvg = jax.jit(jdiff.value_and_grad_fn(js, jopts, 1,
                                           jnp.zeros((RES, RES, 4))))
     jl, jg = jvg(jdiff.extract_params(js, geometry=True))
+    return {"loss": np.asarray(jl), **{k: np.asarray(v)
+                                       for k, v in jg.items()}}
+
+
+def once_per_run(tmp_path_factory, name, compute):
+    """compute() (a dict of numpy arrays) once per test run, and the worker
+    that computed it.  Without pytest-xdist it runs in place; under it the
+    first worker to get here computes it under a file lock and saves it in
+    the directory its workers' temp directories share, and every other
+    worker loads that file (pytest-xdist's pattern for a fixture that runs
+    once)."""
+    worker = os.environ.get("PYTEST_XDIST_WORKER", "master")
+    if worker == "master":
+        return compute(), worker
+    path = tmp_path_factory.getbasetemp().parent / f"{name}.npz"
+    with FileLock(f"{path}.lock"):
+        if not path.is_file():
+            np.savez(path, computed_by=np.array(worker), **compute())
+        with np.load(path) as f:
+            out = {k: f[k] for k in f.files}
+    return out, str(out.pop("computed_by"))
+
+
+@pytest.fixture(scope="module")
+def grads(cornell, tmp_path_factory):
+    """(loss, grads) of core_tpu and of the port on the bench loss; core_tpu's
+    are computed once per run (once_per_run), the port's in every worker."""
+    js, ts = cornell
+    jg, by = once_per_run(tmp_path_factory, "torch_diff_grads",
+                          lambda: _core_tpu_grads(js))
+    print(f"grads: core_tpu's value_and_grad computed by {by}, read by "
+          f"{os.environ.get('PYTEST_XDIST_WORKER', 'master')}",
+          file=sys.stderr)
+    jl = float(jg.pop("loss"))
     topts = RenderOptions(integrator="pathtracing",
                           integrator_opts=PathOptions(**PATH))
     tl, tg = diff.value_and_grad_fn(ts, topts, 1, torch.zeros(RES, RES, 4))(
         diff.extract_params(ts, geometry=True))
-    return ((float(jl), {k: np.asarray(v) for k, v in jg.items()}),
-            (float(tl), {k: v.numpy() for k, v in tg.items()}))
+    return ((jl, jg), (float(tl), {k: v.numpy() for k, v in tg.items()}))
 
 
 def test_loss_matches_core_tpu(grads):

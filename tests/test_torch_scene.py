@@ -205,6 +205,7 @@ def test_resolve_intersector():
 
 
 def test_unported_features_raise_by_name(scenes):
+    from core_tpu_torch.integrators.direct import DirectOptions
     from core_tpu_torch.integrators.path import PathOptions
     from core_tpu_torch.materials import dispatch
     from core_tpu_torch.materials.base import MatType
@@ -218,9 +219,8 @@ def test_unported_features_raise_by_name(scenes):
         render_image(ts, RenderOptions(
             integrator="pathtracing",
             integrator_opts=PathOptions(caustic_type="photon")))
-    with pytest.raises(NotImplementedError, match="folding"):
+    with pytest.raises(NotImplementedError, match="use_sss"):
         render_image(ts, RenderOptions(
-            integrator="pathtracing",
-            integrator_opts=PathOptions(fold_interval=2)))
+            integrator_opts=DirectOptions(use_sss=True)))
     with pytest.raises(NotImplementedError, match="photonmapping"):
         render_image(ts, RenderOptions(integrator="photonmapping"))
