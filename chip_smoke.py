@@ -130,14 +130,37 @@ Phases, with their seconds:
                streams; then the folded (fold_interval=2, sorted) 64^2
                gradients through the kernels within 1e-4 x max|g| of the
                plain versions'
+  17. golden mesh — golden_mesh_scene (2,306 triangles: the brute kernels
+               1 and 2; checker.tga through texture_mapper nodes, lit only
+               by a sky.tga textureback with IBL): at 128^2, ibl_samples=8,
+               aa_samples=16 in chunks of 2, box filter 1.0, directlight
+               raydepth=3 and path tracing (path_samples=4, bounces=2,
+               raydepth=3), each held against its reference golden by
+               tests/test_golden_mesh_ibl.py's checks at its bands (sky mean
+               and MAE, energy, 12 x 12 block Pearson; each value printed
+               beside its band), with every kernel's launches per chunk
+               (kernels 1 and 2 > 0, no other, no plain version); the
+               inputs of kernels 1 and 2 captured from one 1-spp
+               path-traced 128^2 chunk (camera and two bounce closest
+               hits, three IBL bundles of K=16: 8 light and 8 BSDF
+               samples) held against the plain versions on every lane and
+               timed; 1-spp chunks at 512^2, dl and pt in turns (dl, pt,
+               pt, dl): ms per chunk, Mrays/s counted at the scene entry
+               points, peak memory, launches per chunk; 64^2 dl and pt
+               renders through the kernels bit-identical to the plain
+               versions'; a 64^2 dl fwd+bwd against
+               extract_params(geometry=False) with finite gradients within
+               1e-4 x max|g| of the plain versions' and a nonzero
+               diffuse_reflect gradient on both node-mapped materials
 The line before the last is the card's name and power limit (nvidia-smi),
 the one before that the kernel table as JSON, and the last line is
 {"ok": true, "device": {...}}.  Rows 1 and 2 of that table are phase 2's
 synthetic bounce-shape inputs (comparable with earlier runs); phase 4b
 prints the captured ones.  Each row's fwdbwd_launches is the kernel's
-launches in one fwd+bwd step of phase 4c, its chain_launches and
-option_launches those per chunk of each phase 10-12 and 13-15
-configuration, its fold_launches those per step of each fold-table row.
+launches in one fwd+bwd step of phase 4c, its chain_launches,
+option_launches and golden_launches those per chunk of each phase 10-12,
+13-15 and 17 configuration, its fold_launches those per step of each
+fold-table row.
 Any failure raises (non-zero exit).  Imports nothing of jax or core_tpu.
 """
 from __future__ import annotations
@@ -1900,6 +1923,240 @@ def phase_fold_table():
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 17: the golden mesh + IBL scene (image textures, shader nodes)
+# --------------------------------------------------------------------------
+
+GOLDEN_RES = 128             # the goldens' size
+GOLDEN_AA = 16
+GOLDEN_TIMED_RES = 512       # the timed chunks: 262,144 camera rays each
+GOLDEN_TRIS = 2306
+# tests/test_golden_mesh_ibl.py's bands on the 2-pixel-cropped interior
+SKY_MEAN_BAND = 0.005
+SKY_MAE_BAND = 0.01
+ENERGY_BANDS = {"dl": (0.0, 0.15), "pt": (0.0, 0.18)}
+PEARSON_BANDS = {"dl": 0.998, "pt": 0.995}
+GOLDEN_FILES = {"dl": "ms_dl_128x128_16spp_ibl8",
+                "pt": "ms_pt_128x128_16spp_ps4_b2"}
+
+
+def golden_opts(kind, aa=1, spp_chunk=1):
+    """test_golden_mesh_ibl.py's options: directlight raydepth=3, or path
+    tracing with path_samples=4, bounces=2, raydepth=3; box filter 1.0."""
+    from core_tpu_torch.film import FilterType
+    from core_tpu_torch.integrators.direct import DirectOptions
+    from core_tpu_torch.integrators.path import PathOptions
+    from core_tpu_torch.render import RenderOptions
+    if kind == "pt":
+        return RenderOptions(integrator="pathtracing", aa_samples=aa,
+                             spp_chunk=spp_chunk, filter_size=1.0,
+                             filter_type=FilterType.BOX,
+                             integrator_opts=PathOptions(
+                                 path_samples=4, bounces=2, raydepth=3))
+    return RenderOptions(aa_samples=aa, spp_chunk=spp_chunk, filter_size=1.0,
+                         filter_type=FilterType.BOX,
+                         integrator_opts=DirectOptions(raydepth=3))
+
+
+def golden_scene(res, intersector="auto"):
+    import dataclasses
+    from core_tpu_torch.scenes import golden_mesh_scene
+    scene = golden_mesh_scene(resx=res, resy=res, ibl_samples=8,
+                              device="cuda")
+    if scene.accel is not None or scene.geom.n_tris != GOLDEN_TRIS:
+        fail(f"golden mesh: {scene.geom.n_tris} triangles, accel "
+             f"{type(scene.accel).__name__}: not the brute path")
+    return scene if intersector == "auto" else \
+        dataclasses.replace(scene, intersector=intersector)
+
+
+def golden_checks(kind, img):
+    """test_golden_mesh_ibl.py's checks of one 128^2 image: the sky's mean
+    and MAE, the hit pixels' energy, the 12 x 12 block Pearson r; each
+    printed beside its band.  Returns the numbers."""
+    import numpy as np
+    ref = np.load(ROOT / "tests" / "golden" / f"{GOLDEN_FILES[kind]}.npz"
+                  )["img"][2:-2, 2:-2]
+    img = img.cpu().numpy()[2:-2, 2:-2]
+    if img.shape != ref.shape or not np.isfinite(img).all():
+        fail(f"golden {kind}: image {img.shape} vs {ref.shape}, or not "
+             "finite")
+    sky, hit = ref[..., 3] < 0.5, ref[..., 3] > 0.5
+    m, r = img[sky][:, :3], ref[sky][:, :3]
+    out = {"sky_mean_rel": float(abs(m.mean() - r.mean()) / r.mean()),
+           "sky_mae_rel": float(np.abs(m - r).mean() / r.mean()),
+           "energy_rel": float((img[hit][:, :3].mean()
+                                - ref[hit][:, :3].mean())
+                               / ref[hit][:, :3].mean())}
+    bm = img[:120, :120, :3].reshape(12, 10, 12, 10, 3).mean((1, 3, 4))
+    br = ref[:120, :120, :3].reshape(12, 10, 12, 10, 3).mean((1, 3, 4))
+    out["pearson"] = float(np.corrcoef(bm.ravel(), br.ravel())[0, 1])
+    lo, hi = ENERGY_BANDS[kind]
+    ok = {"sky_mean_rel": out["sky_mean_rel"] < SKY_MEAN_BAND,
+          "sky_mae_rel": out["sky_mae_rel"] < SKY_MAE_BAND,
+          "energy_rel": lo <= out["energy_rel"] <= hi,
+          "pearson": out["pearson"] > PEARSON_BANDS[kind]}
+    print(f"golden {kind}: sky mean rel {out['sky_mean_rel']:.6f} (< "
+          f"{SKY_MEAN_BAND}), sky MAE rel {out['sky_mae_rel']:.6f} (< "
+          f"{SKY_MAE_BAND}), energy rel {out['energy_rel']:.6f} (in "
+          f"[{lo}, {hi}]), 12x12 block Pearson {out['pearson']:.6f} (> "
+          f"{PEARSON_BANDS[kind]})")
+    if not all(ok.values()):
+        fail(f"golden {kind}: outside the bands: "
+             f"{[k for k, v in ok.items() if not v]}")
+    return out
+
+
+def phase_golden():
+    """golden_mesh_scene through kernels 1 and 2 (see the header).  Returns
+    the launches per chunk of each configuration."""
+    import torch
+    from core_tpu_torch import diff
+    from core_tpu_torch import film as film_mod
+    from core_tpu_torch.render import (render_chunk, render_image,
+                                       scene_material_types)
+    t0 = time.perf_counter()
+    scene = golden_scene(GOLDEN_RES)
+    sync()
+    print(f"golden mesh: {GOLDEN_RES}x{GOLDEN_RES} scene built in "
+          f"{time.perf_counter() - t0:.3f} s: {scene.geom.n_tris} "
+          f"triangles (brute), {len(scene.node_programs)} node programs, "
+          f"atlas {tuple(scene.textures.atlas.shape)}, lights "
+          f"{[type(x).__name__ for x in scene.lights]}")
+    launches = {}
+    chunks = GOLDEN_AA // 2
+    for kind in ("dl", "pt"):
+        name = f"goldenmesh128_{kind}_16spp"
+        reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        img, _ = render_image(scene, golden_opts(kind, GOLDEN_AA, 2))
+        sync()
+        dt = time.perf_counter() - t0
+        total = all_launches()
+        brute_only(total, name)
+        if plain_calls():
+            fail(f"{name}: the plain versions ran {plain_calls()} times")
+        if any(n % chunks for n in total.values()):
+            fail(f"{name}: launches {total} not a multiple of {chunks} "
+                 "chunks")
+        launches[name] = {k: n // chunks for k, n in total.items()}
+        write_png(BUILD / f"chip_smoke_{name}.png", img.cpu().numpy())
+        print(f"{name}: {chunks} chunks of 2 spp in {dt:.4f} s, launches "
+              f"per chunk {launches[name]}, plain calls 0, png "
+              f"build/chip_smoke_{name}.png")
+        golden_checks(kind, img)
+
+    # the inputs of kernels 1 and 2 from one 1-spp path-traced chunk of the
+    # goldens' size (at 512^2 the plain NEE versions alone would take ~10 s)
+    calls = _capture_calls(scene, GOLDEN_RES, golden_opts("pt"))
+    closest = [c for c in calls if c[0] == "closest"]
+    nees = [c for c in calls if c[0] == "nee"]
+    if len(closest) != 3 or len(nees) != 3 or len(calls) != 6:
+        fail(f"golden pt chunk: {len(closest)} closest-hit calls and "
+             f"{len(nees)} NEE bundles of {len(calls)} calls, not 3 and 3")
+    rows = {}
+    for kernel, q, got in (("closest_hit", "closest", closest),
+                           ("any_hit_nee", "nee", nees)):
+        per = [_check_captured(
+            f"golden pt: {'camera' if i == 0 else f'bounce {i}'} "
+            f"{'closest hit' if q == 'closest' else 'IBL bundle (K=16)'}", *c)
+            for i, c in enumerate(got)]
+        rows[kernel] = {"max_abs_err": max(r["max_abs_err"] for r in per)}
+        _gap(f"kernel {1 if q == 'closest' else 2}, golden pt "
+             f"{GOLDEN_RES}^2 chunk", per)
+
+    # 1-spp chunks at 512^2, dl and pt in turns (dl, pt, pt, dl)
+    big = golden_scene(GOLDEN_TIMED_RES)
+    types = scene_material_types(big)
+    stats = {}
+    for kind in ("dl", "pt"):
+        name = f"goldenmesh{GOLDEN_TIMED_RES}_{kind}_fwd"
+        opts = golden_opts(kind)
+        film = film_mod.make_film(GOLDEN_TIMED_RES, GOLDEN_TIMED_RES,
+                                  device=big.device)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with torch.no_grad():
+            _, rays = counted_rays(lambda: render_chunk(
+                big, types, opts, film, 0, 1, 0))
+        sync()
+        launches[name] = all_launches()
+        brute_only(launches[name], name)
+        if plain_calls():
+            fail(f"{name}: the plain versions ran {plain_calls()} times")
+        stats[kind] = {"rays": rays, "ms": [], "opts": opts, "film": film,
+                       "peak_mib": torch.cuda.max_memory_allocated()
+                       / 2**20}
+    for kind in ("dl", "pt", "pt", "dl"):
+        st = stats[kind]
+        sync()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            st["film"] = render_chunk(big, types, st["opts"], st["film"], 0,
+                                      1, len(st["ms"]) + 1)
+        sync()
+        st["ms"].append((time.perf_counter() - t0) * 1e3)
+    for kind, st in stats.items():
+        name = f"goldenmesh{GOLDEN_TIMED_RES}_{kind}_fwd"
+        img = film_mod.flush(st["film"])
+        if not bool(torch.isfinite(img).all()):
+            fail(f"{name}: image has non-finite values")
+        per = sum(st["ms"]) / len(st["ms"])
+        print(f"{name}: {GOLDEN_TIMED_RES}x{GOLDEN_TIMED_RES}, 1-spp "
+              f"chunks timed in turns {[round(t, 3) for t in st['ms']]} ms: "
+              f"{per:.3f} ms/chunk, rays per chunk {st['rays']}, "
+              f"{st['rays'] / per / 1e3:.3f} Mrays/s forward; peak device "
+              f"memory {st['peak_mib']:.1f} MiB; launches per chunk "
+              f"{launches[name]}; image mean "
+              f"{float(img[..., :3].mean()):.6f}")
+    del big, stats
+    torch.cuda.empty_cache()
+
+    # 64^2: kernels and plain versions give the same images and gradients
+    for kind in ("dl", "pt"):
+        imgs = [render_image(golden_scene(64, isec),
+                             golden_opts(kind, 2, 2))[0]
+                for isec in ("cuda", "torch")]
+        sync()
+        if not torch.equal(*imgs):
+            fail(f"64^2 golden {kind}: kernel and plain renders differ: "
+                 f"max abs {float((imgs[0] - imgs[1]).abs().max())}")
+        print(f"golden slice: 64x64 {kind} render through the kernels == "
+              f"through the plain versions (bit-identical), mean "
+              f"{float(imgs[0][..., :3].mean()):.6f}")
+    out = {}
+    for isec in ("cuda", "torch"):
+        sc = golden_scene(64, isec)
+        out[isec] = diff.value_and_grad_fn(
+            sc, golden_opts("dl"), 1,
+            torch.zeros(64, 64, 4, device=sc.device))(
+            diff.extract_params(sc, geometry=False))
+    (lk, gk), (lp, gp) = out["cuda"], out["torch"]
+    _grads_ok(lk, gk, "64^2 golden dl")
+    if not torch.equal(lk, lp):
+        fail(f"golden 64^2 losses differ: kernels {float(lk)}, plain "
+             f"{float(lp)}")
+    worst = 0.0
+    for k in gp:
+        scale = float(gp[k].abs().max())
+        err = float((gk[k] - gp[k]).abs().max())
+        if err > GRAD_RTOL * scale:
+            fail(f"golden 64^2 gradient of {k}: kernels vs plain max abs "
+                 f"{err} > {GRAD_RTOL} * {scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+    # strengths column 3 is diffuse_reflect; both materials are node-mapped
+    refl = gk["mat.strengths"][:, 3]
+    if not bool((refl.abs() > 0).all()):
+        fail(f"golden 64^2: diffuse_reflect gradients {refl.tolist()}")
+    print(f"golden fwdbwd slice: 64x64 dl, 1 spp: loss through the kernels "
+          f"== through the plain versions ({float(lk):.6f}); gradients "
+          f"finite, within {GRAD_RTOL} x max|g| of each leaf (worst "
+          f"{worst:.3e}); diffuse_reflect gradients of the two mapped "
+          f"materials {[round(float(g), 6) for g in refl]}")
+    return launches, rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1974,6 +2231,9 @@ def main():
     # the integrator options' launches per chunk, the fold table's per step
     options = {name: timed(name, phase_option, name) for name in OPTIONS}
     folds = timed("fold table", phase_fold_table)
+    golden, rows = timed("golden mesh", phase_golden)
+    for name, row in rows.items():
+        _merge(kt[name], row)
 
     replaces = {     # kernels 1 to 8
         "closest_hit": ("core_tpu/geometry/pallas_intersect.py:55",
@@ -1993,15 +2253,16 @@ def main():
         "grouped_any_hit": ("core_tpu/geometry/cluster_intersect.py:1129",
                             "core_tpu_torch/csrc/cluster.cu")}
     # fwdbwd_launches: the kernel's launches in one Cornell fwd+bwd step;
-    # chain_launches / option_launches: its launches per chunk of each
-    # chain / option configuration; fold_launches: per step of each fold
-    # table row
+    # chain_launches / option_launches / golden_launches: its launches per
+    # chunk of each chain / option / golden-mesh configuration;
+    # fold_launches: per step of each fold table row
     table = [{"name": name, "route": "cuda", "source": src,
               "replaces": rep, "launches": counts[name], **kt[name],
               "fwdbwd_launches": fwdbwd[name],
               "chain_launches": {c: spec[c][name] for c in spec},
               "option_launches": {c: options[c][name] for c in options},
-              "fold_launches": {r: folds[r][name] for r in folds}}
+              "fold_launches": {r: folds[r][name] for r in folds},
+              "golden_launches": {c: golden[c][name] for c in golden}}
              for name, (rep, src) in replaces.items()]
     print(json.dumps({"kernels": table}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

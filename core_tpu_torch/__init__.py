@@ -7,9 +7,9 @@ imports jax, and runs its intersection queries in hand-written CUDA kernels
 On the CPU the same entry points run the kernels' plain PyTorch versions
 (geometry/intersect.py, geometry/cluster_intersect.py).
 
-Scope so far, forward only: the path-traced default Cornell box
-(scenes.cornell_box) and the directlight render of the textured mesh scene
-with IBL and a sun (scenes.mesh_scene, scenes.big_scene at 1,017,202
-triangles), through render.render_image.  Anything outside that slice
-raises NotImplementedError by name.
+Scope so far: the Cornell box, the textured mesh scenes (scenes.mesh_scene,
+scenes.big_scene at 1,017,202 triangles) and the golden mesh scene with
+image textures and shader nodes (scenes.golden_mesh_scene), direct-lit and
+path-traced through render.render_image, and their gradients (diff.py).
+Anything outside that slice raises NotImplementedError by name.
 """

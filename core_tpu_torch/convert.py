@@ -2,8 +2,9 @@
 
 scene_to_numpy flattens a scene into (leaves, static): `leaves` maps dotted
 field paths ("geom.verts", "materials.diffuse_color", "lights.0.corner",
-"accel.tris", ...) to numpy arrays, and `static` holds the plain Python
-settings (texture defs, light kinds and sample counts, camera sizes).  It
+"accel.tris", "textures.0.image", ...) to numpy arrays, and `static` holds
+the plain Python settings (texture defs but their images, shader-node
+programs, light kinds and sample counts, camera sizes).  It
 reads fields by name only, so it accepts this package's Scene and any scene
 object with the same field names, such as core_tpu's (whose arrays
 np.asarray converts).  scene_from_numpy rebuilds this package's Scene on a
@@ -33,6 +34,7 @@ from core_tpu_torch.lights.sun import DirectionalLight, SunLight
 from core_tpu_torch.materials.base import MaterialTable
 from core_tpu_torch.scene import Scene, check_device, resolve_intersector
 from core_tpu_torch.textures import base as tex_base
+from core_tpu_torch.textures.nodes import NodeDef
 
 _LIGHTS = {  # type name -> (class, array fields, static fields)
     "AreaLight": (AreaLight, ("corner", "to_x", "to_y", "color", "area",
@@ -53,7 +55,7 @@ _CAMERA_STATIC = ("cam_type", "resx", "resy", "aspect_ratio", "focal",
                   "aperture")
 _BG_ARRAYS = ("power", "rot_cos", "rot_sin")
 # scene features this package does not port yet: must be absent
-_ABSENT = ("volumes", "node_programs")
+_ABSENT = ("volumes",)
 
 
 def _np(a) -> np.ndarray:
@@ -63,23 +65,32 @@ def _np(a) -> np.ndarray:
     return np.asarray(a)
 
 
-def _texture_static(ctex) -> list:
-    """The texture defs as plain dicts of the ported fields."""
+def _texture_numpy(ctex, prefix: str, leaves: dict) -> list:
+    """The texture defs as plain dicts of their settings; each image goes
+    into `leaves` as "<prefix>.<def index>.image"."""
     out = []
-    for d in ctex.defs:
+    for i, d in enumerate(ctex.defs):
         if getattr(d, "image", None) is not None:
-            raise NotImplementedError("image textures are not ported to "
-                                      "core_tpu_torch yet")
+            leaves[f"{prefix}.{i}.image"] = _np(d.image)
         rec = {f: getattr(d, f) for f in tex_base.FIELDS}
         rec["ttype"] = int(rec["ttype"])
         out.append(rec)
     return out
 
 
-def _textures(recs):
+def _textures(recs, leaves, prefix, device):
     return tex_base.build_texture_set(
-        [tex_base.TextureDef(**{**r, "ttype": tex_base.TexType(r["ttype"])})
-         for r in recs])
+        [tex_base.TextureDef(**{**r, "ttype": tex_base.TexType(r["ttype"])},
+                             image=leaves.get(f"{prefix}.{i}.image"))
+         for i, r in enumerate(recs)], device)
+
+
+def _node_programs_static(programs) -> tuple:
+    """(mat_idx, slot, ((name, ntype, params), ...), out) per program, the
+    node defs read by field name (a core_tpu NodeDef converts)."""
+    return tuple((int(m), str(slot),
+                  tuple((nd.name, nd.ntype, tuple(nd.params)) for nd in nds),
+                  str(out)) for m, slot, nds, out in programs)
 
 
 def _accel_numpy(acc):
@@ -139,7 +150,8 @@ def scene_to_numpy(scene) -> tuple[dict, dict]:
                                       "not ported to core_tpu_torch yet")
         for f in _BG_ARRAYS:
             leaves[f"background.{f}"] = _np(getattr(bg, f))
-        bg_static = {"textures": _texture_static(bg.ctex),
+        bg_static = {"textures": _texture_numpy(bg.ctex, "background.textures",
+                                                leaves),
                      "tex_id": int(bg.tex_id), "projection": bg.projection,
                      "ibl": bool(bg.ibl), "ibl_samples": int(bg.ibl_samples)}
     acc = getattr(scene, "accel", None)
@@ -153,7 +165,12 @@ def scene_to_numpy(scene) -> tuple[dict, dict]:
         "lights": lights,
         "camera": {f: getattr(scene.camera, f) for f in _CAMERA_STATIC},
         "background": bg_static,
-        "textures": None if tex is None else _texture_static(tex),
+        "textures": None if tex is None
+        else _texture_numpy(tex, "textures", leaves),
+        "node_programs": _node_programs_static(
+            getattr(scene, "node_programs", ())),
+        "texture_name_map": tuple((str(k), int(v)) for k, v in getattr(
+            scene, "texture_name_map", ())),
         "accel": kind,
         "has_specular": bool(scene.has_specular),
         "has_transparency": bool(scene.has_transparency),
@@ -175,7 +192,8 @@ def scene_from_numpy(leaves: dict, static: dict, *, device="cuda",
                                 for f in MaterialTable._fields])
     bs = static["background"]
     background = None if bs is None else TextureBackground(
-        ctex=_textures(bs["textures"]), tex_id=bs["tex_id"],
+        ctex=_textures(bs["textures"], leaves, "background.textures",
+                       device), tex_id=bs["tex_id"],
         **{f: t(f"background.{f}") for f in _BG_ARRAYS},
         projection=bs["projection"], ibl=bs["ibl"],
         ibl_samples=bs["ibl_samples"])
@@ -206,8 +224,13 @@ def scene_from_numpy(leaves: dict, static: dict, *, device="cuda",
     return Scene(geom=geom, materials=materials, lights=tuple(lights),
                  camera=camera, background=background, accel=accel,
                  textures=None if static["textures"] is None
-                 else _textures(static["textures"]),
+                 else _textures(static["textures"], leaves, "textures",
+                                device),
                  has_specular=bool(static["has_specular"]),
                  has_transparency=bool(static["has_transparency"]),
                  mat_types=mat_types,
+                 node_programs=tuple(
+                     (m, slot, tuple(NodeDef(*nd) for nd in nds), out)
+                     for m, slot, nds, out in static["node_programs"]),
+                 texture_name_map=static["texture_name_map"],
                  intersector=resolve_intersector(intersector, device))

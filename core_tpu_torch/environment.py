@@ -3,8 +3,9 @@ core_tpu/environment.py that mesh_scene uses; reference renderEnvironment_t).
 
 SceneBuilder collects created elements and geometry, then compile_scene
 builds the Scene on a device.  Element types keep the reference's names:
-  texture     clouds, marble, voronoi
-  material    shinydiffusemat, glossy
+  texture     clouds, marble, voronoi, image (a .tga or .npy file)
+  material    shinydiffusemat, glossy (each may carry a list of shader
+              nodes, `extra`, that its <slot>_shader parameters name)
   background  textureback (its ibl=True adds the importance-sampled
               background light at compile time)
   light       sunlight, pointlight, spotlight, directional
@@ -31,6 +32,7 @@ from core_tpu_torch.materials.base import (MaterialDef, MatType,
 from core_tpu_torch.params import ParamMap
 from core_tpu_torch.scene import Scene, resolve_intersector
 from core_tpu_torch.textures import noise as nz
+from core_tpu_torch.textures import nodes
 from core_tpu_torch.textures.base import (TexType, TextureDef,
                                           build_texture_set)
 
@@ -64,14 +66,48 @@ class SceneBuilder:
         self.background = None
         # makers of the lights created at compile time (the IBL light)
         self._deferred_lights: list = []
+        # shader-node programs: (mat_index, slot, node_defs, out_node_name)
+        self.node_programs: list = []
 
-    def create(self, kind: str, name: str, params: ParamMap):
+    def create(self, kind: str, name: str, params: ParamMap, extra=None):
+        """Create one element; `extra` is a material's list of shader-node
+        ParamMaps (the reference's paramsStartList / PushList)."""
         tname = params.get_str("type")
         fn = _FACTORIES.get(kind, {}).get(tname)
         if fn is None:
             raise NotImplementedError(f"{kind} type {tname!r} is not ported "
                                       "to core_tpu_torch yet")
-        return fn(self, name, params)
+        out = fn(self, name, params)
+        if kind == "material":
+            self.collect_node_programs(out, params, extra or [])
+        return out
+
+    # shader-node slots every reference material can map
+    # (shinydiffuse.cc:496-556, glossy2.cc:88-96)
+    NODE_SLOTS = ("diffuse_shader", "mirror_color_shader", "glossy_shader",
+                  "glossy_reflect_shader", "transparency_shader",
+                  "translucency_shader", "mirror_shader", "sigma_oren_shader",
+                  "bump_shader")
+
+    def collect_node_programs(self, mat_idx: int, p: ParamMap, extra):
+        """Parse a material's shader-node list and record which of its
+        slots are node-mapped (nodematerial.cc loadNodes, and the material
+        factories reading their '<slot>_shader' parameters).  A mapped
+        bump_shader, and a node type not ported, raise."""
+        ndefs = tuple(nd for nd in (nodes.parse_node(pm) for pm in extra)
+                      if nd is not None)
+        if not ndefs:
+            return
+        nodes.check_supported(ndefs)
+        names = {nd.name for nd in ndefs}
+        for slot in self.NODE_SLOTS:
+            ref = p.get_str(slot, "")
+            if ref and ref in names:
+                if slot == "bump_shader":
+                    raise NotImplementedError("bump_shader (bump mapping) is "
+                                              "not ported to core_tpu_torch "
+                                              "yet")
+                self.node_programs.append((mat_idx, slot, ndefs, ref))
 
     def material_index(self, name: str) -> int:
         return self.material_names.get(name, 0)
@@ -110,10 +146,12 @@ class SceneBuilder:
         scene = Scene(
             geom=geom, materials=mats, lights=tuple(self.lights),
             camera=self.camera, background=self.background, accel=accel,
-            textures=build_texture_set(self.textures) if self.textures
-            else None,
+            textures=build_texture_set(self.textures, device)
+            if self.textures else None,
             has_specular=has_spec, has_transparency=has_transp,
             mat_types=tuple(sorted({int(d.mtype) for d in self.materials})),
+            node_programs=tuple(self.node_programs),
+            texture_name_map=tuple(sorted(self.texture_names.items())),
             intersector=resolve_intersector("auto", device))
         extra = tuple(make() for make in self._deferred_lights)
         return dataclasses.replace(scene, lights=scene.lights + extra)
@@ -169,6 +207,15 @@ def _mat_glossy(b: SceneBuilder, name, p: ParamMap):
 
 def _texture(b: SceneBuilder, name, p: ParamMap):
     t = p.get_str("type")
+    if t == "image":
+        from core_tpu_torch.io.image import read_image
+        return b.add_texture(name, TextureDef(
+            ttype=TexType.IMAGE, image=read_image(p.get_str("filename")),
+            interpolate=p.get_str("interpolate", "bilinear"),
+            clip_mode=p.get_str("clipping", "repeat"),
+            xrepeat=p.get_int("xrepeat", 1), yrepeat=p.get_int("yrepeat", 1),
+            gamma=p.get_float("gamma", 1.0),
+            use_alpha=p.get_bool("use_alpha", True)))
     kw = dict(color1=p.get_color("color1", (0, 0, 0)),
               color2=p.get_color("color2", (1, 1, 1)),
               size=p.get_float("size", 1.0),
@@ -201,9 +248,10 @@ def _texture(b: SceneBuilder, name, p: ParamMap):
 def _bg_texture(b: SceneBuilder, name, p: ParamMap):
     from core_tpu_torch.backgrounds import make_texture_background
     tid = b.texture_names.get(p.get_str("texture"), 0)
-    # the background owns its texture set (scene textures may grow later)
+    # the background owns its texture set (scene textures may grow later),
+    # in which its texture is def 0 at atlas slot 0
     bg = make_texture_background(
-        build_texture_set([b.textures[tid]]), tex_id=0,
+        build_texture_set([b.textures[tid]], b.device), tex_id=0,
         power=p.get_float("power", 1.0),
         rotation=p.get_float("rotation", 0.0),
         projection="angular" if p.get_str("mapping", "") == "probe"
@@ -269,7 +317,8 @@ def _light_directional(b: SceneBuilder, name, p: ParamMap):
 
 _FACTORIES: dict[str, dict[str, Callable]] = {
     "material": {"shinydiffusemat": _mat_shinydiffuse, "glossy": _mat_glossy},
-    "texture": {"clouds": _texture, "marble": _texture, "voronoi": _texture},
+    "texture": {"clouds": _texture, "marble": _texture, "voronoi": _texture,
+                "image": _texture},
     "background": {"textureback": _bg_texture},
     "light": {"sunlight": _light_sun, "pointlight": _light_point,
               "spotlight": _light_spot, "directional": _light_directional},

@@ -19,6 +19,7 @@ import torch
 
 from core_tpu_torch import scene as scene_mod
 from core_tpu_torch.backgrounds import eval_background_s
+from core_tpu_torch.differentials import texture_lod
 from core_tpu_torch.integrators import common, raytrace
 from core_tpu_torch.materials import dispatch
 from core_tpu_torch.materials.base import BSDF, detach_sample
@@ -49,15 +50,19 @@ class DirectOptions:
 
 
 def _shade_hit(scene, types_present, rays_s, hits, pixel_sample,
-               sampling_offs, include_lights, opts: DirectOptions):
+               sampling_offs, include_lights, opts: DirectOptions,
+               diff=None):
     """Emission + direct lighting (+ ambient occlusion) at the hits; returns
     (col, sp, p).  A cross-family blend picks its sub-material with the
     seed 9781 * pixel_sample + sampling_offs, at camera and chain hits
-    alike (core_tpu direct.py:62-64)."""
+    alike (core_tpu direct.py:62-64).  diff: the camera rays' neighbour
+    directions (dxd, dyd), given at the camera hits only, whose footprint
+    selects image-texture mip levels (core_tpu direct.py:58-61)."""
     sp = scene_mod.surface_points_s(scene, rays_s, hits)
+    lod = None if diff is None else texture_lod(scene, sp, rays_s, *diff)
     p = scene_mod.material_params_s(
         scene, sp, pick_seed=(9781 * pixel_sample + sampling_offs)
-        & qmc.MASK32)
+        & qmc.MASK32, lod=lod)
     wo = -rays_s.d
     active = hits.valid
     col = where3(active & include_lights, dispatch.emit_ss(types_present, p),
@@ -101,12 +106,14 @@ def _ambient_occlusion(scene, types_present, p, sp, wo, pixel_sample,
 
 
 def integrate(scene, types_present, rays, pixel_sample, sampling_offs,
-              opts: DirectOptions, stats=None):
+              opts: DirectOptions, stats=None, diff=None):
     """directlight integrate() for a camera wavefront -> rgba [N, 4].
 
     rays: types.Rays ([N, 3] o, d); pixel_sample, sampling_offs: [N] int64
     tensors holding uint32 values.  stats: optional dict that collects the
-    chain's live lanes per depth (raytrace.recursive_raytrace)."""
+    chain's live lanes per depth (raytrace.recursive_raytrace).  diff:
+    optional (dxd, dyd) neighbour directions of the camera rays
+    (differentials.camera_diff_dirs)."""
     if opts.use_sss:
         raise NotImplementedError("subsurface scattering (use_sss) is not "
                                   "ported to core_tpu_torch yet")
@@ -115,7 +122,7 @@ def integrate(scene, types_present, rays, pixel_sample, sampling_offs,
     primary_valid = hits.valid
     col, sp, p = _shade_hit(scene, types_present, rs, hits, pixel_sample,
                             sampling_offs, torch.ones_like(primary_valid),
-                            opts)
+                            opts, diff)
     col = where3(primary_valid, col,
                  eval_background_s(scene.background, rs.d))
     alpha = torch.where(primary_valid, 1.0,

@@ -36,6 +36,7 @@ import torch
 
 from core_tpu_torch import scene as scene_mod
 from core_tpu_torch.backgrounds import eval_background_s
+from core_tpu_torch.differentials import texture_lod
 from core_tpu_torch.integrators import common, raytrace
 from core_tpu_torch.lights import base as light_base
 from core_tpu_torch.materials import dispatch
@@ -251,7 +252,7 @@ def _paths_batched(scene, types_present, sp0, p0, wo0, active0, n_paths,
 
 
 def integrate(scene, types_present, rays, pixel_sample, sampling_offs,
-              opts: PathOptions, stats=None):
+              opts: PathOptions, stats=None, diff=None):
     """Path-tracer integrate() for a camera wavefront -> rgba [N, 4].
 
     rays: types.Rays ([N, 3] o, d); pixel_sample, sampling_offs: [N] int64
@@ -260,7 +261,10 @@ def integrate(scene, types_present, rays, pixel_sample, sampling_offs,
     camera rays and the camera hits' paths, the camera rays all useful
     (core_tpu/integrators/path.py:305-316); as in core_tpu, the chains'
     rays are not counted there, but each chain depth's live lanes are
-    (raytrace.recursive_raytrace's "chain_live")."""
+    (raytrace.recursive_raytrace's "chain_live").  diff: optional (dxd,
+    dyd) neighbour directions of the camera rays, whose footprint selects
+    image-texture mip levels at the camera hits (core_tpu path.py:
+    320-326)."""
     _check_supported(opts)
     rs = rays_to_soa(rays)
     n = rs.tmin.shape[0]
@@ -271,9 +275,10 @@ def integrate(scene, types_present, rays, pixel_sample, sampling_offs,
     primary_valid = hits.valid
 
     sp = scene_mod.surface_points_s(scene, rs, hits)
+    lod = None if diff is None else texture_lod(scene, sp, rs, *diff)
     p = scene_mod.material_params_s(
         scene, sp, pick_seed=(9781 * pixel_sample + sampling_offs)
-        & qmc.MASK32)
+        & qmc.MASK32, lod=lod)
     wo = -rs.d
 
     col = where3(primary_valid, dispatch.emit_ss(types_present, p), 0.0)

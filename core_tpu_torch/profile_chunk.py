@@ -7,6 +7,7 @@
     python3 -m core_tpu_torch.profile_chunk spec_pt    # a specular chain
     python3 -m core_tpu_torch.profile_chunk ao_dl      # an integrator option
     python3 -m core_tpu_torch.profile_chunk cornell_fold2 fwdbwd  # folded
+    python3 -m core_tpu_torch.profile_chunk golden_pt  # the golden mesh
 
 Run from the root of a checkout on a machine with a CUDA card.  "cornell"
 renders cornell_box(light_samples=4) with PathOptions(path_samples=8,
@@ -23,7 +24,11 @@ chip_smoke.py's option configurations (cornell256_ao_dl_fwd,
 pane256_ts_dl_fwd, cornell256_glass_ts_dl_fwd: ambient occlusion, and
 transparent shadows on the pane scene and on the glass-block box), taken
 from chip_smoke.py itself; "cornell_fold2" is "cornell" with
-fold_interval=2 (sorted), chip_smoke's fold table row.  With "fwdbwd" it
+fold_interval=2 (sorted), chip_smoke's fold table row; "golden_dl" and
+"golden_pt" render chip_smoke.py's golden-mesh configurations at 512^2
+(goldenmesh512_dl_fwd, goldenmesh512_pt_fwd: golden_mesh_scene with
+ibl_samples=8, DirectOptions(raydepth=3) or PathOptions(path_samples=4,
+bounces=2, raydepth=3)).  With "fwdbwd" it
 profiles bench_cuda.py's step instead of a forward chunk: value_and_grad
 of the loss of one 1-spp chunk (Cornell: the mean squared RGB against a
 zero target; big and mesh: the mean RGB) with respect to
@@ -77,6 +82,10 @@ def _config(name):
     if name in OPTIONS:
         import chip_smoke       # from the root of the checkout
         return chip_smoke.option_config(OPTIONS[name], 256)
+    if name in ("golden_dl", "golden_pt"):
+        import chip_smoke
+        return (chip_smoke.golden_scene(512),
+                chip_smoke.golden_opts(name[-2:]))
     direct = RenderOptions(aa_samples=1, spp_chunk=1,
                            integrator="directlight",
                            integrator_opts=DirectOptions(raydepth=1))
@@ -98,7 +107,8 @@ def _config(name):
                               integrator_opts=iopts))
     raise SystemExit(f"profile_chunk: unknown configuration {name!r} "
                      "(cornell, cornell_fold2, big, mesh, spec_pt, spec_dl, "
-                     "blend_dl, ao_dl, pane_ts_dl or glass_ts_dl)")
+                     "blend_dl, ao_dl, pane_ts_dl, glass_ts_dl, golden_dl "
+                     "or golden_pt)")
 
 
 def _fwdbwd_step(name, scene, opts):

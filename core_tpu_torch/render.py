@@ -26,12 +26,14 @@ import torch
 
 from core_tpu_torch import film as film_mod
 from core_tpu_torch.cameras import shoot_ray
+from core_tpu_torch.differentials import camera_diff_dirs
 from core_tpu_torch.film import Film, FilterType
 from core_tpu_torch.integrators import direct as direct_mod
 from core_tpu_torch.integrators import path as path_mod
 from core_tpu_torch.integrators.direct import DirectOptions
 from core_tpu_torch.integrators.path import PathOptions
 from core_tpu_torch.sampling import qmc
+from core_tpu_torch.textures.base import TexType
 
 # integrator name -> (integrate function, its options type)
 _INTEGRATORS = {"pathtracing": (path_mod.integrate, PathOptions),
@@ -121,8 +123,13 @@ def render_chunk(scene, types_present, opts: RenderOptions, film: Film,
     py = y.to(torch.float32) + dy
     rays, wt = shoot_ray(cam, px, py)
     integrate = _INTEGRATORS[opts.integrator][0]
+    # primary-ray differentials (diffRay_t, integrator.cc:299-304): the
+    # +1-pixel neighbour directions drive image-texture mip filtering; as
+    # in core_tpu, only a scene with an image texture computes them
+    diff_kw = {"diff": camera_diff_dirs(cam, px, py)} \
+        if _has_image_textures(scene) else {}
     rgba = integrate(scene, types_present, rays, pixel_sample, sampling_offs,
-                     opts.integrator_opts)
+                     opts.integrator_opts, **diff_kw)
     rgba = rgba * wt[..., None]
     if blocked:
         dx, dy, rgba, wt = (_unblock_to_raster(a, spp, h, w)
@@ -132,6 +139,11 @@ def render_chunk(scene, types_present, opts: RenderOptions, film: Film,
                                      filterw=filterw, ftype=opts.filter_type,
                                      sample_mask=wt > 0.0,
                                      clamp_rgb=opts.clamp_rgb)
+
+
+def _has_image_textures(scene) -> bool:
+    return scene.textures is not None and any(
+        d.ttype == TexType.IMAGE for d in scene.textures.defs)
 
 
 def scene_material_types(scene) -> tuple:

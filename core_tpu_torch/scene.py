@@ -31,6 +31,7 @@ from core_tpu_torch.materials.base import (MaterialTable, MatParamsS,
                                            MatType, gather_params_s)
 from core_tpu_torch.sampling import qmc
 from core_tpu_torch.textures.base import eval_texture
+from core_tpu_torch.textures.nodes import eval_graph
 from core_tpu_torch.types import Hits
 from core_tpu_torch.vec import (SPS, V3, RaysS, create_cs3, cross3, dot3,
                                 normalize3, where3)
@@ -51,6 +52,9 @@ class Scene:
     has_specular: bool = True
     has_transparency: bool = False
     mat_types: tuple = ()           # MatType values present in the table
+    # shader-node programs: (mat_index, slot, node defs, out node name)
+    node_programs: tuple = ()
+    texture_name_map: tuple = ()    # sorted (texture name, index) pairs
     intersector: str = "torch"      # "cuda" | "torch", see resolve_intersector
 
     @property
@@ -278,7 +282,8 @@ def composite_pick(sps: SPS, val, pick_seed=None):
     return r01 < val
 
 
-def _resolve_composites(scene: Scene, sps: SPS, p: MatParamsS, pick_seed):
+def _resolve_composites(scene: Scene, sps: SPS, p: MatParamsS, pick_seed,
+                        lod):
     """BLEND / MASK rows -> a sub-material's row per hit (core_tpu
     material_params, scene.py:456-516; reference blend.cc, mask.cc): a mask
     takes sub-material 1 where its texture's mean exceeds blend_val, else
@@ -300,7 +305,8 @@ def _resolve_composites(scene: Scene, sps: SPS, p: MatParamsS, pick_seed):
     is_mask = p.mtype == int(MatType.MASK)
     is_blend = p.mtype == int(MatType.BLEND)
     if scene.textures is not None:
-        rgb, _ = eval_texture(scene.textures, btex, sps.p)
+        rgb, _ = eval_texture(scene.textures, btex, sps.p, (sps.u, sps.v),
+                              lod)
         tval = (rgb.x + rgb.y + rgb.z) / 3.0
         has_btex = btex >= 0
         mask_pick = has_btex & (tval > val)
@@ -332,23 +338,68 @@ def _resolve_composites(scene: Scene, sps: SPS, p: MatParamsS, pick_seed):
                       dtex.index_select(0, idx))
 
 
-def material_params_s(scene: Scene, sps: SPS, pick_seed=None) -> MatParamsS:
+def material_params_s(scene: Scene, sps: SPS, pick_seed=None,
+                      lod=None) -> MatParamsS:
     """SoA material rows for the hits: the table rows, blend and mask rows
     resolved to a sub-material's row (_resolve_composites), then a mapped
-    diffuse texture replacing the diffuse colour per hit (core_tpu
-    material_params; the reference's shader-node substitution in initBSDF,
+    diffuse texture replacing the diffuse colour per hit, then the
+    node-mapped slots (_apply_node_programs) (core_tpu material_params;
+    the reference's shader-node substitution in initBSDF,
     glossy2.cc:88-96).
 
     pick_seed: [N] int64 tensor of uint32 values, the per-lane QMC offset
-    that decorrelates a cross-family blend's pick (None = seed 0)."""
+    that decorrelates a cross-family blend's pick (None = seed 0).
+    lod: optional [N] UV-space footprint of camera hits
+    (differentials.texture_lod) for mip-filtered image lookups."""
     p = gather_params_s(scene.materials, sps.mat)
     tex = None
     if {int(MatType.BLEND), int(MatType.MASK)} & set(scene.mat_types):
-        p, tex = _resolve_composites(scene, sps, p, pick_seed)
-    if scene.textures is None:
-        return p
-    if tex is None:
-        idx = sps.mat.clamp(0, scene.materials.mtype.shape[0] - 1).long()
-        tex = scene.materials.diffuse_tex.index_select(0, idx)
-    rgb, _ = eval_texture(scene.textures, tex, sps.p)
-    return p._replace(diffuse_color=where3(tex >= 0, rgb, p.diffuse_color))
+        p, tex = _resolve_composites(scene, sps, p, pick_seed, lod)
+    if scene.textures is not None:
+        if tex is None:
+            idx = sps.mat.clamp(0, scene.materials.mtype.shape[0] - 1).long()
+            tex = scene.materials.diffuse_tex.index_select(0, idx)
+        rgb, _ = eval_texture(scene.textures, tex, sps.p, (sps.u, sps.v),
+                              lod)
+        p = p._replace(diffuse_color=where3(tex >= 0, rgb, p.diffuse_color))
+    if scene.node_programs:
+        p = _apply_node_programs(scene, p, sps)
+    return p
+
+
+# node-mapped scalar slot -> MatParamsS column (core_tpu's strengths
+# layout: mirror, transparency, translucency, diffuse)
+_SCALAR_SLOTS = {"mirror_shader": "c_mirror",
+                 "transparency_shader": "c_transp",
+                 "translucency_shader": "c_transl",
+                 "glossy_reflect_shader": "glossy_reflect"}
+_COLOR_SLOTS = {"diffuse_shader": "diffuse_color",
+                "mirror_color_shader": "mirror_color",
+                "glossy_shader": "glossy_color"}
+
+
+def _apply_node_programs(scene: Scene, p: MatParamsS, sps: SPS):
+    """Node-mapped material slots substituted per hit (core_tpu/scene.py:
+    536-565; the reference's initBSDF shader evaluation,
+    shinydiffuse.cc:496-556): a colour slot takes the program's colour, a
+    scalar slot its scalar, on the hits of the program's material.  A
+    sigma_oren_shader is accepted and, as in core_tpu, not applied;
+    environment.collect_node_programs refuses a bump_shader."""
+    ctx = {"p": sps.p, "uv": (sps.u, sps.v), "n": sps.n,
+           "texture_names": dict(scene.texture_name_map)}
+    for mat_idx, slot, ndefs, out in scene.node_programs:
+        if slot == "bump_shader":
+            raise NotImplementedError("bump_shader (bump mapping) is not "
+                                      "ported to core_tpu_torch yet")
+        if slot not in _COLOR_SLOTS and slot not in _SCALAR_SLOTS:
+            continue
+        rgb, _, sval = eval_graph(list(ndefs), out, ctx, scene.textures)
+        mask = sps.mat == mat_idx
+        if slot in _COLOR_SLOTS:
+            col = _COLOR_SLOTS[slot]
+            p = p._replace(**{col: where3(mask, rgb, getattr(p, col))})
+        else:
+            col = _SCALAR_SLOTS[slot]
+            p = p._replace(**{col: torch.where(mask, sval,
+                                               getattr(p, col))})
+    return p

@@ -7,12 +7,17 @@ voronoi textured materials, a clouds environment with importance-sampled
 IBL and a sun light; big_scene is its 1,017,202-triangle size.
 mesh_builder holds mesh_scene's elements but its background and lights;
 add_dirac_lights gives such a builder the dirac variant's lighting.
+golden_mesh_scene: the reference renderer's textured torus and ground
+(checker.tga through texture_mapper nodes) lit only by a sky.tga
+environment with IBL, the scene of the mesh + IBL goldens.
 
 Each is built host-side in numpy exactly as core_tpu builds it, so the two
 packages' scenes agree leaf by leaf.  Every entry point builds on the card
 unless the caller passes device="cpu".
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -320,3 +325,80 @@ def add_dirac_lights(b):
     for name, params in DIRAC_LIGHTS:
         b.create("light", name, ParamMap(params))
     return b
+
+
+ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "refgold", "assets")
+
+
+def golden_mesh_scene(resx=128, resy=128, ibl_samples=8, asset_dir=None, *,
+                      device="cuda") -> Scene:
+    """core_tpu's golden_mesh_scene, the scene of refgold/driver_ms.cc (the
+    mesh + IBL goldens): a torus (48 x 24 quads, R = 1.2, r = 0.5, centre
+    (0, 1.5, 0), uvs tiled 3x along u, smoothed at 80 degrees) and a 24 x 24
+    ground quad (uvs 0..6), 2,306 triangles (the brute kernels 1 and 2),
+    each with checker.tga as its diffuse colour through a
+    texture_mapper(texco=uv) node, lit only by a sky.tga textureback with
+    ibl=True.  Vertices, uvs and faces are added in core_tpu's order, in
+    bulk.  asset_dir defaults to refgold/assets beside the package; a
+    missing asset raises."""
+    from core_tpu_torch.environment import SceneBuilder
+    if asset_dir is None:
+        asset_dir = ASSET_DIR
+    b = SceneBuilder(check_device(device))
+    for name, fname in (("checktex", "checker.tga"), ("skytex", "sky.tga")):
+        b.create("texture", name, ParamMap({
+            "type": "image", "filename": os.path.join(asset_dir, fname),
+            "gamma": 1.0, "interpolate": "bilinear"}))
+
+    def mapper(nm):
+        return [ParamMap({"element": "shader_node", "name": nm,
+                          "type": "texture_mapper", "texture": "checktex",
+                          "texco": "uv"})]
+
+    b.create("material", "ball", ParamMap({
+        "type": "shinydiffusemat", "color": (1.0, 1.0, 1.0),
+        "diffuse_reflect": 0.9, "diffuse_shader": "map_ball"}),
+        extra=mapper("map_ball"))
+    b.create("material", "ground", ParamMap({
+        "type": "shinydiffusemat", "color": (1.0, 1.0, 1.0),
+        "diffuse_reflect": 0.8, "diffuse_shader": "map_gnd"}),
+        extra=mapper("map_gnd"))
+
+    a = b.assembler
+    U, V = 48, 24
+    R, r, cy = 1.2, 0.5, 1.5
+    m = a.start_mesh()
+    # vertex and uv (i, j) is number i * (V + 1) + j, as core_tpu's loop
+    # over i then j adds them
+    i, j = np.meshgrid(np.arange(U + 1), np.arange(V + 1), indexing="ij")
+    u = 2.0 * np.pi * i / U
+    v = 2.0 * np.pi * j / V
+    a.add_vertices(m, np.stack([(R + r * np.cos(v)) * np.cos(u),
+                                cy + r * np.sin(v),
+                                (R + r * np.cos(v)) * np.sin(u)], -1))
+    a.add_uvs(m, np.stack([3.0 * i / U, j / V], -1))
+    i, j = np.meshgrid(np.arange(U), np.arange(V), indexing="ij")
+    p_, q_ = i * (V + 1) + j, (i + 1) * (V + 1) + j
+    s_, t_ = q_ + 1, p_ + 1
+    # per quad two triangles (p, q, s) and (p, s, t); uv ids equal vertex ids
+    faces = np.stack([np.stack([p_, q_, s_], -1), np.stack([p_, s_, t_], -1)],
+                     axis=2).reshape(-1, 3)
+    a.add_triangles(m, faces, b.material_index("ball"), uv_ids=faces)
+    a.smooth_mesh(m, 80.0)
+
+    m2 = a.start_mesh()
+    E, T = 12.0, 6.0
+    a.add_vertices(m2, [(-E, 0.0, -E), (E, 0.0, -E), (E, 0.0, E),
+                        (-E, 0.0, E)])
+    a.add_uvs(m2, [(0.0, 0.0), (T, 0.0), (T, T), (0.0, T)])
+    quad = [(0, 1, 2), (0, 2, 3)]
+    a.add_triangles(m2, quad, b.material_index("ground"), uv_ids=quad)
+
+    b.create("background", "world", ParamMap({
+        "type": "textureback", "texture": "skytex", "ibl": True,
+        "ibl_samples": ibl_samples, "power": 1.0}))
+    b.camera = make_perspective(pos=(6.0, 3.2, -7.5), look=(0.0, 1.8, 0.0),
+                                up=(6.0, 4.2, -7.5), resx=resx, resy=resy,
+                                focal=1.1, device=b.device)
+    return b.compile_scene()

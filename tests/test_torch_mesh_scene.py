@@ -113,8 +113,10 @@ def test_textures_match(scenes, name):
     uv = np.zeros((p.shape[0], 2), np.float32)
     want = np.asarray(j_eval_texture_def(js.textures, i, jnp.asarray(p),
                                          jnp.asarray(uv)))
-    rgb, alpha = eval_texture_def(ts.textures.defs[i],
-                                  tvec.v3(torch.from_numpy(p)))
+    tuv = torch.from_numpy(uv)
+    rgb, alpha = eval_texture_def(ts.textures, i,
+                                  tvec.v3(torch.from_numpy(p)),
+                                  (tuv[:, 0], tuv[:, 1]))
     got = np.stack([rgb.x, rgb.y, rgb.z, alpha], axis=-1)
     np.testing.assert_allclose(got, want, **TOL)
     assert want[:, 3].std() > 0.05          # the texture varies

@@ -224,3 +224,17 @@ def test_unported_features_raise_by_name(scenes):
             integrator_opts=DirectOptions(use_sss=True)))
     with pytest.raises(NotImplementedError, match="photonmapping"):
         render_image(ts, RenderOptions(integrator="photonmapping"))
+    # the shader nodes left out: mix and layer nodes, bump mapping
+    from core_tpu_torch.environment import SceneBuilder
+    from core_tpu_torch.params import ParamMap
+    for ntype, slot in (("mix", "diffuse_shader"),
+                        ("layer", "diffuse_shader"),
+                        ("texture_mapper", "bump_shader")):
+        b = SceneBuilder("cpu")
+        b.create("texture", "tex", ParamMap({"type": "clouds"}))
+        with pytest.raises(NotImplementedError,
+                           match=ntype if slot != "bump_shader" else slot):
+            b.create("material", "m", ParamMap({
+                "type": "shinydiffusemat", slot: "node"}),
+                extra=[ParamMap({"name": "node", "type": ntype,
+                                 "texture": "tex"})])
