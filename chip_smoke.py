@@ -152,15 +152,41 @@ Phases, with their seconds:
                extract_params(geometry=False) with finite gradients within
                1e-4 x max|g| of the plain versions' and a nonzero
                diffuse_reflect gradient on both node-mapped materials
+  18. mesh zoo — scenes.MESH_ZOO built by the port (zoo_builder):
+               mesh_scene's 73,602 triangles in 512 clusters (the flat
+               kernels 4 and 6), its camera, clouds IBL (K=16 bundles) and
+               sun (K=8), with the terrain's diffuse a layer node over a
+               ridged-multifractal and a wood texture and its bump a
+               heteroterrain musgrave over cell noise, and the torus a
+               coated anisotropic glossy whose diffuse is a screen mix of a
+               distorted-noise and a coloured Minkowski voronoi by a blend
+               ramp, its glossy colour an rgb cube; the build seconds; the
+               inputs of kernels 4 and 6 captured from one 1-spp
+               path-traced 256^2 chunk (directlight raydepth 3 and path
+               tracing path_samples=4, bounces=2, raydepth=3, golden_opts):
+               the camera, two bounce and first chain-depth closest hits
+               and the sun and IBL bundles of those four vertices, every
+               lane against the plain versions, timed, with bounds as in
+               phase 7; 1-spp 256^2 chunks of meshzoo256_dl_fwd /
+               meshzoo256_pt_fwd in turns with mesh_scene under the same
+               options (zoo dl, mesh dl, mesh pt, zoo pt, then back): ms per
+               chunk and its ratio to mesh_scene's, Mrays/s counted at the
+               scene entry points, peak memory, launches per chunk (kernels
+               4 and 6 > 0, no other kernel, no plain version); 64^2 dl and
+               pt renders through the kernels bit-identical to the plain
+               versions'; a 64^2 dl fwd+bwd over extract_params(geometry=
+               False) within 1e-4 x max|g| of the plain versions', with the
+               coated torus row's mirror_color and glossy_reflect gradients
+               nonzero (its glossy_color is node-mapped: 0)
 The line before the last is the card's name and power limit (nvidia-smi),
 the one before that the kernel table as JSON, and the last line is
 {"ok": true, "device": {...}}.  Rows 1 and 2 of that table are phase 2's
 synthetic bounce-shape inputs (comparable with earlier runs); phase 4b
 prints the captured ones.  Each row's fwdbwd_launches is the kernel's
 launches in one fwd+bwd step of phase 4c, its chain_launches,
-option_launches and golden_launches those per chunk of each phase 10-12,
-13-15 and 17 configuration, its fold_launches those per step of each
-fold-table row.
+option_launches, golden_launches and zoo_launches those per chunk of each
+phase 10-12, 13-15, 17 and 18 configuration, its fold_launches those per
+step of each fold-table row.
 Any failure raises (non-zero exit).  Imports nothing of jax or core_tpu.
 """
 from __future__ import annotations
@@ -2157,6 +2183,260 @@ def phase_golden():
     return launches, rows
 
 
+# --------------------------------------------------------------------------
+# phase 18: the mesh zoo (procedural textures, mix / layer nodes, bump
+# mapping, coated anisotropic glossy) on the flat cluster path
+# --------------------------------------------------------------------------
+
+def zoo_builder(b, param_map, texture_def, tex_type, helpers, make_camera,
+                res, grid=None, torus=None, ibl_samples=None,
+                sun_samples=None):
+    """Fill SceneBuilder b with scenes.MESH_ZOO, in mesh_scene's order
+    (textures, materials, terrain, torus, background, lights, camera),
+    through either package: param_map, texture_def and tex_type are its
+    ParamMap, TextureDef and TexType, helpers its scenes module (the
+    _grid_mesh and _torus_mesh helpers), make_camera its make_perspective
+    with any device bound.  grid (n), torus ((nu, nv)), ibl_samples and
+    sun_samples replace MESH_ZOO's sizes.  Returns b."""
+    from core_tpu_torch.scenes import MESH_ZOO as z
+    for name, params in z["textures"]:
+        b.create("texture", name, param_map(dict(params)))
+    for name, fields in z["texture_defs"]:
+        b.add_texture(name, texture_def(
+            **{**fields, "ttype": tex_type[fields["ttype"]]}))
+    for name, params, nodes in z["materials"]:
+        b.create("material", name, param_map(dict(params)), extra=[
+            param_map({"element": "shader_node", **nd}) for nd in nodes])
+    a = b.assembler
+    m = a.start_mesh()
+    helpers._grid_mesh(a, m, grid or z["grid"]["n"], z["grid"]["extent"],
+                       b.material_index("terrain"))
+    a.smooth_mesh(m, z["smooth"])
+    m = a.start_mesh()
+    t = z["torus"]
+    nu, nv = torus or (t["nu"], t["nv"])
+    helpers._torus_mesh(a, m, nu, nv, t["R"], t["r"], t["center"],
+                        b.material_index("torus"))
+    a.smooth_mesh(m, z["smooth"])
+    name, params = z["background"]
+    b.create("background", name, param_map(
+        {**params, "ibl_samples": ibl_samples or params["ibl_samples"]}))
+    for name, params in z["lights"]:
+        b.create("light", name, param_map(
+            {**params, "samples": sun_samples or params["samples"]}))
+    b.camera = make_camera(**z["camera"], resx=res, resy=res)
+    return b
+
+
+def zoo_scene(res, intersector="auto", device="cuda", **sizes):
+    """The mesh zoo built by the port (MESH_ZOO at its sizes, or `sizes`
+    as zoo_builder takes them)."""
+    import dataclasses
+    import functools
+    from core_tpu_torch import scenes
+    from core_tpu_torch.cameras import make_perspective
+    from core_tpu_torch.environment import SceneBuilder
+    from core_tpu_torch.params import ParamMap
+    from core_tpu_torch.textures.base import TexType, TextureDef
+    b = SceneBuilder(device)
+    scene = zoo_builder(b, ParamMap, TextureDef, TexType, scenes,
+                        functools.partial(make_perspective, device=b.device),
+                        res, **sizes).compile_scene()
+    return scene if intersector == "auto" else \
+        dataclasses.replace(scene, intersector=intersector)
+
+
+ZOO_RES = 256
+ZOO_TRIS = 73_602
+ZOO_SLICE = 64
+ZOO_TURNS = (("zoo", "dl"), ("mesh", "dl"), ("mesh", "pt"), ("zoo", "pt"),
+             ("zoo", "pt"), ("mesh", "pt"), ("mesh", "dl"), ("zoo", "dl"))
+# the configurations' names; mesh_scene's directlight one at raydepth 3 is
+# not phase 7's mesh256_dl_fwd (raydepth 1)
+ZOO_CFGS = {("zoo", "dl"): "meshzoo256_dl_fwd", ("zoo", "pt"):
+            "meshzoo256_pt_fwd", ("mesh", "dl"): "mesh256_dl3_fwd",
+            ("mesh", "pt"): "mesh256_pt_fwd"}
+FLAT = ("cluster_closest_hit", "cluster_any_hit_nee")
+
+
+def _flat_only(launches, what):
+    """Fails unless kernels 4 and 6 launched and no other kernel or plain
+    version did."""
+    others = {k: n for k, n in launches.items() if k not in FLAT and n}
+    if min(launches[k] for k in FLAT) <= 0 or others or plain_calls():
+        fail(f"{what}: kernels 4 and 6 must launch and no other kernel or "
+             f"plain version: {launches}, plain calls {plain_calls()}")
+
+
+def _zoo_kernels(scene):
+    """Kernels 4 and 6 on the inputs captured from one 1-spp path-traced
+    zoo chunk: the camera, the two bounce and the first chain depth's
+    (the coat's reflection or the glossy lobe) closest hits, and the sun
+    (K=8) and IBL (K=16) bundles of those four vertices, every lane
+    against the plain versions and timed."""
+    calls = _capture_calls(scene, ZOO_RES, golden_opts("pt"))
+    closest = [c for c in calls if c[0] == "closest"]
+    nees = [c for c in calls if c[0] == "nee"]
+    print(f"zoo pt: one chunk made {len(closest)} closest-hit calls (lanes "
+          f"{[c[1][1].tmin.shape[0] for c in closest]}) and {len(nees)} NEE "
+          f"bundles (K = {[len(c[1][3]) for c in nees]})")
+    if len(calls) != 36 or len(closest) != 12:
+        fail(f"zoo pt chunk: {len(closest)} closest-hit calls of "
+             f"{len(calls)}, not 12 of 36")
+    rows = {}
+    for kernel, q, got, names in (
+            ("cluster_closest_hit", "closest", closest[:4],
+             ("camera", "bounce 1", "bounce 2", "chain depth 1")),
+            ("cluster_any_hit_nee", "nee", nees[:8],
+             [f"{v} {light}" for v in ("camera", "bounce 1", "bounce 2",
+                                       "chain depth 1")
+              for light in ("sun bundle (K=8)", "IBL bundle (K=16)")])):
+        what = " closest hit" if q == "closest" else ""
+        per = [_check_captured(f"zoo pt: {name}{what}", *c)
+               for name, c in zip(names, got)]
+        rows[kernel] = {"max_abs_err": max(r["max_abs_err"] for r in per)}
+        _gap(f"kernel {4 if q == 'closest' else 6}, zoo pt captured calls",
+             per)
+    return rows
+
+
+def phase_zoo():
+    """The mesh zoo through kernels 4 and 6 (see the header).  Returns
+    the launches per chunk of each zoo configuration and the kernels'
+    error rows."""
+    import torch
+    from core_tpu_torch import diff
+    from core_tpu_torch import film as film_mod
+    from core_tpu_torch import scene as sm
+    from core_tpu_torch.render import (render_chunk, render_image,
+                                       scene_material_types)
+    from core_tpu_torch.scenes import mesh_scene
+    t0 = time.perf_counter()
+    zoo = zoo_scene(ZOO_RES)
+    sync()
+    dt = time.perf_counter() - t0
+    if (sm.accel_kind(zoo.accel), zoo.geom.n_tris) != ("flat", ZOO_TRIS):
+        fail(f"zoo: {zoo.geom.n_tris} triangles on the "
+             f"{sm.accel_kind(zoo.accel)} path, not {ZOO_TRIS} flat")
+    print(f"zoo: {ZOO_RES}x{ZOO_RES} scene built in {dt:.3f} s (host build, "
+          f"accel and IBL CDFs): {zoo.geom.n_tris} triangles, "
+          f"{zoo.accel.aabb.shape[0]} clusters, "
+          f"{len(zoo.textures.defs)} textures "
+          f"{sorted({d.ttype.name for d in zoo.textures.defs})}, node "
+          f"programs {[(m, slot) for m, slot, _, _ in zoo.node_programs]}, "
+          f"material types {zoo.mat_types}")
+    rows = _zoo_kernels(zoo)
+
+    # 1-spp chunks of the zoo and of mesh_scene under the same options, in
+    # turns, so that their ratio isolates the zoo's shading
+    scenes = {"zoo": zoo, "mesh": mesh_scene(resx=ZOO_RES, resy=ZOO_RES,
+                                             device="cuda")}
+    stats, launches = {}, {}
+    for name, kind in sorted(set(ZOO_TURNS)):
+        sc = scenes[name]
+        cfg = ZOO_CFGS[(name, kind)]
+        film = film_mod.make_film(ZOO_RES, ZOO_RES, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        sync()
+        with torch.no_grad():
+            film, rays = counted_rays(lambda: render_chunk(
+                sc, scene_material_types(sc), golden_opts(kind), film, 0, 1,
+                0))
+        sync()
+        launches[cfg] = all_launches()
+        _flat_only(launches[cfg], cfg)
+        stats[(name, kind)] = {"cfg": cfg, "rays": rays, "ms": [],
+                               "film": film, "peak_mib":
+                               torch.cuda.max_memory_allocated() / 2**20}
+    for name, kind in ZOO_TURNS:
+        st, sc = stats[(name, kind)], scenes[name]
+        sync()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            st["film"] = render_chunk(sc, scene_material_types(sc),
+                                      golden_opts(kind), st["film"], 0, 1,
+                                      len(st["ms"]) + 1)
+        sync()
+        st["ms"].append((time.perf_counter() - t0) * 1e3)
+    for (name, kind), st in sorted(stats.items()):
+        img = film_mod.flush(st["film"])
+        if not bool(torch.isfinite(img).all()):
+            fail(f"{st['cfg']}: image has non-finite values")
+        per = sum(st["ms"]) / len(st["ms"])
+        other = stats[("mesh" if name == "zoo" else "zoo", kind)]
+        print(f"{st['cfg']}: {ZOO_RES}x{ZOO_RES}, 1-spp chunks timed in "
+              f"turns {[round(t, 3) for t in st['ms']]} ms: {per:.3f} "
+              f"ms/chunk (x{per / (sum(other['ms']) / len(other['ms'])):.3f}"
+              f" of {other['cfg']}), rays per chunk {st['rays']}, "
+              f"{st['rays'] / per / 1e3:.3f} Mrays/s forward; peak device "
+              f"memory {st['peak_mib']:.1f} MiB; launches per chunk "
+              f"{launches[st['cfg']]}; image mean "
+              f"{float(img[..., :3].mean()):.6f}")
+        if name == "zoo":
+            write_png(BUILD / f"chip_smoke_{st['cfg']}.png", img.cpu().numpy())
+    zoo_launches = {c: n for c, n in launches.items()
+                    if c.startswith("meshzoo")}
+    del zoo, scenes, stats
+    torch.cuda.empty_cache()
+
+    # 64^2: kernels and plain versions give the same images and gradients
+    for kind in ("dl", "pt"):
+        imgs = [render_image(zoo_scene(ZOO_SLICE, isec),
+                             golden_opts(kind))[0]
+                for isec in ("cuda", "torch")]
+        sync()
+        if not torch.equal(*imgs):
+            fail(f"{ZOO_SLICE}^2 zoo {kind}: kernel and plain renders "
+                 f"differ: max abs {float((imgs[0] - imgs[1]).abs().max())}")
+        print(f"zoo slice: {ZOO_SLICE}x{ZOO_SLICE} {kind} render through "
+              f"the kernels == "
+              f"through the plain versions (bit-identical), mean "
+              f"{float(imgs[0][..., :3].mean()):.6f}, image sha256 "
+              f"{image_digest(imgs[0])}")
+    out = {}
+    for isec in ("cuda", "torch"):
+        sc = zoo_scene(ZOO_SLICE, isec)
+        out[isec] = diff.value_and_grad_fn(
+            sc, golden_opts("dl"), 1,
+            torch.zeros(ZOO_SLICE, ZOO_SLICE, 4, device=sc.device))(
+            diff.extract_params(sc, geometry=False))
+    (lk, gk), (lp, gp) = out["cuda"], out["torch"]
+    _grads_ok(lk, gk, f"{ZOO_SLICE}^2 zoo dl")
+    if not torch.equal(lk, lp):
+        fail(f"zoo {ZOO_SLICE}^2 losses differ: kernels {float(lk)}, plain "
+             f"{float(lp)}")
+    worst = 0.0
+    for k in gp:
+        scale = float(gp[k].abs().max())
+        err = float((gk[k] - gp[k]).abs().max())
+        if err > GRAD_RTOL * scale:
+            fail(f"zoo {ZOO_SLICE}^2 gradient of {k}: kernels vs plain "
+                 f"max abs {err} > {GRAD_RTOL} * {scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+    # the coated torus (row 1): its coat reflects Kr x mirror_color, and its
+    # glossy_shader node replaces glossy_color on every torus hit, so that
+    # leaf's gradient is 0 there by construction; glossy_reflect scales the
+    # lobe it shades
+    torus = 1
+    mirror = gk["mat.mirror_color"][torus]
+    gcol = gk["mat.glossy_color"][torus]
+    grefl = gk["mat.glossy_reflect"][torus]
+    if not bool((mirror.abs() > 0).all()) or float(grefl.abs()) <= 0 \
+            or bool((gcol != 0).any()):
+        fail(f"zoo {ZOO_SLICE}^2 torus gradients: mirror_color "
+             f"{mirror.tolist()}, "
+             f"glossy_reflect {float(grefl)}, glossy_color {gcol.tolist()}")
+    print(f"zoo fwdbwd slice: {ZOO_SLICE}x{ZOO_SLICE} dl, 1 spp: loss "
+          f"through the kernels == "
+          f"through the plain versions ({float(lk):.6f}); gradients finite, "
+          f"within {GRAD_RTOL} x max|g| of each leaf (worst {worst:.3e}); "
+          f"coated torus row: mirror_color "
+          f"{[round(float(g), 6) for g in mirror]}, glossy_reflect "
+          f"{float(grefl):.6f}, glossy_color {gcol.tolist()} (node-mapped)")
+    return zoo_launches, rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2234,6 +2514,9 @@ def main():
     golden, rows = timed("golden mesh", phase_golden)
     for name, row in rows.items():
         _merge(kt[name], row)
+    zoo, rows = timed("mesh zoo", phase_zoo)
+    for name, row in rows.items():
+        _merge(kt[name], row)
 
     replaces = {     # kernels 1 to 8
         "closest_hit": ("core_tpu/geometry/pallas_intersect.py:55",
@@ -2253,8 +2536,9 @@ def main():
         "grouped_any_hit": ("core_tpu/geometry/cluster_intersect.py:1129",
                             "core_tpu_torch/csrc/cluster.cu")}
     # fwdbwd_launches: the kernel's launches in one Cornell fwd+bwd step;
-    # chain_launches / option_launches / golden_launches: its launches per
-    # chunk of each chain / option / golden-mesh configuration;
+    # chain_launches / option_launches / golden_launches / zoo_launches:
+    # its launches per chunk of each chain / option / golden-mesh / mesh-zoo
+    # configuration;
     # fold_launches: per step of each fold table row
     table = [{"name": name, "route": "cuda", "source": src,
               "replaces": rep, "launches": counts[name], **kt[name],
@@ -2262,7 +2546,8 @@ def main():
               "chain_launches": {c: spec[c][name] for c in spec},
               "option_launches": {c: options[c][name] for c in options},
               "fold_launches": {r: folds[r][name] for r in folds},
-              "golden_launches": {c: golden[c][name] for c in golden}}
+              "golden_launches": {c: golden[c][name] for c in golden},
+              "zoo_launches": {c: zoo[c][name] for c in zoo}}
              for name, (rep, src) in replaces.items()]
     print(json.dumps({"kernels": table}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

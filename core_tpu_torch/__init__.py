@@ -8,8 +8,11 @@ On the CPU the same entry points run the kernels' plain PyTorch versions
 (geometry/intersect.py, geometry/cluster_intersect.py).
 
 Scope so far: the Cornell box, the textured mesh scenes (scenes.mesh_scene,
-scenes.big_scene at 1,017,202 triangles) and the golden mesh scene with
-image textures and shader nodes (scenes.golden_mesh_scene), direct-lit and
-path-traced through render.render_image, and their gradients (diff.py).
-Anything outside that slice raises NotImplementedError by name.
+scenes.big_scene at 1,017,202 triangles), the golden mesh scene with image
+textures and shader nodes (scenes.golden_mesh_scene) and the mesh zoo
+(scenes.MESH_ZOO: every procedural texture, the mix and layer nodes, bump
+mapping, anisotropic and coated glossy), direct-lit and path-traced
+through render.render_image, and their gradients (diff.py); texture
+images in TGA, PNG, HDR, EXR or .npy.  Anything outside that slice raises
+NotImplementedError by name.
 """

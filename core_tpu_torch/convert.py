@@ -74,13 +74,16 @@ def _texture_numpy(ctex, prefix: str, leaves: dict) -> list:
             leaves[f"{prefix}.{i}.image"] = _np(d.image)
         rec = {f: getattr(d, f) for f in tex_base.FIELDS}
         rec["ttype"] = int(rec["ttype"])
+        rec["mus_type"] = int(rec["mus_type"])
         out.append(rec)
     return out
 
 
 def _textures(recs, leaves, prefix, device):
     return tex_base.build_texture_set(
-        [tex_base.TextureDef(**{**r, "ttype": tex_base.TexType(r["ttype"])},
+        [tex_base.TextureDef(**{**r, "ttype": tex_base.TexType(r["ttype"]),
+                                "mus_type": tex_base.MusgraveType(
+                                    r["mus_type"])},
                              image=leaves.get(f"{prefix}.{i}.image"))
          for i, r in enumerate(recs)], device)
 

@@ -3,9 +3,13 @@ core_tpu/environment.py that mesh_scene uses; reference renderEnvironment_t).
 
 SceneBuilder collects created elements and geometry, then compile_scene
 builds the Scene on a device.  Element types keep the reference's names:
-  texture     clouds, marble, voronoi, image (a .tga or .npy file)
-  material    shinydiffusemat, glossy (each may carry a list of shader
-              nodes, `extra`, that its <slot>_shader parameters name)
+  texture     clouds, marble, wood, voronoi, musgrave, distorted_noise,
+              rgb_cube, blend, image (a .tga, .png, .hdr / .pic, .exr or
+              .npy file)
+  material    shinydiffusemat, glossy, coated_glossy (each may carry a list
+              of shader nodes, `extra`, that its <slot>_shader parameters
+              name, bump_shader included; glossy and coated_glossy take
+              anisotropic with exp_u / exp_v)
   background  textureback (its ibl=True adds the importance-sampled
               background light at compile time)
   light       sunlight, pointlight, spotlight, directional
@@ -33,7 +37,7 @@ from core_tpu_torch.params import ParamMap
 from core_tpu_torch.scene import Scene, resolve_intersector
 from core_tpu_torch.textures import noise as nz
 from core_tpu_torch.textures import nodes
-from core_tpu_torch.textures.base import (TexType, TextureDef,
+from core_tpu_torch.textures.base import (MusgraveType, TexType, TextureDef,
                                           build_texture_set)
 
 BRUTE_MAX_TRIS = 4096                                  # kernels 1-3
@@ -92,8 +96,8 @@ class SceneBuilder:
     def collect_node_programs(self, mat_idx: int, p: ParamMap, extra):
         """Parse a material's shader-node list and record which of its
         slots are node-mapped (nodematerial.cc loadNodes, and the material
-        factories reading their '<slot>_shader' parameters).  A mapped
-        bump_shader, and a node type not ported, raise."""
+        factories reading their '<slot>_shader' parameters).  A node type
+        core_tpu does not know raises (core_tpu substitutes white)."""
         ndefs = tuple(nd for nd in (nodes.parse_node(pm) for pm in extra)
                       if nd is not None)
         if not ndefs:
@@ -103,10 +107,6 @@ class SceneBuilder:
         for slot in self.NODE_SLOTS:
             ref = p.get_str(slot, "")
             if ref and ref in names:
-                if slot == "bump_shader":
-                    raise NotImplementedError("bump_shader (bump mapping) is "
-                                              "not ported to core_tpu_torch "
-                                              "yet")
                 self.node_programs.append((mat_idx, slot, ndefs, ref))
 
     def material_index(self, name: str) -> int:
@@ -188,10 +188,11 @@ def _mat_shinydiffuse(b: SceneBuilder, name, p: ParamMap):
 
 
 def _mat_glossy(b: SceneBuilder, name, p: ParamMap):
+    coated = p.get_str("type") == "coated_glossy"
     aniso = p.get_bool("anisotropic", False)
     exp = p.get_float("exponent", 50.0)
     d = MaterialDef(
-        mtype=MatType.GLOSSY,
+        mtype=MatType.COATED_GLOSSY if coated else MatType.GLOSSY,
         diffuse_color=p.get_color("diffuse_color", (1.0, 1.0, 1.0)),
         glossy_color=p.get_color("color", (1.0, 1.0, 1.0)),
         glossy_reflect=p.get_float("glossy_reflect", 1.0),
@@ -231,7 +232,12 @@ def _texture(b: SceneBuilder, name, p: ParamMap):
                        turb=p.get_float("turbulence", 1.0),
                        sharpness=p.get_float("sharpness", 1.0),
                        shape=p.get_str("shape", "sin"), **kw)
-    else:  # voronoi
+    elif t == "wood":
+        d = TextureDef(ttype=TexType.WOOD, depth=p.get_int("depth", 2),
+                       turb=p.get_float("turbulence", 1.0),
+                       rings=p.get_str("wood_type", "bands") == "rings",
+                       shape=p.get_str("shape", "sin"), **kw)
+    elif t == "voronoi":
         vt = {"f1": nz.V_F1, "f2": nz.V_F2, "f3": nz.V_F3, "f4": nz.V_F4,
               "f2f1": nz.V_F2F1, "crackle": nz.V_CRACKLE}.get(
             p.get_str("pattern", "f1"), nz.V_F1)
@@ -242,6 +248,30 @@ def _texture(b: SceneBuilder, name, p: ParamMap):
                                     p.get_float("weight2", 0.0),
                                     p.get_float("weight3", 0.0),
                                     p.get_float("weight4", 0.0)), **kw)
+    elif t == "musgrave":
+        mt = {"fBm": MusgraveType.FBM,
+              "multifractal": MusgraveType.MULTIFRACTAL,
+              "heteroterrain": MusgraveType.HETERO_TERRAIN,
+              "hybridmf": MusgraveType.HYBRID_MF,
+              "ridgedmf": MusgraveType.RIDGED_MF}.get(
+            p.get_str("musgrave_type", "fBm"), MusgraveType.FBM)
+        d = TextureDef(ttype=TexType.MUSGRAVE, mus_type=mt,
+                       mus_h=p.get_float("H", 1.0),
+                       mus_lacunarity=p.get_float("lacunarity", 2.0),
+                       mus_octaves=p.get_float("octaves", 2.0),
+                       mus_offset=p.get_float("offset", 1.0),
+                       mus_gain=p.get_float("gain", 1.0),
+                       mus_iscale=p.get_float("intensity", 1.0), **kw)
+    elif t == "distorted_noise":
+        d = TextureDef(ttype=TexType.DISTORTED,
+                       distort=p.get_float("distort", 1.0),
+                       noise_type2=p.get_str("noise_type2", "newperlin"),
+                       **kw)
+    elif t == "rgb_cube":
+        d = TextureDef(ttype=TexType.RGB_CUBE)
+    else:  # blend
+        d = TextureDef(ttype=TexType.BLEND,
+                       blend_type=p.get_str("stype", "lin"))
     return b.add_texture(name, d)
 
 
@@ -316,9 +346,11 @@ def _light_directional(b: SceneBuilder, name, p: ParamMap):
 
 
 _FACTORIES: dict[str, dict[str, Callable]] = {
-    "material": {"shinydiffusemat": _mat_shinydiffuse, "glossy": _mat_glossy},
-    "texture": {"clouds": _texture, "marble": _texture, "voronoi": _texture,
-                "image": _texture},
+    "material": {"shinydiffusemat": _mat_shinydiffuse, "glossy": _mat_glossy,
+                 "coated_glossy": _mat_glossy},
+    "texture": {t: _texture for t in (
+        "clouds", "marble", "wood", "voronoi", "musgrave", "distorted_noise",
+        "rgb_cube", "blend", "image")},
     "background": {"textureback": _bg_texture},
     "light": {"sunlight": _light_sun, "pointlight": _light_point,
               "spotlight": _light_spot, "directional": _light_directional},

@@ -133,9 +133,6 @@ class MaterialDef:
         if self.mtype in (MatType.BLEND, MatType.MASK):
             return BSDF.ALL         # the picked row's flags apply per hit
         if self.mtype in (MatType.GLOSSY, MatType.COATED_GLOSSY):
-            if abs(self.exp_u - self.exp_v) > 1e-6:
-                raise NotImplementedError("anisotropic glossy exponents are "
-                                          "not ported to core_tpu_torch yet")
             f = BSDF.GLOSSY | BSDF.REFLECT
             if self.diffuse_strength > 0.0:
                 f |= BSDF.DIFFUSE

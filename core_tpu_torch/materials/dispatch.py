@@ -3,8 +3,8 @@
 
 Each material family present in the scene is evaluated on the whole
 wavefront and its results are selected by type mask.  `types_present` is a
-static tuple of MatType values.  The shiny-diffuse, glossy, glass and
-rough-glass families are ported; coated glossy and translucent raise
+static tuple of MatType values.  The shiny-diffuse, glossy (plain and
+coated), glass and rough-glass families are ported; translucent raises
 NotImplementedError by name.  Blend and mask rows never reach dispatch:
 scene.material_params_s resolves them to a sub-material's row.
 """
@@ -18,6 +18,7 @@ from core_tpu_torch.vec import V3, where3, zeros3
 
 _FAMILIES = {int(MatType.SHINY_DIFFUSE): shinydiffuse,
              int(MatType.GLOSSY): glossy,
+             int(MatType.COATED_GLOSSY): glossy,
              int(MatType.GLASS): glass,
              int(MatType.ROUGH_GLASS): glass}
 

@@ -20,6 +20,7 @@ import functools
 from dataclasses import dataclass
 from typing import Any
 
+import numpy as np
 import torch
 
 from core_tpu_torch.cameras import Camera
@@ -71,6 +72,15 @@ class Scene:
     def tri_rows(self) -> torch.Tensor:
         """[28, T] per-triangle attribute table of surface_points_s."""
         return _triangle_rows(self.geom)
+
+    @functools.cached_property
+    def table_textures(self) -> tuple:
+        """The texture defs the material table names (diffuse and blend
+        textures), read once per Scene so that texture evaluation needs no
+        host synchronisation per call."""
+        ids = torch.cat([self.materials.diffuse_tex,
+                         self.materials.blend_tex]).unique().tolist()
+        return tuple(i for i in ids if i >= 0)
 
 
 def check_device(device) -> torch.device:
@@ -247,8 +257,54 @@ def surface_points_s(scene: Scene, rays_s: RaysS, hits: Hits) -> SPS:
     n_smooth = normalize3(cn0 * w0 + cn1 * u + cn2 * v)
     n = where3(smooth, n_smooth, ng)
     nu, nv = create_cs3(n)
-    return SPS(p=p, n=n, ng=ng, nu=nu, nv=nv, u=uu, v=vv,
-               mat=mat, light=light, prim=prim, obj=obj)
+    sps = SPS(p=p, n=n, ng=ng, nu=nu, nv=nv, u=uu, v=vv,
+              mat=mat, light=light, prim=prim, obj=obj)
+    if any(slot == "bump_shader" for _, slot, _, _ in scene.node_programs):
+        sps = apply_bump_s(scene, sps)
+    return sps
+
+
+BUMP_STEP = 2e-4
+
+
+def apply_bump_s(scene: Scene, sps: SPS) -> SPS:
+    """Bump mapping by node-value differences (core_tpu/scene.py:374-405;
+    the reference's textureMapper_t::evalDerivative procedural branch,
+    basicnodes.cc:227-240, and material_t::applyBump, material.cc:68-75):
+    per bump_shader program, the program's scalar at p -/+ BUMP_STEP along
+    nu and along nv, each difference divided by the step (not by twice
+    it) and scaled by the output node's bump_strength over the norm of its
+    scale; nu and nv tilt by those slopes along n, and the frame is
+    rebuilt, on the program's material only.  Autograd runs through the
+    four evaluations like any other shading."""
+    tex_names = dict(scene.texture_name_map)
+    for mat_idx, slot, ndefs, out in scene.node_programs:
+        if slot != "bump_shader":
+            continue
+        node = next(nd for nd in ndefs if nd.name == out)
+        scale = float(np.linalg.norm(np.asarray(
+            node.get("scale", (1.0, 1.0, 1.0)), np.float64)))
+        strength = float(node.get("bump_strength", 1.0)) / max(scale, 1e-9)
+
+        def value(pp: V3):
+            ctx = {"p": pp, "uv": (sps.u, sps.v), "n": sps.n,
+                   "texture_names": tex_names}
+            return eval_graph(list(ndefs), out, ctx, scene.textures)[2]
+
+        def slope(axis: V3):
+            return (value(sps.p - axis * BUMP_STEP)
+                    - value(sps.p + axis * BUMP_STEP)) / BUMP_STEP * strength
+
+        nu = sps.nu + sps.n * slope(sps.nu)
+        nv = sps.nv + sps.n * slope(sps.nv)
+        n = normalize3(cross3(nu, nv))
+        nu = normalize3(nu)
+        nv = normalize3(cross3(n, nu))
+        mask = sps.mat == mat_idx
+        sps = sps._replace(n=where3(mask, n, sps.n),
+                           nu=where3(mask, nu, sps.nu),
+                           nv=where3(mask, nv, sps.nv))
+    return sps
 
 
 def _mul32(a, c: int):
@@ -306,7 +362,7 @@ def _resolve_composites(scene: Scene, sps: SPS, p: MatParamsS, pick_seed,
     is_blend = p.mtype == int(MatType.BLEND)
     if scene.textures is not None:
         rgb, _ = eval_texture(scene.textures, btex, sps.p, (sps.u, sps.v),
-                              lod)
+                              lod, scene.table_textures)
         tval = (rgb.x + rgb.y + rgb.z) / 3.0
         has_btex = btex >= 0
         mask_pick = has_btex & (tval > val)
@@ -360,7 +416,7 @@ def material_params_s(scene: Scene, sps: SPS, pick_seed=None,
             idx = sps.mat.clamp(0, scene.materials.mtype.shape[0] - 1).long()
             tex = scene.materials.diffuse_tex.index_select(0, idx)
         rgb, _ = eval_texture(scene.textures, tex, sps.p, (sps.u, sps.v),
-                              lod)
+                              lod, scene.table_textures)
         p = p._replace(diffuse_color=where3(tex >= 0, rgb, p.diffuse_color))
     if scene.node_programs:
         p = _apply_node_programs(scene, p, sps)
@@ -383,14 +439,11 @@ def _apply_node_programs(scene: Scene, p: MatParamsS, sps: SPS):
     536-565; the reference's initBSDF shader evaluation,
     shinydiffuse.cc:496-556): a colour slot takes the program's colour, a
     scalar slot its scalar, on the hits of the program's material.  A
-    sigma_oren_shader is accepted and, as in core_tpu, not applied;
-    environment.collect_node_programs refuses a bump_shader."""
+    sigma_oren_shader is accepted and, as in core_tpu, not applied; a
+    bump_shader tilts the frame in surface_points_s (apply_bump_s)."""
     ctx = {"p": sps.p, "uv": (sps.u, sps.v), "n": sps.n,
            "texture_names": dict(scene.texture_name_map)}
     for mat_idx, slot, ndefs, out in scene.node_programs:
-        if slot == "bump_shader":
-            raise NotImplementedError("bump_shader (bump mapping) is not "
-                                      "ported to core_tpu_torch yet")
         if slot not in _COLOR_SLOTS and slot not in _SCALAR_SLOTS:
             continue
         rgb, _, sval = eval_graph(list(ndefs), out, ctx, scene.textures)

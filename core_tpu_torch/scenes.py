@@ -10,6 +10,10 @@ add_dirac_lights gives such a builder the dirac variant's lighting.
 golden_mesh_scene: the reference renderer's textured torus and ground
 (checker.tga through texture_mapper nodes) lit only by a sky.tga
 environment with IBL, the scene of the mesh + IBL goldens.
+MESH_ZOO: the elements of the "mesh zoo", mesh_scene with its materials
+swapped for the procedural textures, mix / layer nodes, bump mapping and
+coated anisotropic glossy, as plain data (core_tpu has no scene function
+for it; chip_smoke.zoo_builder feeds it to either package's builder).
 
 Each is built host-side in numpy exactly as core_tpu builds it, so the two
 packages' scenes agree leaf by leaf.  Every entry point builds on the card
@@ -325,6 +329,87 @@ def add_dirac_lights(b):
     for name, params in DIRAC_LIGHTS:
         b.create("light", name, ParamMap(params))
     return b
+
+
+# The "mesh zoo": mesh_scene's geometry, camera and lights with its two
+# materials and their textures replaced by the procedural textures, the
+# mix and layer nodes, bump mapping and anisotropic coated glossy.  Plain
+# data, so that one definition feeds either package's SceneBuilder (core_tpu
+# has no scene function for these families): `textures` and `materials`
+# go through SceneBuilder.create (a material with its shader nodes as the
+# `extra` list), `texture_defs` through SceneBuilder.add_texture as
+# TextureDef fields (ttype by name), since core_tpu's voronoi factory reads
+# neither the colour mode nor the metric.
+MESH_ZOO = {
+    "textures": (
+        ("woodrings", {"type": "wood", "wood_type": "rings", "shape": "saw",
+                       "turbulence": 2.0, "depth": 2, "size": 4.0,
+                       "noise_type": "blender"}),
+        ("ridged", {"type": "musgrave", "musgrave_type": "ridgedmf",
+                    "H": 1.0, "lacunarity": 2.0, "octaves": 4.0,
+                    "offset": 1.0, "gain": 2.0, "size": 1.5}),
+        ("hetero", {"type": "musgrave", "musgrave_type": "heteroterrain",
+                    "octaves": 3.5, "offset": 0.8, "noise_type": "cellnoise",
+                    "size": 2.0}),
+        ("warp", {"type": "distorted_noise", "distort": 2.0,
+                  "noise_type": "voronoi_crackle", "noise_type2": "stdperlin",
+                  "size": 1.2}),
+        ("cube", {"type": "rgb_cube"}),
+        ("ease", {"type": "blend", "stype": "ease"}),
+        ("skytex", {"type": "clouds", "color1": (0.25, 0.45, 0.9),
+                    "color2": (1.0, 0.98, 0.92), "size": 0.8, "depth": 3,
+                    "noise_type": "stdperlin"}),
+    ),
+    "texture_defs": (
+        ("vorcol", {"ttype": "VORONOI", "vor_color_mode": 2,
+                    "vor_metric": 6, "vor_mk_exp": 1.5,
+                    "vor_weights": (1.0, 0.5, 0.25, 0.0), "size": 3.0}),
+    ),
+    "materials": (
+        ("terrain", {"type": "shinydiffusemat", "diffuse_reflect": 0.9,
+                     "diffuse_shader": "terrain_layer",
+                     "bump_shader": "terrain_bump"}, (
+            {"name": "ridged_map", "type": "texture_mapper",
+             "texture": "ridged", "texco": "uv", "scale": (2.0, 2.0, 2.0)},
+            {"name": "wood_map", "type": "texture_mapper",
+             "texture": "woodrings", "texco": "global"},
+            {"name": "terrain_layer", "type": "layer", "mode": 2,
+             "colfac": 0.7, "do_color": True, "input": "ridged_map",
+             "upper_layer": "wood_map"},
+            {"name": "terrain_bump", "type": "texture_mapper",
+             "texture": "hetero", "texco": "global", "bump_strength": 5.0})),
+        ("torus", {"type": "coated_glossy", "anisotropic": True,
+                   "exp_u": 200.0, "exp_v": 20.0, "IOR": 1.5,
+                   "glossy_reflect": 0.6, "mirror_color": (1.0, 1.0, 1.0),
+                   "diffuse_shader": "torus_mix",
+                   "glossy_shader": "cube_map"}, (
+            {"name": "warp_map", "type": "texture_mapper",
+             "texture": "warp"},
+            {"name": "vorcol_map", "type": "texture_mapper",
+             "texture": "vorcol"},
+            {"name": "ease_map", "type": "texture_mapper",
+             "texture": "ease"},
+            {"name": "torus_mix", "type": "mix", "mode": 4,
+             "input1": "warp_map", "input2": "vorcol_map",
+             "factor": "ease_map"},
+            {"name": "cube_map", "type": "texture_mapper",
+             "texture": "cube"})),
+    ),
+    # mesh_scene's defaults: an n x n-vertex terrain and an nu x nv-quad
+    # torus, each smoothed at `smooth` degrees: 73,602 triangles in 512
+    # clusters (the flat cluster kernels 4 and 6)
+    "grid": {"n": 160, "extent": 6.0},
+    "torus": {"nu": 180, "nv": 64, "R": 1.5, "r": 0.55,
+              "center": (0.0, 1.6, 0.0)},
+    "smooth": 80.0,
+    "camera": {"pos": (5.2, 3.4, -5.6), "look": (0.0, 1.2, 0.0),
+               "up": (5.2, 4.4, -5.6), "focal": 1.25},
+    "background": ("world", {"type": "textureback", "texture": "skytex",
+                             "ibl": True, "ibl_samples": 8, "power": 1.0}),
+    "lights": (("sun", {"type": "sunlight", "direction": (0.45, 0.8, 0.3),
+                        "color": (1.0, 0.95, 0.85), "power": 1.6,
+                        "angle": 0.5, "samples": 4}),),
+}
 
 
 ASSET_DIR = os.path.join(os.path.dirname(os.path.dirname(

@@ -1,19 +1,20 @@
 """Texture table and its evaluation over the wavefront
 (counterpart of core_tpu/textures/base.py).
 
-Scope: image textures (reference imagetex.cc: an atlas of every image of a
-set, the V flip, the repeat / checker / extend / clip wraps, point,
-bilinear and bicubic lookups and trilinear mip filtering under a
-ray-differential footprint) and the procedural marble, voronoi (intensity
-modes) and clouds textures, with core_tpu's TextureDef fields.  Wood,
-musgrave, distorted-noise, rgb-cube and blend textures, and voronoi colour
-modes, raise NotImplementedError by name.
+Every TexType of core_tpu with its TextureDef fields: the procedural
+clouds, marble, wood, voronoi (intensity and colour modes, every distance
+metric), musgrave (fBm, multifractal, heteroterrain, hybridMF, ridgedMF),
+distorted noise, rgb cube and blend (lin, quad, ease, diag, sphere, halo)
+textures (reference basictex.cc), and image textures (reference
+imagetex.cc: an atlas of every image of a set, the V flip, the repeat /
+checker / extend / clip wraps, point, bilinear and bicubic lookups and
+trilinear mip filtering under a ray-differential footprint).
 
-eval_texture(ctex, tex_id, p, uv, lod=None) -> (rgb V3 [N], alpha [N]);
-lanes whose tex_id is -1 get white with alpha 1, so callers can select
-unconditionally.  p is the 3-D point the procedural textures read, uv a
-(u, v) pair of [N] tensors the image textures read, lod an optional [N]
-UV-space footprint (differentials.texture_lod) that selects mip levels.
+eval_texture(ctex, tex_id, p, uv, lod=None, ids=None) -> (rgb V3 [N],
+alpha [N]); lanes whose tex_id is -1 get white with alpha 1, so callers can
+select unconditionally.  p is the 3-D point the procedural textures read,
+uv a (u, v) pair of [N] tensors the image textures read, lod an optional
+[N] UV-space footprint (differentials.texture_lod) that selects mip levels.
 """
 from __future__ import annotations
 
@@ -41,15 +42,22 @@ class TexType(enum.IntEnum):
     IMAGE = 8         # imagetex.cc textureImage_t
 
 
-PORTED = (TexType.CLOUDS, TexType.MARBLE, TexType.VORONOI, TexType.IMAGE)
+class MusgraveType(enum.IntEnum):
+    FBM = 0
+    MULTIFRACTAL = 1
+    HETERO_TERRAIN = 2
+    HYBRID_MF = 3
+    RIDGED_MF = 4
+
+
 INTERPOLATE = ("none", "bilinear", "bicubic")
 CLIP_MODES = ("repeat", "checker", "extend", "clip", "clipcube")
 
 
 @dataclass(eq=False)
 class TextureDef:
-    """Host-side texture description: core_tpu's TextureDef fields for the
-    ported types."""
+    """Host-side texture description (one reference plugin instance),
+    with core_tpu's TextureDef fields and defaults."""
     ttype: TexType = TexType.CLOUDS
     color1: tuple = (0.0, 0.0, 0.0)
     color2: tuple = (1.0, 1.0, 1.0)
@@ -58,15 +66,26 @@ class TextureDef:
     hard: bool = False
     bias: int = 0                  # clouds: 0 none, 1 positive, 2 negative
     noise_type: str = "newperlin"
-    turb: float = 1.0              # marble turbulence strength
+    turb: float = 1.0              # marble/wood turbulence strength
     sharpness: float = 1.0         # marble
     shape: str = "sin"             # sin | saw | tri
+    rings: bool = False            # wood
     vor_type: int = nz.V_F1
     vor_metric: int = nz.DIST_REAL
     vor_mk_exp: float = 2.5
-    vor_color_mode: int = 0        # 0 = intensity (the only mode ported)
+    vor_color_mode: int = 0        # 0 intensity, 1..3 coloured
     vor_weights: tuple = (1.0, 0.0, 0.0, 0.0)
     vor_iscale: float = 1.0
+    mus_type: MusgraveType = MusgraveType.FBM
+    mus_h: float = 1.0
+    mus_lacunarity: float = 2.0
+    mus_octaves: float = 2.0
+    mus_offset: float = 1.0
+    mus_gain: float = 1.0
+    mus_iscale: float = 1.0
+    distort: float = 1.0           # distorted noise amount
+    noise_type2: str = "newperlin"
+    blend_type: str = "lin"        # lin | quad | ease | diag | sphere | halo
     image: Optional[np.ndarray] = None   # [H,W,3/4] float, linear
     interpolate: str = "bilinear"  # none | bilinear | bicubic
     clip_mode: str = "repeat"      # repeat | checker | extend | clip(cube)
@@ -92,7 +111,10 @@ class CompiledTextures:
     slot k at level l (level 0 the atlas).  The slot is kept here, per
     def index of this set, and not on the def: core_tpu stamps it on the
     shared TextureDef, so a def in two sets (a textureback's own and the
-    scene's) carries the slot of whichever set was built last."""
+    scene's) carries the slot of whichever set was built last.
+    `ramps[i]` is def i's colour ramp, (colour1, colour2 - colour1) as
+    float32 values held in Python floats, so that evaluating a procedural
+    def uploads nothing."""
 
     def __init__(self, defs: list, atlas=None, mips=(), slots=(), hw=()):
         self.defs = list(defs)
@@ -100,15 +122,19 @@ class CompiledTextures:
         self.mips = tuple(mips)
         self.slots = tuple(slots)
         self.hw = tuple(hw)
+        self.ramps = tuple(_ramp(d) for d in self.defs)
 
 
-def check_supported(d: TextureDef):
-    if int(d.ttype) not in [int(t) for t in PORTED]:
-        raise NotImplementedError(f"{TexType(int(d.ttype)).name} textures "
-                                  "are not ported to core_tpu_torch yet")
-    if d.ttype == TexType.VORONOI and d.vor_color_mode > 0:
-        raise NotImplementedError("voronoi colour modes are not ported to "
-                                  "core_tpu_torch yet")
+def _ramp(d: TextureDef):
+    """(colour1, colour2 - colour1) of a def, each rounded as core_tpu's
+    float32 arrays are."""
+    c1 = np.asarray(d.color1, np.float32)
+    dc = np.asarray(d.color2, np.float32) - c1
+    return tuple(float(c) for c in c1), tuple(float(c) for c in dc)
+
+
+def check_image(d: TextureDef):
+    """An image def names an image and known lookup settings."""
     if d.ttype == TexType.IMAGE:
         if d.image is None:
             raise ValueError(f"image texture {d.name!r} has no image")
@@ -158,7 +184,7 @@ def build_texture_set(defs: list, device) -> CompiledTextures:
     chain (host-side numpy, as core_tpu builds them), levels down to the
     largest image's 1-pixel side or MAX_MIP_LEVELS."""
     for d in defs:
-        check_supported(d)
+        check_image(d)
     prepped, slots = [], []
     for d in defs:
         if d.ttype == TexType.IMAGE:
@@ -186,7 +212,7 @@ def build_texture_set(defs: list, device) -> CompiledTextures:
 
 
 def _shape_fn(shape: str, w):
-    """Marble wave shapes (basictex.cc:110-128)."""
+    """Marble/wood wave shapes (basictex.cc:110-128)."""
     if shape == "saw":
         w = w * (0.5 / math.pi)
         return w - torch.floor(w)
@@ -196,25 +222,94 @@ def _shape_fn(shape: str, w):
     return 0.5 + 0.5 * torch.sin(w)
 
 
+def _norm(p: V3):
+    return torch.sqrt(p.x * p.x + p.y * p.y + p.z * p.z)
+
+
+def _musgrave(d: TextureDef, gen, p: V3):
+    tp = p * d.size
+    args = (gen, tp, d.mus_h, d.mus_lacunarity, d.mus_octaves)
+    mt = int(d.mus_type)
+    if mt == MusgraveType.FBM:
+        v = nz.fbm(*args)
+    elif mt == MusgraveType.MULTIFRACTAL:
+        v = nz.multifractal(*args)
+    elif mt == MusgraveType.HETERO_TERRAIN:
+        v = nz.hetero_terrain(*args, d.mus_offset)
+    elif mt == MusgraveType.HYBRID_MF:
+        v = nz.hybrid_mfractal(*args, d.mus_offset, d.mus_gain)
+    else:
+        v = nz.ridged_mfractal(*args, d.mus_offset, d.mus_gain)
+    return d.mus_iscale * v
+
+
+def _blend(blend_type: str, p: V3):
+    """textureBlend_t's ramps over x (and y, or the radius)."""
+    x, y = p.x, p.y
+    if blend_type in ("quad", "ease"):
+        c = ((x + 1.0) * 0.5).clamp(0.0, 1.0)
+        return c * c if blend_type == "quad" else c * c * (3.0 - 2.0 * c)
+    if blend_type == "diag":
+        return ((2.0 + x + y) * 0.25).clamp(0.0, 1.0)
+    if blend_type in ("sphere", "halo"):
+        h = (1.0 - _norm(p)).clamp_min(0.0)
+        return h if blend_type == "sphere" else h * h
+    return ((x + 1.0) * 0.5).clamp(0.0, 1.0)            # lin
+
+
 def _eval_one_float(d: TextureDef, p: V3):
-    """Float intensity of one texture def at points p."""
+    """Float intensity of one procedural texture def at points p
+    (core_tpu's _eval_one_float)."""
+    gen = nz.generator(d.noise_type)
     if d.ttype == TexType.CLOUDS:
-        v = nz.turbulence(nz.generator(d.noise_type), p, d.depth, d.size,
-                          d.hard)
+        v = nz.turbulence(gen, p, d.depth, d.size, d.hard)
         if d.bias:
             v = v * v
             if d.bias == 1:
                 v = -v
         return v
-    if d.ttype == TexType.MARBLE:
-        w = (p.x + p.y + p.z) * 5.0
+    if d.ttype in (TexType.MARBLE, TexType.WOOD):
+        if d.ttype == TexType.WOOD:
+            w = _norm(p) * 20.0 if d.rings else (p.x + p.y + p.z) * 10.0
+        else:
+            w = (p.x + p.y + p.z) * 5.0
         if d.turb != 0.0:
-            w = w + d.turb * nz.turbulence(nz.generator(d.noise_type), p,
-                                           d.depth, d.size, d.hard)
+            w = w + d.turb * nz.turbulence(gen, p, d.depth, d.size, d.hard)
+        if d.ttype == TexType.WOOD:
+            return _shape_fn(d.shape, w)
         return torch.pow(_shape_fn(d.shape, w).clamp_min(1e-12), d.sharpness)
-    # VORONOI, the last procedural type check_supported admits
-    return d.vor_iscale * nz.voronoi(p * d.size, d.vor_type, d.vor_metric,
-                                     d.vor_weights)
+    if d.ttype == TexType.VORONOI:
+        return d.vor_iscale * nz.voronoi(p * d.size, d.vor_type,
+                                         d.vor_metric, d.vor_mk_exp,
+                                         d.vor_weights)
+    if d.ttype == TexType.MUSGRAVE:
+        return _musgrave(d, gen, p)
+    if d.ttype == TexType.DISTORTED:
+        tp = p * d.size
+        off = V3(nz.signed(gen, tp + 13.5), nz.signed(gen, tp),
+                 nz.signed(gen, tp - 13.5)) * d.distort
+        return nz.generator(d.noise_type2)(tp + off)
+    if d.ttype == TexType.BLEND:
+        return _blend(d.blend_type, p)
+    raise ValueError(f"texture {d.name!r}: unknown type {d.ttype!r}")
+
+
+def _voronoi_color(d: TextureDef, p: V3):
+    """A voronoi def's colour modes (vor_color_mode > 0): the weighted
+    cell colours of F1..F4's feature points scaled by the weighted
+    intensity, alpha the clipped intensity (core_tpu eval_texture_def)."""
+    da, pa = nz.voronoi_features(p * d.size, d.vor_metric, d.vor_mk_exp,
+                                 points=True)
+    aw = [abs(x) for x in d.vor_weights]
+    col = inten = None
+    for k in range(4):
+        ck = nz.cell_noise_color(V3(pa.x[:, k], pa.y[:, k], pa.z[:, k]))
+        ck = ck * aw[k]
+        ik = aw[k] * da[:, k]
+        col = ck if col is None else col + ck
+        inten = ik if inten is None else inten + ik
+    inten = d.vor_iscale * inten
+    return col * inten, inten.clamp(0.0, 1.0)
 
 
 def _fetch(img, y, x):
@@ -324,32 +419,34 @@ def _eval_image(d: TextureDef, ctex: CompiledTextures, slot: int, uv,
 
 
 def eval_texture_def(ctex: CompiledTextures, i: int, p: V3, uv, lod=None):
-    """(rgb, alpha) of def i of the set at points p / uv coordinates uv;
-    a procedural def goes colour1 -> colour2 by its clipped value."""
+    """(rgb, alpha) of def i of the set at points p / uv coordinates uv; a
+    procedural def goes colour1 -> colour2 by its clipped value."""
     d = ctex.defs[i]
     if d.ttype == TexType.IMAGE:
         rgba = _eval_image(d, ctex, ctex.slots[i], uv, lod)
         return V3(rgba[:, 0], rgba[:, 1], rgba[:, 2]), rgba[:, 3]
-    val = _eval_one_float(d, p)
-    c1 = torch.tensor(d.color1, dtype=torch.float32, device=val.device)
-    c2 = torch.tensor(d.color2, dtype=torch.float32, device=val.device)
-    dc = c2 - c1
-    vc = val.clamp(0.0, 1.0)
-    return V3(c1[0] + vc * dc[0], c1[1] + vc * dc[1],
-              c1[2] + vc * dc[2]), vc
+    if d.ttype == TexType.RGB_CUBE:
+        return V3(*(c.abs().clamp(0.0, 1.0) for c in p)), \
+            torch.ones_like(p.x)
+    if d.ttype == TexType.VORONOI and d.vor_color_mode > 0:
+        return _voronoi_color(d, p)
+    vc = _eval_one_float(d, p).clamp(0.0, 1.0)
+    c1, dc = ctex.ramps[i]
+    return V3(*(a + vc * b for a, b in zip(c1, dc))), vc
 
 
-def eval_texture(ctex, tex_id, p: V3, uv, lod=None):
+def eval_texture(ctex, tex_id, p: V3, uv, lod=None, ids=None):
     """(rgb V3, alpha) of per-lane texture tex_id [N] at points p and uv
-    coordinates uv ((u, v), [N] each); -1 lanes are white."""
+    coordinates uv ((u, v), [N] each); -1 lanes are white.  ids: the def
+    indices tex_id can hold (a static tuple; None = every def of the set):
+    each is evaluated on every lane and selected by mask, with no host
+    synchronisation."""
     one = torch.ones_like(p.x)
     rgb, alpha = V3(one, one, one), one
     if ctex is None:
         return rgb, alpha
-    for i in range(len(ctex.defs)):
+    for i in range(len(ctex.defs)) if ids is None else ids:
         mask = tex_id == i
-        if not bool(mask.any()):
-            continue
         c, a = eval_texture_def(ctex, i, p, uv, lod)
         rgb = where3(mask, c, rgb)
         alpha = torch.where(mask, a, alpha)

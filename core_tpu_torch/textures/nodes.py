@@ -1,6 +1,6 @@
-"""Shader-node DAGs: texture mappers and value nodes
-(counterpart of core_tpu/textures/nodes.py; reference src/textures/
-basicnodes.cc, graph solver src/yafraycore/nodematerial.cc).
+"""Shader-node DAGs (counterpart of core_tpu/textures/nodes.py; reference
+src/textures/basicnodes.cc and layernode.cc, graph solver
+src/yafraycore/nodematerial.cc).
 
 A material's node list is topologically sorted once and evaluated over the
 whole wavefront, each node to (rgb V3 [N], alpha [N], scalar [N]):
@@ -11,9 +11,20 @@ whole wavefront, each node to (rgb V3 [N], alpha [N], scalar [N]):
   image texture at ((x + 1) / 2, (y + 1) / 2) of it.  Its scalar is the
   mean of the colour.
 - value (basicnodes.cc:325-335): a constant colour, alpha and scalar.
-The mix and layer nodes, and any other type, raise NotImplementedError by
-name.  A mapper naming no texture of the scene raises ValueError (core_tpu
-substitutes white there; the reference fails to create the node).
+- mix (basicnodes.cc:340-600): two inputs, each a node or a constant
+  colour and value, combined by a factor (a node's scalar or a constant)
+  in one of the modes of _MODE_NAMES; the node types "add", "multiply",
+  ... name their mode themselves.  Mode 5 ("divide") has no branch of its
+  own in core_tpu and mixes by lerp: this copy does the same.  Alpha 1.
+- layer (layernode.cc; texture_rgb_blend / texture_value_blend,
+  shader.h:112-210): an input blended over an upper layer (a node or a
+  constant) by colfac / valfac in one of nine modes, with the stencil,
+  negative, noRGB and use_alpha flags; do_color and do_scalar pick the
+  outputs it blends.
+Any other node type raises NotImplementedError by name.  A mapper naming
+no texture of the scene, and a node input naming no node of the list,
+raise ValueError (core_tpu substitutes white there; the reference fails to
+create the node).
 """
 from __future__ import annotations
 
@@ -27,7 +38,14 @@ import torch
 from core_tpu_torch.textures.base import eval_texture_def
 from core_tpu_torch.vec import V3, dot3
 
-SUPPORTED = ("texture_mapper", "value")
+# int mix mode (shader.h mix_modes) -> combine key; the reference registers
+# one "mix" node type whose factory dispatches on the int "mode" param
+# (basicnodes.cc:585-604)
+_MODE_NAMES = {0: "mix", 1: "add", 2: "multiply", 3: "subtract", 4: "screen",
+               5: "divide", 6: "difference", 7: "darken", 8: "lighten",
+               9: "overlay"}
+_MIX_TYPES = {"mix"} | set(_MODE_NAMES.values())
+SUPPORTED = ("texture_mapper", "value", "layer", *sorted(_MIX_TYPES))
 
 
 @dataclass(frozen=True)
@@ -65,8 +83,8 @@ def check_supported(ndefs):
     for nd in ndefs:
         if nd.ntype not in SUPPORTED:
             raise NotImplementedError(
-                f"shader node {nd.name!r} of type {nd.ntype!r} is not ported "
-                f"to core_tpu_torch yet (ported: {', '.join(SUPPORTED)})")
+                f"shader node {nd.name!r} of type {nd.ntype!r}: core_tpu "
+                f"has no such node (known: {', '.join(SUPPORTED)})")
 
 
 def _deps(nd: NodeDef):
@@ -182,7 +200,187 @@ def _mapper_eval(nd: NodeDef, ctx, ctex):
     # does not give u back exactly
     uv = ((tp.x + 1.0) * 0.5, (tp.y + 1.0) * 0.5)
     rgb, alpha = eval_texture_def(ctex, tex_idx, tp, uv)
-    return rgb, alpha, (rgb.x + rgb.y + rgb.z) / 3.0
+    return rgb, alpha, _mean3(rgb)
+
+
+# ---- mix modes (basicnodes.cc:440-600), in core_tpu's operation order ----
+
+def _v3map(fn, *args) -> V3:
+    """fn per colour channel; a V3 argument gives its channel, any other
+    is passed as it is."""
+    return V3(*(fn(*(a[c] if isinstance(a, V3) else a for a in args))
+                for c in range(3)))
+
+
+def _absdiff(a, b):
+    return (a - b).abs()
+
+
+def _mix_combine(mode: str, c1: V3, f1v, c2: V3, f2v, f2):
+    """(colour, scalar) of a mix node: input 1 (c1, f1v) and input 2 (c2,
+    f2v) by factor f2.  "divide" has no branch and lerps, as in core_tpu."""
+    f1 = 1.0 - f2
+    if mode == "add":
+        return c1 + c2 * f2, f1v + f2 * f2v
+    if mode == "multiply":
+        return c1 * (c2 * f2 + f1), f1v * (f1 + f2 * f2v)
+    if mode == "subtract":
+        return c1 - c2 * f2, f1v - f2 * f2v
+    if mode == "screen":
+        return (1.0 - ((1.0 - c2) * f2 + f1) * (1.0 - c1),
+                1.0 - (f1 + f2 * (1.0 - f2v)) * (1.0 - f1v))
+    if mode == "difference":
+        return (c1 * f1 + _v3map(_absdiff, c1, c2) * f2,
+                f1 * f1v + f2 * (f1v - f2v).abs())
+    if mode == "darken":
+        return _v3map(torch.minimum, c2 * f2, c1), torch.minimum(f2 * f2v,
+                                                                 f1v)
+    if mode == "lighten":
+        return _v3map(torch.maximum, c2 * f2, c1), torch.maximum(f2 * f2v,
+                                                                 f1v)
+    if mode == "overlay":
+        f2x2 = 2.0 * f2
+        lo = c1 * (c2 * f2x2 + f1)
+        hi = 1.0 - ((1.0 - c2) * f2x2 + f1) * (1.0 - c1)
+        col = _v3map(lambda a, lo_, hi_: torch.where(a < 0.5, lo_, hi_),
+                     c1, lo, hi)
+        slo = f1v * (f1 + f2x2 * f2v)
+        shi = 1.0 - (f1 + f2x2 * (1.0 - f2v)) * (1.0 - f1v)
+        return col, torch.where(f1v < 0.5, slo, shi)
+    return c1 * f1 + c2 * f2, f1 * f1v + f2 * f2v          # mix (lerp)
+
+
+# ---- layer blend (shader.h texture_rgb_blend / texture_value_blend) ----
+
+def _rgb_blend(mode: int, tex: V3, out: V3, fact, facg) -> V3:
+    fc = fact * facg
+    if mode == 1:   # ADD
+        return tex * fc + out
+    if mode == 2:   # MULT
+        return (tex * fc + (1.0 - facg)) * out
+    if mode == 3:   # SUB
+        return tex * (-fc) + out
+    if mode == 4:   # SCREEN
+        return 1.0 - ((1.0 - tex) * fc + (1.0 - facg)) * (1.0 - out)
+    if mode == 5:   # DIV
+        return out * (1.0 - fc) + out * fc * (1.0 - tex)
+    if mode == 6:   # DIFF
+        return out * (1.0 - fc) + _v3map(_absdiff, tex, out) * fc
+    if mode == 7:   # DARK
+        return _v3map(torch.minimum, tex * fc, out)
+    if mode == 8:   # LIGHT
+        return _v3map(torch.maximum, tex * fc, out)
+    return tex * fc + out * (1.0 - fc)                    # MIX
+
+
+def _value_blend(mode: int, tex, out, fact, facg, flip: bool):
+    f = fact * facg
+    fm = 1.0 - f
+    if flip:
+        f, fm = fm, f
+    if mode == 1:
+        return f * tex + out
+    if mode == 2:
+        return ((1.0 - facg) + f * tex) * out
+    if mode == 3:
+        return -f * tex + out
+    if mode == 4:
+        return 1.0 - ((1.0 - facg) + f * (1.0 - tex)) * (1.0 - out)
+    if mode == 5:
+        zero = tex == 0.0
+        return torch.where(zero, 0.0, fm * out + f * out
+                           / torch.where(zero, 1.0, tex))
+    if mode == 6:
+        return fm * out + f * (tex - out).abs()
+    if mode == 7:
+        return torch.minimum(f * tex, out)
+    if mode == 8:
+        return torch.maximum(f * tex, out)
+    return f * tex + fm * out
+
+
+def _input(nd: NodeDef, key: str, results):
+    """The result of the node that parameter `key` names; None when the
+    parameter is absent or empty."""
+    ref = nd.get(key, "")
+    if not ref:
+        return None
+    if ref not in results:
+        raise ValueError(f"{nd.ntype} node {nd.name!r}: {key} names no "
+                         f"shader node of the list ({ref!r})")
+    return results[ref]
+
+
+def _const(one, color, value):
+    """A constant input: the colour (alpha 1) and value as float32."""
+    return (V3(*(one * float(np.float32(c)) for c in tuple(color)[:3])), one,
+            one * float(np.float32(value)))
+
+
+def _mean3(c: V3):
+    return (c.x + c.y + c.z) / 3.0
+
+
+def _layer_eval(nd: NodeDef, one, results):
+    """layerNode_t::eval as core_tpu's _layer_eval: the input blended over
+    the upper layer, colour and scalar."""
+    upper = _input(nd, "upper_layer", results) or _const(
+        one, nd.get("upper_color", (0, 0, 0)), nd.get("upper_value", 0.0))
+    rcol, ralpha, rval = upper
+    stencil_tin = ralpha
+    icol, ialpha, ival = _input(nd, "input", results) or (
+        V3(one, one, one), one, one)
+    color_input = bool(nd.get("color_input", True))
+    mode = int(nd.get("mode", 0))
+    tex_rgb = color_input
+    texcolor = icol
+    if color_input:
+        ta = ialpha if bool(nd.get("use_alpha", False)) else one
+        tin = torch.zeros_like(one)
+    else:
+        ta, tin = one, ival
+    if bool(nd.get("noRGB", False)) and color_input:
+        tex_rgb = False
+        tin = _mean3(texcolor)
+    if bool(nd.get("negative", False)):
+        tin = 1.0 - tin
+        texcolor = 1.0 - texcolor
+    if bool(nd.get("stencil", False)):
+        if tex_rgb:
+            fact = ta
+            ta = ta * stencil_tin
+        else:
+            fact = tin
+            tin = tin * stencil_tin
+        stencil_tin = stencil_tin * fact
+    out_col, out_alpha, out_val = rcol, ralpha, rval
+    if bool(nd.get("do_color", True)):
+        out_col = _rgb_blend(mode, texcolor, rcol, ta if tex_rgb else tin,
+                             stencil_tin * float(nd.get("colfac", 1.0)))
+        out_alpha = stencil_tin
+    if bool(nd.get("do_scalar", False)):
+        out_val = _value_blend(mode, one * float(nd.get("def_val", 1.0)),
+                               rval, _mean3(texcolor) if tex_rgb else tin,
+                               stencil_tin * float(nd.get("valfac", 1.0)),
+                               False)
+    return out_col, out_alpha, out_val
+
+
+def _mix_eval(nd: NodeDef, one, results):
+    """A mix node (or one of the types naming a mode): inputs as nodes or
+    as constants color1/value1 and color2/value2, the factor a node's
+    scalar or the constant value (cfactor, 0.5)."""
+    c1, _, f1v = _input(nd, "input1", results) or _const(
+        one, nd.get("color1", (0, 0, 0)), nd.get("value1", 0.0))
+    c2, _, f2v = _input(nd, "input2", results) or _const(
+        one, nd.get("color2", (0, 0, 0)), nd.get("value2", 0.0))
+    factor = _input(nd, "factor", results)
+    f2 = factor[2] if factor is not None else one * float(
+        nd.get("value", nd.get("cfactor", 0.5)))
+    mode = _MODE_NAMES.get(int(nd.get("mode", 0)), nd.ntype) \
+        if nd.ntype == "mix" else nd.ntype
+    col, sval = _mix_combine(mode, c1, f1v, c2, f2v, f2)
+    return col, one, sval
 
 
 def eval_graph(node_defs: list, out_name: str, ctx, ctex):
@@ -200,10 +398,13 @@ def eval_graph(node_defs: list, out_name: str, ctx, ctex):
     for nd in toposort(nodes):
         if nd.ntype == "texture_mapper":
             results[nd.name] = _mapper_eval(nd, ctx, ctex)
+        elif nd.ntype == "layer":
+            results[nd.name] = _layer_eval(nd, one, results)
+        elif nd.ntype in _MIX_TYPES:
+            results[nd.name] = _mix_eval(nd, one, results)
         else:   # value
-            col = tuple(nd.get("color", (1.0, 1.0, 1.0)))[:3]
+            col, _, sval = _const(one, nd.get("color", (1.0, 1.0, 1.0)),
+                                  nd.get("scalar", 1.0))
             results[nd.name] = (
-                V3(*(one * float(np.float32(c)) for c in col)),
-                one * float(np.float32(nd.get("alpha", 1.0))),
-                one * float(np.float32(nd.get("scalar", 1.0))))
+                col, one * float(np.float32(nd.get("alpha", 1.0))), sval)
     return results[out_name]

@@ -161,8 +161,12 @@ def test_read_tga_matches_pil(tmp_path, bits, rle, desc):
 
 
 def test_image_and_node_errors_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"\.png"):
-        read_image(str(tmp_path / "sky.png"))
+    with pytest.raises(NotImplementedError, match=r"\.jpg"):
+        read_image(str(tmp_path / "sky.jpg"))
+    # .png, .hdr, .pic and .exr are read now: a missing file is the error
+    for ext in ("png", "hdr", "pic", "exr"):
+        with pytest.raises(FileNotFoundError):
+            read_image(str(tmp_path / f"sky.{ext}"))
     with pytest.raises(FileNotFoundError):
         read_image(str(tmp_path / "missing.tga"))
     grey = tmp_path / "grey.tga"

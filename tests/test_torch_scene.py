@@ -211,10 +211,12 @@ def test_unported_features_raise_by_name(scenes):
     from core_tpu_torch.materials.base import MatType
     from core_tpu_torch.render import RenderOptions, render_image
     js, ts = scenes
-    for family in ("COATED_GLOSSY", "TRANSLUCENT"):
-        with pytest.raises(NotImplementedError, match=family):
-            dispatch._modules((int(MatType.SHINY_DIFFUSE),
-                               int(MatType[family])))
+    with pytest.raises(NotImplementedError, match="TRANSLUCENT"):
+        dispatch._modules((int(MatType.SHINY_DIFFUSE),
+                           int(MatType.TRANSLUCENT)))
+    # coated glossy shares the glossy family's module
+    assert len(dispatch._modules((int(MatType.GLOSSY),
+                                  int(MatType.COATED_GLOSSY)))) == 1
     with pytest.raises(NotImplementedError, match="photon"):
         render_image(ts, RenderOptions(
             integrator="pathtracing",
@@ -224,17 +226,26 @@ def test_unported_features_raise_by_name(scenes):
             integrator_opts=DirectOptions(use_sss=True)))
     with pytest.raises(NotImplementedError, match="photonmapping"):
         render_image(ts, RenderOptions(integrator="photonmapping"))
-    # the shader nodes left out: mix and layer nodes, bump mapping
+    # mix and layer nodes and bump mapping are ported: each is recorded as
+    # its material's program; a node type core_tpu does not know raises
     from core_tpu_torch.environment import SceneBuilder
     from core_tpu_torch.params import ParamMap
     for ntype, slot in (("mix", "diffuse_shader"),
                         ("layer", "diffuse_shader"),
-                        ("texture_mapper", "bump_shader")):
+                        ("texture_mapper", "bump_shader"),
+                        ("curve", "diffuse_shader")):
         b = SceneBuilder("cpu")
         b.create("texture", "tex", ParamMap({"type": "clouds"}))
-        with pytest.raises(NotImplementedError,
-                           match=ntype if slot != "bump_shader" else slot):
+        b.create("material", "m0", ParamMap({"type": "shinydiffusemat"}))
+
+        def make():
             b.create("material", "m", ParamMap({
                 "type": "shinydiffusemat", slot: "node"}),
                 extra=[ParamMap({"name": "node", "type": ntype,
                                  "texture": "tex"})])
+        if ntype == "curve":
+            with pytest.raises(NotImplementedError, match="curve"):
+                make()
+        else:
+            make()
+            assert [(m, s) for m, s, _, _ in b.node_programs] == [(1, slot)]
