@@ -178,15 +178,44 @@ Phases, with their seconds:
                False) within 1e-4 x max|g| of the plain versions', with the
                coated torus row's mirror_color and glossy_reflect gradients
                nonzero (its glossy_color is node-mapped: 0)
+  19. light zoo — scenes.LIGHT_ZOO built by the port (light_zoo_builder,
+               through the factories): mesh_scene's terrain and torus with
+               plain materials, a 32-triangle emitter panel in light_mat
+               with a meshlight over it, a portal quad out of the camera's
+               view with a bgPortalLight, a sphere light and an IES light,
+               under a darksky with add_sun and background_light (K=16
+               bundles with MIS), seen through a thin lens (hexagonal
+               bokeh, focused on the torus), splatted with a Gauss filter
+               of size 1.5: 73,636 triangles on the flat path (kernels 4,
+               5 for the IES light's shadow rays, 6 for the other five
+               lights' bundles); the build seconds; the inputs of one
+               1-spp path-traced 256^2 chunk (light_zoo_opts: golden_opts
+               with the Gauss filter): kernel 4 on the camera and two
+               bounce closest hits, kernel 5 on the IES light's camera and
+               first-bounce shadow rays, kernel 6 on the camera vertex's
+               sun, sphere, sky, mesh-light and portal bundles, every lane
+               against the plain versions, timed, with bounds as in phase
+               7; 1-spp 256^2 chunks of lightzoo256_dl_fwd /
+               lightzoo256_pt_fwd in turns with mesh_scene under the same
+               options: ms per chunk and its ratio, Mrays/s, peak memory,
+               launches per chunk (kernels 4, 5 and 6 > 0 in the light
+               zoo, no other, no plain version) and the busy share of one
+               profiled chunk; then at 64^2 on the small light zoo (1,668
+               triangles: the brute kernels 1, 2 and 3) the dl and pt
+               renders and a sweep of one change at a time (pinhole,
+               ring-bokeh, architect, angular and orthographic cameras; a
+               night darksky, sunsky, gradient and constant sky; box,
+               Mitchell and Lanczos filters), each through the kernels
+               bit-identical to the plain versions'
 The line before the last is the card's name and power limit (nvidia-smi),
 the one before that the kernel table as JSON, and the last line is
 {"ok": true, "device": {...}}.  Rows 1 and 2 of that table are phase 2's
 synthetic bounce-shape inputs (comparable with earlier runs); phase 4b
 prints the captured ones.  Each row's fwdbwd_launches is the kernel's
 launches in one fwd+bwd step of phase 4c, its chain_launches,
-option_launches, golden_launches and zoo_launches those per chunk of each
-phase 10-12, 13-15, 17 and 18 configuration, its fold_launches those per
-step of each fold-table row.
+option_launches, golden_launches, zoo_launches and lightzoo_launches those
+per chunk of each phase 10-12, 13-15, 17, 18 and 19 configuration, its
+fold_launches those per step of each fold-table row.
 Any failure raises (non-zero exit).  Imports nothing of jax or core_tpu.
 """
 from __future__ import annotations
@@ -2259,12 +2288,12 @@ ZOO_CFGS = {("zoo", "dl"): "meshzoo256_dl_fwd", ("zoo", "pt"):
 FLAT = ("cluster_closest_hit", "cluster_any_hit_nee")
 
 
-def _flat_only(launches, what):
-    """Fails unless kernels 4 and 6 launched and no other kernel or plain
-    version did."""
-    others = {k: n for k, n in launches.items() if k not in FLAT and n}
-    if min(launches[k] for k in FLAT) <= 0 or others or plain_calls():
-        fail(f"{what}: kernels 4 and 6 must launch and no other kernel or "
+def _only_kernels(launches, want, what):
+    """Fails unless every kernel of `want` launched and no other kernel or
+    plain version did."""
+    others = {k: n for k, n in launches.items() if k not in want and n}
+    if min(launches[k] for k in want) <= 0 or others or plain_calls():
+        fail(f"{what}: kernels {want} must launch and no other kernel or "
              f"plain version: {launches}, plain calls {plain_calls()}")
 
 
@@ -2345,7 +2374,7 @@ def phase_zoo():
                 0))
         sync()
         launches[cfg] = all_launches()
-        _flat_only(launches[cfg], cfg)
+        _only_kernels(launches[cfg], FLAT, cfg)
         stats[(name, kind)] = {"cfg": cfg, "rays": rays, "ms": [],
                                "film": film, "peak_mib":
                                torch.cuda.max_memory_allocated() / 2**20}
@@ -2437,6 +2466,333 @@ def phase_zoo():
     return zoo_launches, rows
 
 
+# --------------------------------------------------------------------------
+# phase 19: the light zoo (sphere, mesh, IES and portal lights, a darksky
+# with its sun and background light, a thin lens, a Gauss filter) on the
+# flat cluster path
+# --------------------------------------------------------------------------
+
+def _panel(a, m, mat, quads, x, z, height):
+    """LIGHT_ZOO's emitter panel: a quads x quads grid on y = height, wound
+    so its normals point down."""
+    import numpy as np
+    xs, zs = np.linspace(*x, quads + 1), np.linspace(*z, quads + 1)
+    ids = [[a.add_vertex(m, xv, height, zv) for zv in zs] for xv in xs]
+    for i in range(quads):
+        for j in range(quads):
+            v00, v01 = ids[i][j], ids[i][j + 1]
+            v10, v11 = ids[i + 1][j], ids[i + 1][j + 1]
+            a.add_triangle(m, v00, v10, v11, mat)
+            a.add_triangle(m, v00, v11, v01, mat)
+
+
+def light_zoo_builder(b, param_map, helpers, res, grid=None, torus=None,
+                      samples=None, panel=None, background=None,
+                      camera=None):
+    """Fill SceneBuilder b with scenes.LIGHT_ZOO (materials, terrain,
+    torus, panel, portal, background, lights, camera) through either
+    package: param_map is its ParamMap, helpers its scenes module (the
+    _grid_mesh and _torus_mesh helpers).  grid (n), torus ((nu, nv)),
+    panel (its quads a side) and samples (every light's and the darksky's
+    light_samples) replace LIGHT_ZOO's sizes; background ((name,
+    parameters)) replaces its darksky, camera (parameters) updates its
+    camera's.  The IES profile is written to a temporary file for
+    the ieslight factory.  Returns b."""
+    import tempfile
+    from core_tpu_torch.scenes import LIGHT_ZOO as z
+    from core_tpu_torch.scenes import LIGHT_ZOO_IES
+    for name, params in z["materials"]:
+        b.create("material", name, param_map(dict(params)))
+    a = b.assembler
+    objects = {}
+    m = a.start_mesh()
+    helpers._grid_mesh(a, m, grid or z["grid"]["n"], z["grid"]["extent"],
+                       b.material_index("terrain"))
+    a.smooth_mesh(m, z["smooth"])
+    m = a.start_mesh()
+    t = z["torus"]
+    nu, nv = torus or (t["nu"], t["nv"])
+    helpers._torus_mesh(a, m, nu, nv, t["R"], t["r"], t["center"],
+                        b.material_index("torus"))
+    a.smooth_mesh(m, z["smooth"])
+    m = a.start_mesh()
+    pz = z["panel"]
+    _panel(a, m, b.material_index("emitter"), panel or pz["quads"], pz["x"],
+           pz["z"], pz["height"])
+    objects["panel"] = m.obj_id
+    m = a.start_mesh()
+    po = z["portal"]
+    _panel(a, m, b.material_index("portal"), 1, po["x"], po["z"],
+           po["height"])
+    objects["portal"] = m.obj_id
+    name, params = background or z["background"]
+    if samples:
+        params = {**params, "light_samples": samples, "ibl_samples": samples}
+    b.create("background", name, param_map(params))
+    with tempfile.TemporaryDirectory() as tmp:
+        ies = Path(tmp) / "light_zoo.ies"
+        ies.write_text(LIGHT_ZOO_IES)
+        for name, params in z["lights"]:
+            p = dict(params)
+            if "object" in p:
+                p["object"] = objects[p["object"]]
+            if p["type"] == "ieslight":
+                p["file"] = str(ies)
+            elif samples:
+                p["samples"] = samples
+            b.create("light", name, param_map(p))
+    name, params = z["camera"]
+    b.create("camera", name, param_map({**params, **(camera or {}),
+                                        "resx": res, "resy": res}))
+    return b
+
+
+def light_zoo_scene(res, intersector="auto", device="cuda", **sizes):
+    """The light zoo built by the port (LIGHT_ZOO at its sizes, or `sizes`
+    as light_zoo_builder takes them)."""
+    import dataclasses
+    from core_tpu_torch import scenes
+    from core_tpu_torch.environment import SceneBuilder
+    from core_tpu_torch.params import ParamMap
+    scene = light_zoo_builder(SceneBuilder(device), ParamMap, scenes, res,
+                              **sizes).compile_scene()
+    return scene if intersector == "auto" else \
+        dataclasses.replace(scene, intersector=intersector)
+
+
+def light_zoo_opts(kind, **film):
+    """golden_opts(kind) with LIGHT_ZOO's film filter (or `film`'s
+    filter_type / filter_size)."""
+    import dataclasses
+    from core_tpu_torch.film import FilterType
+    from core_tpu_torch.scenes import LIGHT_ZOO
+    f = {**LIGHT_ZOO["film"], **film}
+    return dataclasses.replace(golden_opts(kind),
+                               filter_type=FilterType[f["filter_type"]],
+                               filter_size=f["filter_size"])
+
+
+LZ_RES = 256
+LZ_TRIS = 73_636
+LZ_SLICE = 64
+LZ_SMALL = dict(grid=24, torus=(24, 12))      # 1,668 triangles: brute
+LZ_TURNS = (("lightzoo", "dl"), ("mesh", "dl"), ("mesh", "pt"),
+            ("lightzoo", "pt"), ("lightzoo", "pt"), ("mesh", "pt"),
+            ("mesh", "dl"), ("lightzoo", "dl"))
+LZ_CFGS = {("lightzoo", "dl"): "lightzoo256_dl_fwd",
+           ("lightzoo", "pt"): "lightzoo256_pt_fwd",
+           ("mesh", "dl"): "mesh256_dl3_gauss_fwd",
+           ("mesh", "pt"): "mesh256_pt_gauss_fwd"}
+FLAT3 = ("cluster_closest_hit", "cluster_any_hit", "cluster_any_hit_nee")
+# the 64^2 sweep on the small light zoo: (what, builder overrides, film)
+LZ_SWEEP = (
+    ("pinhole camera", {"camera": {"aperture": 0.0}}, {}),
+    ("thin lens, hexagon", {}, {}),
+    ("thin lens, ring, edge bias", {"camera": {"bokeh_type": "ring",
+                                               "bokeh_bias": "edge"}}, {}),
+    ("architect camera", {"camera": {"type": "architect", "aperture": 0.0}},
+     {}),
+    ("angular camera", {"camera": {"type": "angular", "angle": 70.0,
+                                   "circular": True}}, {}),
+    ("orthographic camera", {"camera": {"type": "ortho", "scale": 9.0}},
+     {}),
+    ("darksky, night", {"background": ("sky", {
+        "type": "darksky", "from": (0.3, 0.8, 0.5), "night": True,
+        "add_sun": True, "background_light": True, "light_samples": 8})},
+     {}),
+    ("sunsky", {"background": ("sky", {
+        "type": "sunsky", "from": (0.3, 0.8, 0.5), "turbidity": 3.0,
+        "add_sun": True, "sun_power": 0.6, "ibl": True, "ibl_samples": 8,
+        "power": 0.4})}, {}),
+    ("gradient", {"background": ("sky", {
+        "type": "gradientback", "horizon_color": (0.9, 0.8, 0.7),
+        "zenith_color": (0.2, 0.3, 0.7), "horizon_ground_color":
+        (0.3, 0.25, 0.2), "ibl": True, "ibl_samples": 8})}, {}),
+    ("constant", {"background": ("sky", {
+        "type": "constant", "color": (0.3, 0.35, 0.4), "ibl": True,
+        "ibl_samples": 8})}, {}),
+    ("box filter", {}, {"filter_type": "BOX"}),
+    ("mitchell filter", {}, {"filter_type": "MITCHELL"}),
+    ("lanczos filter", {}, {"filter_type": "LANCZOS"}),
+)
+
+
+def _busy_share(fn):
+    """(device kernel ms, launches) of one fn() under torch.profiler, and
+    fn's wall ms beside it; None when the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+    kern = [(e.device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
+    if not kern:
+        return None
+    return sum(d for d, _ in kern), sum(c for _, c in kern), wall
+
+
+def _light_zoo_kernels(scene):
+    """Kernels 4, 5 and 6 on the inputs captured from one 1-spp
+    path-traced light-zoo chunk: the camera and two bounce closest hits,
+    the IES light's shadow rays at the camera and first bounce vertices,
+    and the five bundles of the camera vertex (sun, sphere, sky, mesh,
+    portal), every lane against the plain versions and timed."""
+    calls = _capture_calls(scene, LZ_RES, light_zoo_opts("pt"))
+    got = {q: [c for c in calls if c[0] == q]
+           for q in ("closest", "any", "nee")}
+    print(f"lightzoo pt: one chunk made {len(got['closest'])} closest-hit "
+          f"calls (lanes {[c[1][1].tmin.shape[0] for c in got['closest']]}),"
+          f" {len(got['any'])} one-ray shadow wavefronts and "
+          f"{len(got['nee'])} NEE bundles (K of the first five "
+          f"{[len(c[1][3]) for c in got['nee'][:5]]})")
+    if (len(got["closest"]), len(got["any"]), len(got["nee"])) != \
+            (12, 12, 60):
+        fail(f"lightzoo pt chunk: {len(got['closest'])} closest, "
+             f"{len(got['any'])} any, {len(got['nee'])} NEE calls, not 12, "
+             "12 and 60")
+    bundles = ("sun", "sphere", "sky", "mesh light", "portal")
+    rows = {}
+    for kernel, k, q, names in (
+            ("cluster_closest_hit", 4, "closest",
+             ("camera", "bounce 1", "bounce 2")),
+            ("cluster_any_hit", 5, "any",
+             ("IES light, camera hit", "IES light, bounce 1 hit")),
+            ("cluster_any_hit_nee", 6, "nee",
+             [f"{b} bundle, camera hit" for b in bundles])):
+        what = " closest hit" if q == "closest" else ""
+        per = [_check_captured(f"lightzoo pt: {name}{what}", *c)
+               for name, c in zip(names, got[q])]
+        rows[kernel] = {"max_abs_err": max(r["max_abs_err"] for r in per)}
+        _gap(f"kernel {k}, lightzoo pt captured calls", per)
+    return rows
+
+
+def phase_light_zoo():
+    """The light zoo through kernels 4, 5 and 6 (see the header).  Returns
+    the launches per chunk of each light-zoo configuration and the
+    kernels' error rows."""
+    import torch
+    from core_tpu_torch import film as film_mod
+    from core_tpu_torch import scene as sm
+    from core_tpu_torch.render import (render_chunk, render_image,
+                                       scene_material_types)
+    from core_tpu_torch.scenes import mesh_scene
+    t0 = time.perf_counter()
+    lz = light_zoo_scene(LZ_RES)
+    sync()
+    dt = time.perf_counter() - t0
+    if (sm.accel_kind(lz.accel), lz.geom.n_tris) != ("flat", LZ_TRIS):
+        fail(f"lightzoo: {lz.geom.n_tris} triangles on the "
+             f"{sm.accel_kind(lz.accel)} path, not {LZ_TRIS} flat")
+    cam = lz.camera
+    print(f"lightzoo: {LZ_RES}x{LZ_RES} scene built in {dt:.3f} s (host "
+          f"build, accel and IBL CDFs): {lz.geom.n_tris} triangles, "
+          f"{lz.accel.aabb.shape[0]} clusters, lights "
+          f"{[type(x).__name__ for x in lz.lights]}, background "
+          f"{type(lz.background).__name__}, camera aperture {cam.aperture} "
+          f"bokeh {cam.bokeh_type}, filter "
+          f"{light_zoo_opts('dl').filter_type.name}")
+    rows = _light_zoo_kernels(lz)
+
+    # 1-spp chunks of the light zoo and of mesh_scene under the same
+    # options (the Gauss filter), in turns
+    scenes = {"lightzoo": lz, "mesh": mesh_scene(resx=LZ_RES, resy=LZ_RES,
+                                                 device="cuda")}
+    stats, launches = {}, {}
+    for name, kind in sorted(set(LZ_TURNS)):
+        sc, opts = scenes[name], light_zoo_opts(kind)
+        cfg = LZ_CFGS[(name, kind)]
+        film = film_mod.make_film(LZ_RES, LZ_RES, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        sync()
+        with torch.no_grad():
+            film, rays = counted_rays(lambda: render_chunk(
+                sc, scene_material_types(sc), opts, film, 0, 1, 0))
+        sync()
+        launches[cfg] = all_launches()
+        _only_kernels(launches[cfg], FLAT3 if name == "lightzoo" else FLAT,
+                      cfg)
+        stats[(name, kind)] = {"cfg": cfg, "rays": rays, "ms": [],
+                               "film": film, "opts": opts, "peak_mib":
+                               torch.cuda.max_memory_allocated() / 2**20}
+    for name, kind in LZ_TURNS:
+        st, sc = stats[(name, kind)], scenes[name]
+        sync()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            st["film"] = render_chunk(sc, scene_material_types(sc),
+                                      st["opts"], st["film"], 0, 1,
+                                      len(st["ms"]) + 1)
+        sync()
+        st["ms"].append((time.perf_counter() - t0) * 1e3)
+    for (name, kind), st in sorted(stats.items()):
+        img = film_mod.flush(st["film"])
+        if not bool(torch.isfinite(img).all()):
+            fail(f"{st['cfg']}: image has non-finite values")
+        per = sum(st["ms"]) / len(st["ms"])
+        other = stats[("mesh" if name == "lightzoo" else "lightzoo", kind)]
+        busy = ""
+        if name == "lightzoo":
+            sc = scenes[name]
+            with torch.no_grad():
+                b = _busy_share(lambda: render_chunk(
+                    sc, scene_material_types(sc), st["opts"],
+                    film_mod.make_film(LZ_RES, LZ_RES, device="cuda"), 0, 1,
+                    0))
+            busy = "; busy share not measured (the profiler saw no " \
+                "device time)" if b is None else \
+                f"; profiled chunk: device {b[0]:.3f} ms over {b[1]} " \
+                f"launches in {b[2]:.3f} ms, busy share {b[0] / b[2]:.4f} " \
+                f"(of the unprofiled mean {b[0] / per:.4f})"
+        print(f"{st['cfg']}: {LZ_RES}x{LZ_RES}, 1-spp chunks timed in turns "
+              f"{[round(t, 3) for t in st['ms']]} ms: {per:.3f} ms/chunk "
+              f"(x{per / (sum(other['ms']) / len(other['ms'])):.3f} of "
+              f"{other['cfg']}), rays per chunk {st['rays']}, "
+              f"{st['rays'] / per / 1e3:.3f} Mrays/s forward; peak device "
+              f"memory {st['peak_mib']:.1f} MiB; launches per chunk "
+              f"{launches[st['cfg']]}; image mean "
+              f"{float(img[..., :3].mean()):.6f}{busy}")
+        if name == "lightzoo":
+            write_png(BUILD / f"chip_smoke_{st['cfg']}.png", img.cpu().numpy())
+    lz_launches = {c: n for c, n in launches.items()
+                   if c.startswith("lightzoo")}
+    del lz, scenes, stats
+    torch.cuda.empty_cache()
+
+    # 64^2 on the small light zoo (brute kernels 1-3): the default dl and
+    # pt, then each camera type, sky and filter, kernels against plain
+    sweep = [("light zoo dl", {}, {}, "dl"), ("light zoo pt", {}, {}, "pt")]
+    sweep += [(what, over, film, "dl") for what, over, film in LZ_SWEEP]
+    for what, over, film, kind in sweep:
+        imgs = []
+        for isec in ("cuda", "torch"):
+            reset_counts()
+            sc = light_zoo_scene(LZ_SLICE, isec, **LZ_SMALL, **over)
+            if sc.accel is not None:
+                fail(f"small light zoo: {sc.geom.n_tris} triangles, not brute")
+            imgs.append(render_image(sc, light_zoo_opts(kind, **film))[0])
+            sync()
+            if isec == "cuda":
+                counts = all_launches()
+                want = ("closest_hit", "any_hit_nee", "any_hit")
+                _only_kernels(counts, want, f"{LZ_SLICE}^2 {what}")
+        if not bool(torch.isfinite(imgs[0]).all()) \
+                or not torch.equal(*imgs):
+            fail(f"{LZ_SLICE}^2 {what}: kernel and plain renders differ or "
+                 f"are not finite: max abs "
+                 f"{float((imgs[0] - imgs[1]).abs().max())}")
+        print(f"lightzoo slice: {LZ_SLICE}x{LZ_SLICE} {kind}, {what}: "
+              f"through the kernels == through the plain versions "
+              f"(bit-identical), mean {float(imgs[0][..., :3].mean()):.6f}, "
+              f"kernel launches {counts}")
+    return lz_launches, rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2517,6 +2873,9 @@ def main():
     zoo, rows = timed("mesh zoo", phase_zoo)
     for name, row in rows.items():
         _merge(kt[name], row)
+    lightzoo, rows = timed("light zoo", phase_light_zoo)
+    for name, row in rows.items():
+        _merge(kt[name], row)
 
     replaces = {     # kernels 1 to 8
         "closest_hit": ("core_tpu/geometry/pallas_intersect.py:55",
@@ -2536,9 +2895,9 @@ def main():
         "grouped_any_hit": ("core_tpu/geometry/cluster_intersect.py:1129",
                             "core_tpu_torch/csrc/cluster.cu")}
     # fwdbwd_launches: the kernel's launches in one Cornell fwd+bwd step;
-    # chain_launches / option_launches / golden_launches / zoo_launches:
-    # its launches per chunk of each chain / option / golden-mesh / mesh-zoo
-    # configuration;
+    # chain_launches / option_launches / golden_launches / zoo_launches /
+    # lightzoo_launches: its launches per chunk of each chain / option /
+    # golden-mesh / mesh-zoo / light-zoo configuration;
     # fold_launches: per step of each fold table row
     table = [{"name": name, "route": "cuda", "source": src,
               "replaces": rep, "launches": counts[name], **kt[name],
@@ -2547,7 +2906,8 @@ def main():
               "option_launches": {c: options[c][name] for c in options},
               "fold_launches": {r: folds[r][name] for r in folds},
               "golden_launches": {c: golden[c][name] for c in golden},
-              "zoo_launches": {c: zoo[c][name] for c in zoo}}
+              "zoo_launches": {c: zoo[c][name] for c in zoo},
+              "lightzoo_launches": {c: lightzoo[c][name] for c in lightzoo}}
              for name, (rep, src) in replaces.items()]
     print(json.dumps({"kernels": table}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

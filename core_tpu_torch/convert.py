@@ -4,7 +4,8 @@ scene_to_numpy flattens a scene into (leaves, static): `leaves` maps dotted
 field paths ("geom.verts", "materials.diffuse_color", "lights.0.corner",
 "accel.tris", "textures.0.image", ...) to numpy arrays, and `static` holds
 the plain Python settings (texture defs but their images, shader-node
-programs, light kinds and sample counts, camera sizes).  It
+programs, light and background kinds and their settings, the camera's
+settings).  Every light, background and camera type of core_tpu crosses.  It
 reads fields by name only, so it accepts this package's Scene and any scene
 object with the same field names, such as core_tpu's (whose arrays
 np.asarray converts).  scene_from_numpy rebuilds this package's Scene on a
@@ -22,13 +23,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from core_tpu_torch.backgrounds import TextureBackground
-from core_tpu_torch.cameras import Camera, check_supported
+from core_tpu_torch import backgrounds as bgs
+from core_tpu_torch.cameras import STATIC_FIELDS, Camera, check_supported
 from core_tpu_torch.geometry import cluster_intersect as ci
 from core_tpu_torch.geometry.mesh import GeomData
 from core_tpu_torch.lights.area import AreaLight
 from core_tpu_torch.lights.bg import BgLight
+from core_tpu_torch.lights.ies import IesLight
+from core_tpu_torch.lights.mesh import MeshLight
 from core_tpu_torch.lights.point import PointLight
+from core_tpu_torch.lights.portal import BgPortalLight
+from core_tpu_torch.lights.sphere import SphereLight
 from core_tpu_torch.lights.spot import SpotLight
 from core_tpu_torch.lights.sun import DirectionalLight, SunLight
 from core_tpu_torch.materials.base import MaterialTable
@@ -49,11 +54,38 @@ _LIGHTS = {  # type name -> (class, array fields, static fields)
     "DirectionalLight": (DirectionalLight, ("direction", "color", "pos",
                                             "radius"),
                          ("infinite", "samples")),
+    "SphereLight": (SphereLight, ("center", "radius", "color"),
+                    ("samples",)),
+    "MeshLight": (MeshLight, ("va", "vb", "vc", "normals", "cdf", "color",
+                              "area"),
+                  ("samples", "double_sided", "obj_id")),
+    "IesLight": (IesLight, ("pos", "ndir", "color", "profile"),
+                 ("samples",)),
+    # its MeshLight's fields cross as "mesh.<field>"
+    "BgPortalLight": (BgPortalLight, ("power",), ("samples",)),
 }
 _CAMERA_ARRAYS = ("pos", "cam_x", "cam_y", "cam_z", "vto", "vup", "vright")
-_CAMERA_STATIC = ("cam_type", "resx", "resy", "aspect_ratio", "focal",
-                  "aperture")
-_BG_ARRAYS = ("power", "rot_cos", "rot_sin")
+_BACKGROUNDS = {  # type name -> (class, array fields, static fields)
+    "TextureBackground": (bgs.TextureBackground,
+                          ("power", "rot_cos", "rot_sin"),
+                          ("tex_id", "projection", "ibl", "ibl_samples")),
+    "ConstantBackground": (bgs.ConstantBackground, ("color",),
+                           ("ibl", "ibl_samples")),
+    "GradientBackground": (bgs.GradientBackground,
+                           ("horizon", "zenith", "horizon_ground",
+                            "zenith_ground"), ("ibl", "ibl_samples")),
+    "SunSkyBackground": (bgs.SunSkyBackground,
+                         ("sun_dir", "theta_s", "phi_s", "zenith",
+                          "perez_y_lum", "perez_x", "perez_y", "power"),
+                         ("ibl", "ibl_samples")),
+    "DarkSkyBackground": (bgs.DarkSkyBackground,
+                          ("sun_dir", "zenith", "perez_lum", "perez_x",
+                           "perez_y", "conv_mat", "bright", "power",
+                           "altitude"),
+                          ("exposure", "night", "clamp_rgb", "gamma_enc",
+                           "ibl", "ibl_samples")),
+}
+_MESH_LIGHT = _LIGHTS["MeshLight"]
 # scene features this package does not port yet: must be absent
 _ABSENT = ("volumes",)
 
@@ -141,22 +173,29 @@ def scene_to_numpy(scene) -> tuple[dict, dict]:
         _, arrays, statics = _LIGHTS[kind]
         for f in arrays:
             leaves[f"lights.{i}.{f}"] = _np(getattr(light, f))
-        lights.append({"type": kind,
-                       **{f: getattr(light, f) for f in statics}})
+        rec = {"type": kind, **{f: getattr(light, f) for f in statics}}
+        if kind == "BgPortalLight":
+            for f in _MESH_LIGHT[1]:
+                leaves[f"lights.{i}.mesh.{f}"] = _np(getattr(light.mesh, f))
+            rec["mesh"] = {f: getattr(light.mesh, f) for f in _MESH_LIGHT[2]}
+        lights.append(rec)
     for f in _CAMERA_ARRAYS:
         leaves[f"camera.{f}"] = _np(getattr(scene.camera, f))
     bg = getattr(scene, "background", None)
     bg_static = None
     if bg is not None:
-        if type(bg).__name__ != "TextureBackground":
-            raise NotImplementedError(f"background {type(bg).__name__} is "
-                                      "not ported to core_tpu_torch yet")
-        for f in _BG_ARRAYS:
+        kind = type(bg).__name__
+        if kind not in _BACKGROUNDS:
+            raise NotImplementedError(f"background {kind} is not ported to "
+                                      "core_tpu_torch yet")
+        _, arrays, statics = _BACKGROUNDS[kind]
+        for f in arrays:
             leaves[f"background.{f}"] = _np(getattr(bg, f))
-        bg_static = {"textures": _texture_numpy(bg.ctex, "background.textures",
-                                                leaves),
-                     "tex_id": int(bg.tex_id), "projection": bg.projection,
-                     "ibl": bool(bg.ibl), "ibl_samples": int(bg.ibl_samples)}
+        bg_static = {"type": kind, **{f: getattr(bg, f) for f in statics}}
+        if kind == "TextureBackground":
+            bg_static["tex_id"] = int(bg.tex_id)
+            bg_static["textures"] = _texture_numpy(
+                bg.ctex, "background.textures", leaves)
     acc = getattr(scene, "accel", None)
     kind = None
     if acc is not None:
@@ -166,7 +205,7 @@ def scene_to_numpy(scene) -> tuple[dict, dict]:
     tex = getattr(scene, "textures", None)
     static = {
         "lights": lights,
-        "camera": {f: getattr(scene.camera, f) for f in _CAMERA_STATIC},
+        "camera": {f: getattr(scene.camera, f) for f in STATIC_FIELDS},
         "background": bg_static,
         "textures": None if tex is None
         else _texture_numpy(tex, "textures", leaves),
@@ -194,24 +233,29 @@ def scene_from_numpy(leaves: dict, static: dict, *, device="cuda",
     materials = MaterialTable(*[t(f"materials.{f}")
                                 for f in MaterialTable._fields])
     bs = static["background"]
-    background = None if bs is None else TextureBackground(
-        ctex=_textures(bs["textures"], leaves, "background.textures",
-                       device), tex_id=bs["tex_id"],
-        **{f: t(f"background.{f}") for f in _BG_ARRAYS},
-        projection=bs["projection"], ibl=bs["ibl"],
-        ibl_samples=bs["ibl_samples"])
+    background = None
+    if bs is not None:
+        cls, arrays, statics = _BACKGROUNDS[bs["type"]]
+        extra = {"ctex": _textures(bs["textures"], leaves,
+                                   "background.textures", device)} \
+            if cls is bgs.TextureBackground else {}
+        background = cls(**{f: t(f"background.{f}") for f in arrays},
+                         **{f: bs[f] for f in statics}, **extra)
     lights = []
     for i, ls in enumerate(static["lights"]):
         cls, arrays, statics = _LIGHTS[ls["type"]]
-        extra = {"background": background} if cls is BgLight else {}
+        extra = {"background": background} \
+            if cls in (BgLight, BgPortalLight) else {}
+        if cls is BgPortalLight:
+            extra["mesh"] = MeshLight(
+                **{f: t(f"lights.{i}.mesh.{f}") for f in _MESH_LIGHT[1]},
+                **ls["mesh"])
         lights.append(cls(**{f: t(f"lights.{i}.{f}") for f in arrays},
                           **{f: ls[f] for f in statics}, **extra))
     cs = static["camera"]
     camera = Camera(**{f: t(f"camera.{f}") for f in _CAMERA_ARRAYS},
-                    cam_type=int(cs["cam_type"]), resx=int(cs["resx"]),
-                    resy=int(cs["resy"]),
-                    aspect_ratio=float(cs["aspect_ratio"]),
-                    focal=float(cs["focal"]), aperture=float(cs["aperture"]))
+                    **{f: type(getattr(Camera, f))(cs[f])
+                       for f in STATIC_FIELDS})
     check_supported(camera)
     if static["accel"]:
         cls = ci.ClusterData if static["accel"] == "flat" else ci.GroupedData

@@ -38,11 +38,12 @@ def surface_dpduv(scene, sps: SPS):
     return where3(ok, dpdu, sps.nu), where3(ok, dpdv, sps.nv)
 
 
-def camera_diff_dirs(cam, px, py):
+def camera_diff_dirs(cam, px, py, lu=None, lv=None):
     """Directions (V3 [N]) of the +1-pixel x and y neighbour rays of the
-    pinhole camera rays through (px, py)."""
-    rx, _ = shoot_ray(cam, px + 1.0, py)
-    ry, _ = shoot_ray(cam, px, py + 1.0)
+    camera rays through (px, py), shot with the same lens sample (lu, lv)
+    (integrator.cc:299-304)."""
+    rx, _ = shoot_ray(cam, px + 1.0, py, lu, lv)
+    ry, _ = shoot_ray(cam, px, py + 1.0, lu, lv)
     return v3(rx.d), v3(ry.d)
 
 

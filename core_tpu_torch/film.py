@@ -6,9 +6,14 @@ Conventions matched to the reference (imagefilm.cc:142-165):
 - footprint: pixels i with round(dx-filterw) <= i <= round(dx+filterw-1);
 - filter argument: |i - (dx-0.5)| / filterw in [0,1] per axis.
 
-Scope: the box filter (at the default filter_size 1.5 a 3x3 stencil) and
-the dense full-raster splat (add_samples_grid); the other filters, the
-scatter splat and the adaptive-AA flags come with the passes that use them.
+Filters: box, Mitchell, Gauss and Lanczos, evaluated exactly with the
+reference's formulas (imagefilm.cc:54-115), so the splat is differentiable.
+filterw scales by 2.6 (Mitchell) and 2 (Gauss): at filter_size 1.5 the box
+splats a 3x3 stencil, Gauss (filterw 1.5) 4x4 and Mitchell (1.95) 5x5.
+
+Scope: the dense full-raster splat (add_samples_grid), a stencil of shifted
+adds per footprint offset; the scatter splat and the adaptive-AA flags come
+with the passes that use them.
 """
 from __future__ import annotations
 
@@ -51,10 +56,27 @@ def effective_filterw(filter_size: float, ftype: FilterType) -> float:
 
 
 def _filter_weight(ftype: FilterType, ndx, ndy):
+    """Filter value at normalised per-axis offsets in [0, 1] (the domain the
+    reference's table samples, imagefilm.cc:158-165)."""
     if ftype == FilterType.BOX:
         return torch.ones_like(ndx)
-    raise NotImplementedError(f"film filter {FilterType(ftype).name} is not "
-                              "ported to core_tpu_torch yet")
+    if ftype == FilterType.MITCHELL:
+        x = 2.0 * torch.sqrt(ndx * ndx + ndy * ndy)
+        far = x * (x * (x * -0.38888889 + 2.0) - 3.33333333) + 1.77777778
+        near = x * x * (1.16666666 * x - 2.0) + 0.88888889
+        return torch.where(x >= 2.0, 0.0, torch.where(x >= 1.0, far, near))
+    if ftype == FilterType.GAUSS:
+        r2 = ndx * ndx + ndy * ndy
+        return (torch.exp(-6.0 * r2) - 0.00247875).clamp_min(0.0)
+    if ftype == FilterType.LANCZOS:
+        x = torch.sqrt(ndx * ndx + ndy * ndy)
+        small = x < 1e-6
+        a = np.pi * x
+        b = np.pi * 0.5 * x
+        val = torch.where(small, 1.0, torch.sin(a) * torch.sin(b)
+                          / torch.where(small, 1.0, a * b))
+        return torch.where(x < 2.0, val, 0.0)
+    raise ValueError(f"unknown film filter {ftype!r}")
 
 
 def _round2int(x):

@@ -3,9 +3,10 @@
 
 Reference contract: light_t (include/core_api/light.h:52-113).  Lights are
 few, so the integrator unrolls a Python loop over the scene's light list.
-Ported: the area, sun and background (IBL) lights, and the dirac point,
-spot and directional lights (illuminate_s); any other light type raises
-NotImplementedError by name.
+Ported: every light type of core_tpu: area, sphere, mesh, background (IBL)
+and background portal, sun, and the dirac point, spot, directional and IES
+lights (illuminate_s); a light class registered in lights.extra dispatches
+to its own module, any other raises NotImplementedError by name.
 """
 from __future__ import annotations
 
@@ -33,17 +34,19 @@ class LightHitS(NamedTuple):
 
 
 def _mod(light):
-    """The module implementing a light's functions."""
-    from core_tpu_torch.lights import area, bg, point, spot, sun
-    for mod, cls in ((area, area.AreaLight), (sun, sun.SunLight),
-                     (bg, bg.BgLight), (point, point.PointLight),
+    """The module implementing a light's functions, in core_tpu's order
+    (lights/base.py:33-62)."""
+    from core_tpu_torch.lights import (area, bg, extra, ies, mesh, point,
+                                       portal, sphere, spot, sun)
+    for mod, cls in ((area, area.AreaLight), (point, point.PointLight),
                      (spot, spot.SpotLight),
-                     (sun._DirectionalOps, sun.DirectionalLight)):
+                     (sun._DirectionalOps, sun.DirectionalLight),
+                     (sun, sun.SunLight), (sphere, sphere.SphereLight),
+                     (mesh, mesh.MeshLight), (bg, bg.BgLight),
+                     (ies, ies.IesLight), (portal, portal.BgPortalLight)):
         if isinstance(light, cls):
             return mod
-    raise NotImplementedError(
-        f"light type {type(light).__name__} is not ported to core_tpu_torch "
-        "yet")
+    return extra.module_for(light)
 
 
 def dirac(light) -> bool:
@@ -72,5 +75,5 @@ def intersect_light_s(light, rays_s) -> LightHitS:
 
 
 def illum_pdf_s(light, sps, p_light: V3):
-    """pdf of illum_sample_s choosing p_light from sps.p (sun and bg)."""
+    """pdf of illum_sample_s choosing p_light from sps.p."""
     return _mod(light).illum_pdf_s(light, sps, p_light)

@@ -9,6 +9,7 @@
     python3 -m core_tpu_torch.profile_chunk cornell_fold2 fwdbwd  # folded
     python3 -m core_tpu_torch.profile_chunk golden_pt  # the golden mesh
     python3 -m core_tpu_torch.profile_chunk zoo_pt     # the mesh zoo
+    python3 -m core_tpu_torch.profile_chunk lightzoo_pt  # the light zoo
 
 Run from the root of a checkout on a machine with a CUDA card.  "cornell"
 renders cornell_box(light_samples=4) with PathOptions(path_samples=8,
@@ -31,7 +32,12 @@ fold_interval=2 (sorted), chip_smoke's fold table row; "golden_dl" and
 ibl_samples=8, DirectOptions(raydepth=3) or PathOptions(path_samples=4,
 bounces=2, raydepth=3)); "zoo_dl" and "zoo_pt" render the mesh zoo
 (chip_smoke.zoo_scene: scenes.MESH_ZOO at 256^2) under those two option
-sets (meshzoo256_dl_fwd, meshzoo256_pt_fwd).  With "fwdbwd" it
+sets (meshzoo256_dl_fwd, meshzoo256_pt_fwd); "lightzoo_dl" and
+"lightzoo_pt" render the light zoo (chip_smoke.light_zoo_scene:
+scenes.LIGHT_ZOO at 256^2, the sphere, mesh, IES and portal lights, a
+darksky with its sun and background light, a thin lens) under those two
+option sets with its Gauss filter (lightzoo256_dl_fwd,
+lightzoo256_pt_fwd).  With "fwdbwd" it
 profiles bench_cuda.py's step instead of a forward chunk: value_and_grad
 of the loss of one 1-spp chunk (Cornell: the mean squared RGB against a
 zero target; big and mesh: the mean RGB) with respect to
@@ -92,6 +98,10 @@ def _config(name):
     if name in ("zoo_dl", "zoo_pt"):
         import chip_smoke
         return chip_smoke.zoo_scene(256), chip_smoke.golden_opts(name[-2:])
+    if name in ("lightzoo_dl", "lightzoo_pt"):
+        import chip_smoke
+        return (chip_smoke.light_zoo_scene(256),
+                chip_smoke.light_zoo_opts(name[-2:]))
     direct = RenderOptions(aa_samples=1, spp_chunk=1,
                            integrator="directlight",
                            integrator_opts=DirectOptions(raydepth=1))
@@ -114,7 +124,8 @@ def _config(name):
     raise SystemExit(f"profile_chunk: unknown configuration {name!r} "
                      "(cornell, cornell_fold2, big, mesh, spec_pt, spec_dl, "
                      "blend_dl, ao_dl, pane_ts_dl, glass_ts_dl, golden_dl, "
-                     "golden_pt, zoo_dl or zoo_pt)")
+                     "golden_pt, zoo_dl, zoo_pt, lightzoo_dl or "
+                     "lightzoo_pt)")
 
 
 def _fwdbwd_step(name, scene, opts):

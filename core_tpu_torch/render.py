@@ -6,6 +6,7 @@ wavefront per chunk.  Pixel-sample QMC matches the reference's renderTile
 (integrator.cc:269-306):
   sampling_offs = fnv(i * fnv(j))
   single-pass:   dx = (0.5+s)/n, dy = RI_LP(s + offs)
+  lens (u, v):   RI_3 / RI_5 of (pass_offs + offs + s + 1)
 
 Scope: one AA pass (aa_passes == 1), the path tracer and the directlight
 integrator, the full-raster chunk; other integrators, adaptive passes and
@@ -119,14 +120,22 @@ def render_chunk(scene, types_present, opts: RenderOptions, film: Film,
         dx = torch.full(x.shape, 0.5, dtype=torch.float32, device=x.device)
         dy = torch.full(x.shape, 0.5, dtype=torch.float32, device=x.device)
 
+    # the thin lens's streams (core_tpu render.py:226-233); only a lens
+    # camera reads them
+    lens_u = lens_v = None
+    if cam.aperture != 0.0:
+        lens_offs = (pass_offs + sampling_offs + s + 1) & qmc.MASK32
+        lens_u = qmc.radical_inverse(3, lens_offs)
+        lens_v = qmc.radical_inverse(5, lens_offs)
+
     px = x.to(torch.float32) + dx
     py = y.to(torch.float32) + dy
-    rays, wt = shoot_ray(cam, px, py)
+    rays, wt = shoot_ray(cam, px, py, lens_u, lens_v)
     integrate = _INTEGRATORS[opts.integrator][0]
     # primary-ray differentials (diffRay_t, integrator.cc:299-304): the
     # +1-pixel neighbour directions drive image-texture mip filtering; as
     # in core_tpu, only a scene with an image texture computes them
-    diff_kw = {"diff": camera_diff_dirs(cam, px, py)} \
+    diff_kw = {"diff": camera_diff_dirs(cam, px, py, lens_u, lens_v)} \
         if _has_image_textures(scene) else {}
     rgba = integrate(scene, types_present, rays, pixel_sample, sampling_offs,
                      opts.integrator_opts, **diff_kw)

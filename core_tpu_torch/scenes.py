@@ -14,6 +14,11 @@ MESH_ZOO: the elements of the "mesh zoo", mesh_scene with its materials
 swapped for the procedural textures, mix / layer nodes, bump mapping and
 coated anisotropic glossy, as plain data (core_tpu has no scene function
 for it; chip_smoke.zoo_builder feeds it to either package's builder).
+LIGHT_ZOO: the "light zoo", mesh_scene's geometry and camera placement
+with an emitter panel and a portal quad, lit by a sphere, a mesh, an IES
+and a portal light under a darksky with its sun and background light, seen
+through a hexagonal thin lens (chip_smoke.light_zoo_builder feeds it to
+either package's builder).
 
 Each is built host-side in numpy exactly as core_tpu builds it, so the two
 packages' scenes agree leaf by leaf.  Every entry point builds on the card
@@ -409,6 +414,82 @@ MESH_ZOO = {
     "lights": (("sun", {"type": "sunlight", "direction": (0.45, 0.8, 0.3),
                         "color": (1.0, 0.95, 0.85), "power": 1.6,
                         "angle": 0.5, "samples": 4}),),
+}
+
+
+# An LM-63 profile: a downlight whose candela falls from the axis to 90
+# degrees, over two horizontal angles (the parser averages them).
+LIGHT_ZOO_IES = """IESNA:LM-63-1995
+[TEST] light zoo downlight
+TILT=NONE
+1 1000.0 1.0 7 2 1 2 0.0 0.0 0.0
+1.0 1.0 60.0
+0.0 15.0 30.0 45.0 60.0 75.0 90.0
+0.0 90.0
+1000.0 960.0 820.0 600.0 330.0 120.0 10.0
+1000.0 940.0 780.0 560.0 300.0 100.0 0.0
+"""
+
+# The "light zoo": mesh_scene's terrain and torus (plain materials) and
+# camera placement, plus a 4 x 4-quad emitter panel (32 triangles wearing
+# light_mat, facing down, a meshlight over its object) and a 2-triangle
+# portal quad above the scene and out of the camera's view (a
+# bgPortalLight over it); lit by a sphere light, the mesh light, an IES
+# spot and the portal under a darksky with add_sun and background_light;
+# seen through a thin lens with a hexagonal bokeh focused on the torus.
+# 73,636 triangles at these sizes: the flat cluster kernels 4, 5 (the IES
+# light's shadow rays) and 6 (the other lights' bundles).  The darksky's
+# zenith is +z (core_tpu's sky convention) while this scene's up is +y;
+# the sun is placed high in both.  Plain data, so one definition feeds
+# either package's SceneBuilder (chip_smoke.light_zoo_builder); the IES
+# profile is carried as text (LIGHT_ZOO_IES) and written to a file for the
+# factory; `film` holds the RenderOptions filter.
+LIGHT_ZOO = {
+    "materials": (
+        ("terrain", {"type": "shinydiffusemat", "color": (0.7, 0.7, 0.7),
+                     "diffuse_reflect": 0.9}),
+        ("torus", {"type": "glossy", "diffuse_color": (0.4, 0.4, 0.45),
+                   "color": (0.7, 0.7, 0.75), "glossy_reflect": 0.35,
+                   "exponent": 80.0, "as_diffuse": False}),
+        ("emitter", {"type": "light_mat", "color": (1.0, 0.85, 0.6),
+                     "power": 3.0}),
+        ("portal", {"type": "null"}),
+    ),
+    "grid": {"n": 160, "extent": 6.0},
+    "torus": {"nu": 180, "nv": 64, "R": 1.5, "r": 0.55,
+              "center": (0.0, 1.6, 0.0)},
+    "smooth": 80.0,
+    # the panel: a (quads x quads) grid on y = height over [x0, x1] x
+    # [z0, z1], wound so its normals point down (-y)
+    "panel": {"quads": 4, "x": (-3.4, -2.2), "z": (-0.4, 0.8),
+              "height": 3.1},
+    # the portal: one quad on y = height over [x0, x1] x [z0, z1]
+    "portal": {"x": (-1.0, 1.0), "z": (-1.0, 1.0), "height": 7.0},
+    "camera": ("cam", {"type": "perspective", "from": (5.2, 3.4, -5.6),
+                       "to": (0.0, 1.2, 0.0), "up": (5.2, 4.4, -5.6),
+                       "focal": 1.25, "aperture": 0.06,
+                       "dof_distance": 7.9, "bokeh_type": "hexagon",
+                       "bokeh_rotation": 15.0}),
+    "background": ("sky", {"type": "darksky", "from": (0.3, 0.8, 0.5),
+                           "turbidity": 3.0, "add_sun": True,
+                           "sun_power": 0.6, "background_light": True,
+                           "light_samples": 8, "power": 0.4}),
+    # (name, parameters); "object" names a mesh of this dict ("panel",
+    # "portal"), "file" is set to the written LIGHT_ZOO_IES
+    "lights": (
+        ("sphere", {"type": "spherelight", "from": (-2.2, 2.4, -1.8),
+                    "radius": 0.3, "color": (0.6, 0.8, 1.0), "power": 6.0,
+                    "samples": 4}),
+        ("panel", {"type": "meshlight", "object": "panel",
+                   "color": (1.0, 0.85, 0.6), "power": 3.0,
+                   "samples": 4}),
+        ("ies", {"type": "ieslight", "from": (1.8, 4.2, -2.4),
+                 "to": (0.0, 1.2, 0.0), "color": (1.0, 0.95, 0.9),
+                 "power": 14.0}),
+        ("portal", {"type": "bgPortalLight", "object": "portal",
+                    "power": 1.0, "samples": 4}),
+    ),
+    "film": {"filter_type": "GAUSS", "filter_size": 1.5},
 }
 
 

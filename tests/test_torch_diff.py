@@ -9,7 +9,9 @@ against its own central finite differences.
   extract_params(geometry=True): the geometry=False leaves and the light
   geometry and geom.obj_offset at 0 (ROADMAP Queue 3: geometry gradients
   at a nonzero offset shade against a stale accel).  core_tpu's gradient is
-  compiled once per test run: under pytest-xdist the first worker to need
+  computed op by op (each primitive compiled alone, on one thread: XLA
+  compiles the jitted gradient on several threads, for about twice the CPU
+  seconds), once per test run: under pytest-xdist the first worker to need
   it computes it under a file lock and saves it beside the workers' temp
   directories, and the others load that file.  The loss agrees within
   rtol 1e-4; each leaf elementwise within 1e-3 * max|g_core_tpu| of that
@@ -93,12 +95,11 @@ def cornell():
 
 
 def _core_tpu_grads(js):
-    """core_tpu's jitted value_and_grad of the bench loss: {"loss": [],
-    leaf: gradient}."""
+    """core_tpu's value_and_grad of the bench loss, run op by op:
+    {"loss": [], leaf: gradient}."""
     jopts = JRenderOptions(integrator="pathtracing",
                            integrator_opts=JPathOptions(**PATH))
-    jvg = jax.jit(jdiff.value_and_grad_fn(js, jopts, 1,
-                                          jnp.zeros((RES, RES, 4))))
+    jvg = jdiff.value_and_grad_fn(js, jopts, 1, jnp.zeros((RES, RES, 4)))
     jl, jg = jvg(jdiff.extract_params(js, geometry=True))
     return {"loss": np.asarray(jl), **{k: np.asarray(v)
                                        for k, v in jg.items()}}

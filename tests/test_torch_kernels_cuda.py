@@ -7,7 +7,8 @@ bundles with all-dead lanes and dead rays at 36, 257 and 4,096
 triangles, kernels 1 and 3 on the edges of their tests (dead rays, edges
 and vertices, t at tmin and tcap, |det| near 1e-12, ties, exclusions) at
 36, 257, 1,634 and 4,096 triangles, and renders through the kernels
-against renders through the plain versions.
+against renders through the plain versions (among them the 64x64 light
+zoo, dl and pt, on the brute kernels 1-3).
 
 Marked `cuda`: each test asks its fixture for a CUDA device and skips
 without one.  Run on a GPU host with
@@ -815,3 +816,17 @@ def test_any_hit_kernel_hard_cases(device, T, case):
         assert torch.equal(got, want)
         dead = (rays.tmax > 0) & (rays.tmax <= rays.tmin)
         assert not bool(got[dead].any())
+
+
+@pytest.mark.parametrize("kind", ["dl", "pt"])
+def test_light_zoo_kernels_equal_plain_versions(device, kind):
+    """chip_smoke's 64^2 light zoo (the sphere, mesh, IES and portal lights
+    under a darksky, a thin lens, a Gauss filter) at its small size, 1,668
+    triangles: the renders through kernels 1-3 and through the plain
+    versions are identical."""
+    from chip_smoke import LZ_SMALL, light_zoo_opts, light_zoo_scene
+    imgs = [render_image(light_zoo_scene(64, isec, device=device,
+                                         **LZ_SMALL),
+                         light_zoo_opts(kind))[0] for isec in ("cuda", "torch")]
+    assert torch.isfinite(imgs[0]).all()
+    assert torch.equal(*imgs)

@@ -1,18 +1,17 @@
-"""The slice as a whole: core_tpu's render_chunk (jitted, brute-force
+"""The slice as a whole: core_tpu's render_chunk (op by op, brute-force
 intersector, on the CPU) against core_tpu_torch's render_chunk on the CPU,
 on the same Cornell scene carried across by convert.py.
 
 Tolerance: >= 99% of pixel channels within rtol 1e-4 / atol 1e-5, and the
 image mean within 1e-4 relative.  Not bit-exact because XLA and torch
 differ by ulps in sqrt/sin/cos and XLA:CPU contracts multiply-adds into
-FMAs, and an ulp can move a sample ray across a triangle edge or a shadow
+FMAs inside core_tpu's own jitted helpers, and an ulp can move a sample ray across a triangle edge or a shadow
 boundary; besides, core_tpu's CPU any-hit is the division-based brute
 force while the port's is the kernel's division-free test.
 """
 import numpy as np
 import pytest
 import torch
-import jax
 
 from core_tpu import film as jfilm
 from core_tpu.integrators.path import PathOptions as JPathOptions
@@ -48,15 +47,11 @@ def test_render_chunk_matches_core_tpu(scenes, aa, spp):
                            integrator_opts=JPathOptions(**PATH))
     topts = RenderOptions(aa_samples=aa, integrator="pathtracing",
                           integrator_opts=PathOptions(**PATH))
-    jtypes = j_types(js)
-
-    @jax.jit
-    def jrender(scene):
-        film = j_render_chunk(scene, jtypes, jopts, jfilm.make_film(RES, RES),
-                              0, spp, 0, None)
-        return film.rgba, film.weight
-
-    j_rgba, j_weight = (np.asarray(a) for a in jrender(js))
+    # core_tpu runs op by op: XLA compiles a jitted render on several
+    # threads, for about three times the CPU seconds
+    jf = j_render_chunk(js, j_types(js), jopts, jfilm.make_film(RES, RES), 0,
+                        spp, 0, None)
+    j_rgba, j_weight = np.asarray(jf.rgba), np.asarray(jf.weight)
     with torch.no_grad():
         tf = render_chunk(ts, scene_material_types(ts), topts,
                           tfilm.make_film(RES, RES, device="cpu"), 0, spp, 0)
