@@ -207,6 +207,30 @@ Phases, with their seconds:
                night darksky, sunsky, gradient and constant sky; box,
                Mitchell and Lanczos filters), each through the kernels
                bit-identical to the plain versions'
+  20. photons — the photon integrators through kernels 1 and 2 (kernel 4
+               on the light zoo): (a) both photon goldens on the 64^2 Cornell
+               box (cornell_box(light_samples=16), the goldens' options:
+               photonmapping with 200k + 200k photons, bounces 4, radii 40 /
+               30, final gathering with 8 rays, aa 4 in 2-spp chunks, box
+               filter 1; SPPM 8 passes of 100k photons, radius 15) held to
+               tests/test_golden_photon_family.py's bands, rel / Pearson /
+               q50 printed; (b) the 64^2 glass-and-glossy box under
+               photonmapping (final gathering with its cache), SPPM over 2
+               passes and path tracing with caustic_type "both", through
+               the kernels bit-identical to the plain versions; (c)
+               cornellspec512_pm (the box at 512^2, light_samples=16, 1M +
+               1M photons, bounces 5, aa 4 in 2-spp chunks): preprocess
+               seconds (shoots, grids, radiance cache), deposits stored per
+               map, ms per chunk, Mrays/s, peak memory, launches per chunk,
+               the busy share of one profiled chunk; (d)
+               cornellspec512_sppm (16 passes of 500k photons, radius 15):
+               ms per pass, peak memory, launches per pass; (e) a diffuse
+               shoot of 262,144 photons, 3 bounces, on the 256^2 light zoo
+               (kernel 4) identical to the plain version's, every light
+               emitting; (f) kernel 1 on the 1M-photon diffuse shoot's six
+               captured wavefronts against the plain version, timed, with
+               bounds as in phase 7, and launches x (kernel - bound) per
+               shoot
 The line before the last is the card's name and power limit (nvidia-smi),
 the one before that the kernel table as JSON, and the last line is
 {"ok": true, "device": {...}}.  Rows 1 and 2 of that table are phase 2's
@@ -215,11 +239,14 @@ prints the captured ones.  Each row's fwdbwd_launches is the kernel's
 launches in one fwd+bwd step of phase 4c, its chain_launches,
 option_launches, golden_launches, zoo_launches and lightzoo_launches those
 per chunk of each phase 10-12, 13-15, 17, 18 and 19 configuration, its
-fold_launches those per step of each fold-table row.
+fold_launches those per step of each fold-table row, its photon_launches
+those per request of each photon golden, per chunk of cornellspec512_pm,
+per pass of cornellspec512_sppm and per light-zoo shoot.
 Any failure raises (non-zero exit).  Imports nothing of jax or core_tpu.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import struct
@@ -1146,15 +1173,12 @@ def phase_mesh_build(res, variant="mesh"):
     return scene, dt
 
 
-def _capture_calls(scene, res, opts=None):
-    """Run one 1-spp chunk of a flat or brute scene (directlight at
-    raydepth 1, or `opts`) with its route's kernel wrappers recorded at the
-    scene's dispatch point.  Returns every call as (query, args, kwargs),
-    in order."""
-    import torch
-    from core_tpu_torch import film as film_mod
+@contextlib.contextmanager
+def _recording(scene):
+    """A context in which the scene's route records every call of its
+    kernel wrappers at the dispatch point; its value is the list of calls
+    as (query, args, kwargs), in order."""
     from core_tpu_torch import scene as sm
-    from core_tpu_torch.render import render_chunk, scene_material_types
     route = sm._ROUTES[sm.accel_kind(scene.accel), scene.intersector]
     orig = dict(route)
     calls = []
@@ -1167,13 +1191,22 @@ def _capture_calls(scene, res, opts=None):
 
     route.update({q: recorded(q) for q in orig})
     try:
-        with torch.no_grad():
-            render_chunk(scene, scene_material_types(scene),
-                         opts or _big_opts(),
-                         film_mod.make_film(res, res, device="cuda"), 0, 1, 0)
-        sync()
+        yield calls
     finally:
         route.update(orig)
+
+
+def _capture_calls(scene, res, opts=None):
+    """Run one 1-spp chunk of a flat or brute scene (directlight at
+    raydepth 1, or `opts`) with its route's kernel wrappers recorded.
+    Returns every call as (query, args, kwargs), in order."""
+    import torch
+    from core_tpu_torch import film as film_mod
+    from core_tpu_torch.render import render_chunk, scene_material_types
+    with _recording(scene) as calls, torch.no_grad():
+        render_chunk(scene, scene_material_types(scene), opts or _big_opts(),
+                     film_mod.make_film(res, res, device="cuda"), 0, 1, 0)
+        sync()
     return calls
 
 
@@ -2793,6 +2826,375 @@ def phase_light_zoo():
     return lz_launches, rows
 
 
+# --------------------------------------------------------------------------
+# phase 20: the photon integrators (photon emission, the sorted-cell photon
+# map, photonmapping with final gathering, SPPM, the path tracer's photon
+# caustics)
+# --------------------------------------------------------------------------
+
+PH_GOLDEN_RES = 64
+PH_RES = 512
+PH_SLICE = 64
+PH_BLOCKS = ("glass", "glossy")
+# tests/test_golden_photon_family.py's options (and the goldens')
+PH_GOLDEN = {"pm": dict(photons=200000, c_photons=200000, bounces=4,
+                        diffuse_radius=40.0, caustic_radius=30.0,
+                        final_gather=True, fg_samples=8, raydepth=5),
+             "sppm": dict(passes=8, photons=100000, bounces=4,
+                          search_radius=15.0, raydepth=5)}
+PH_GOLDEN_FILES = {"pm": "pm_128x128_32spp_ph200k",
+                   "sppm": "sppm_128x128_32pass_ph200k"}
+# cornellspec512_pm / cornellspec512_sppm
+PH_PM = dict(photons=1_000_000, c_photons=1_000_000, bounces=5,
+             diffuse_radius=40.0, caustic_radius=30.0, final_gather=True,
+             fg_samples=8, raydepth=5)
+PH_PM_AA = 4
+PH_PM_CHUNK = 2
+PH_SPPM = dict(passes=16, photons=500_000, bounces=5, search_radius=15.0,
+               raydepth=5)
+# the 64^2 renders through the kernels against the plain versions
+PH_SLICE_OPTS = {
+    "pm": dict(photons=100_000, c_photons=100_000, bounces=4,
+               diffuse_radius=40.0, caustic_radius=30.0, final_gather=True,
+               fg_samples=4, raydepth=5),
+    "sppm": dict(passes=2, photons=100_000, bounces=4, search_radius=15.0,
+                 raydepth=5),
+    "pt": dict(path_samples=4, bounces=3, raydepth=3, caustic_type="both",
+               c_photons=100_000, caustic_radius=30.0, caustic_depth=5)}
+PH_ZOO_PHOTONS = 262_144
+PH_ZOO_BOUNCES = 3
+
+
+def photon_opts(kind, fields, aa=PH_PM_AA, spp_chunk=PH_PM_CHUNK):
+    """RenderOptions of a photon configuration: kind "pm" (photonmapping),
+    "sppm" or "pt" (the path tracer), with a box filter of size 1 (the
+    goldens' film)."""
+    from core_tpu_torch.film import FilterType
+    from core_tpu_torch.integrators.path import PathOptions
+    from core_tpu_torch.integrators.photonmap import PhotonOptions
+    from core_tpu_torch.integrators.sppm import SPPMOptions
+    from core_tpu_torch.render import RenderOptions
+    integ, cls = {"pm": ("photonmapping", PhotonOptions),
+                  "sppm": ("SPPM", SPPMOptions),
+                  "pt": ("pathtracing", PathOptions)}[kind]
+    return RenderOptions(integrator=integ, integrator_opts=cls(**fields),
+                         aa_samples=aa, spp_chunk=spp_chunk,
+                         filter_size=1.0, filter_type=FilterType.BOX)
+
+
+def photon_golden_stats(kind, img):
+    """tests/test_golden_photon_family.py's statistics of a 64^2 image
+    against its 128^2 golden pooled 2x: (mean energy rel, 7 x 7 block
+    Pearson, block median rel), on the 2-pixel-cropped interior."""
+    import numpy as np
+    ref = np.load(ROOT / "tests" / "golden" / f"{PH_GOLDEN_FILES[kind]}.npz"
+                  )["img"][..., :3].reshape(64, 2, 64, 2, 3).mean((1, 3))
+    mine = img.cpu().numpy()
+    m, r = mine[2:-2, 2:-2, :3], ref[2:-2, 2:-2]
+
+    def blocks(a):
+        return a[:56, :56].reshape(7, 8, 7, 8, 3).mean((1, 3, 4))
+
+    bm, br = blocks(m), blocks(r)
+    rel = (m.mean() - r.mean()) / r.mean()
+    pearson = np.corrcoef(bm.ravel(), br.ravel())[0, 1]
+    q50 = np.quantile(np.abs(bm - br) / np.maximum(br, 0.05), 0.5)
+    return float(rel), float(pearson), float(q50)
+
+
+def photon_golden_ok(kind, rel, pearson, q50) -> bool:
+    """tests/test_golden_photon_family.py:61-95's bands."""
+    if kind == "pm":
+        return 0.0 <= rel <= 0.15 and pearson > 0.99 and q50 < 0.2
+    return abs(rel) < 0.10 and pearson > 0.995 and q50 < 0.12
+
+
+def _photon_goldens(launches):
+    """(a) both photon goldens through kernels 1 and 2 at their bands."""
+    import torch
+    from core_tpu_torch.render import render_image
+    from core_tpu_torch.scenes import cornell_box
+    scene = cornell_box(resx=PH_GOLDEN_RES, resy=PH_GOLDEN_RES,
+                        light_samples=16, device="cuda")
+    for kind in ("pm", "sppm"):
+        reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        img, _ = render_image(scene, photon_opts(kind, PH_GOLDEN[kind]))
+        sync()
+        dt = time.perf_counter() - t0
+        cfg = f"{kind}64_golden"
+        launches[cfg] = all_launches()
+        brute_only(launches[cfg], cfg)
+        if plain_calls() or not bool(torch.isfinite(img).all()):
+            fail(f"{cfg}: plain calls {plain_calls()} or non-finite image")
+        rel, pearson, q50 = photon_golden_stats(kind, img)
+        band = "0 <= rel <= 0.15, Pearson > 0.99, q50 < 0.2" \
+            if kind == "pm" else "|rel| < 0.10, Pearson > 0.995, q50 < 0.12"
+        print(f"photons: {cfg} ({PH_GOLDEN_FILES[kind]}): rel {rel:.6f}, "
+              f"Pearson {pearson:.6f}, q50 {q50:.6f} (bands {band}); "
+              f"{dt:.3f} s a request, launches {launches[cfg]}")
+        if not photon_golden_ok(kind, rel, pearson, q50):
+            fail(f"{cfg} outside its golden's bands")
+
+
+def _photon_slice():
+    """(b) the 64^2 glass-and-glossy box, photonmapping, SPPM and path
+    tracing with caustic_type "both", through kernels 1 and 2 and through
+    the plain versions: identical images."""
+    import torch
+    from core_tpu_torch.render import render_image
+    from core_tpu_torch.scenes import cornell_box
+    for kind, fields in PH_SLICE_OPTS.items():
+        imgs = []
+        for isec in ("cuda", "torch"):
+            reset_counts()
+            sc = cornell_box(resx=PH_SLICE, resy=PH_SLICE, light_samples=4,
+                             block_materials=PH_BLOCKS, intersector=isec,
+                             device="cuda")
+            imgs.append(render_image(sc, photon_opts(kind, fields, aa=2))[0])
+            sync()
+            if isec == "cuda":
+                counts = all_launches()
+                brute_only(counts, f"{PH_SLICE}^2 {kind}")
+                if plain_calls():
+                    fail(f"{PH_SLICE}^2 {kind}: the plain versions ran")
+        if not bool(torch.isfinite(imgs[0]).all()) or not torch.equal(*imgs):
+            fail(f"{PH_SLICE}^2 {kind}: kernel and plain renders differ or "
+                 f"are not finite: max abs "
+                 f"{float((imgs[0] - imgs[1]).abs().max())}")
+        print(f"photons slice: {PH_SLICE}x{PH_SLICE} glass + glossy {kind}: "
+              f"through the kernels == through the plain versions "
+              f"(bit-identical), mean {float(imgs[0][..., :3].mean()):.6f}, "
+              f"sha256 {image_digest(imgs[0])}, kernel launches {counts}")
+
+
+def _photon_pm512(launches):
+    """(c) cornellspec512_pm, its preprocess in steps (the diffuse shoot's
+    closest-hit calls recorded for (f)); returns those calls."""
+    import torch
+    from core_tpu_torch import film as film_mod
+    from core_tpu_torch.integrators import photonmap as pm_mod
+    from core_tpu_torch.photon import map as pmap_mod
+    from core_tpu_torch.render import render_chunk, scene_material_types
+    from core_tpu_torch.scenes import cornell_box
+    scene = cornell_box(resx=PH_RES, resy=PH_RES, light_samples=16,
+                        block_materials=PH_BLOCKS, device="cuda")
+    opts = photon_opts("pm", PH_PM)
+    po = opts.integrator_opts
+    types = scene_material_types(scene)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    sync()
+    secs = {}
+    t0 = time.perf_counter()
+    bmin, bmax = pm_mod.scene_bound(scene)
+    center, radius = pm_mod.world_sphere(scene, bmin, bmax)
+
+    def step(name, fn):
+        nonlocal t0
+        out = fn()
+        sync()
+        t1 = time.perf_counter()
+        secs[name] = t1 - t0
+        t0 = t1
+        return out
+
+    with _recording(scene) as calls:
+        dep = step("diffuse shoot", lambda: pmap_mod.shoot_photons(
+            scene, types, po.photons, po.bounces, 1, "diffuse", center,
+            radius, with_surface=True))
+    captured = [c for c in calls if c[0] == "closest"]
+    grid = step("diffuse grid", lambda: pmap_mod.build_photon_grid(
+        *dep[:4], po.diffuse_radius, bmin, bmax))
+    cache = step("radiance cache", lambda: pmap_mod.build_radiance_cache(
+        grid, dep[4], dep[5], po.diffuse_radius))
+    del dep
+    cdep = step("caustic shoot", lambda: pmap_mod.shoot_photons(
+        scene, types, po.c_photons, po.bounces, 2, "caustic", center,
+        radius))
+    cgrid = step("caustic grid", lambda: pmap_mod.build_photon_grid(
+        *cdep, po.caustic_radius, bmin, bmax))
+    del cdep
+    aux = {"diffuse": grid, "fg_cache": cache, "caustic": cgrid}
+    pre = all_launches()
+    _only_kernels(pre, ("closest_hit",), "cornellspec512_pm preprocess")
+    pre_peak = torch.cuda.max_memory_allocated() / 2**30
+    stored = {k: int(aux[k].n_valid) for k in ("diffuse", "caustic")}
+    print(f"photons: cornellspec512_pm preprocess "
+          f"{ {k: round(v, 4) for k, v in secs.items()} } s, deposits "
+          f"stored {stored} of {(po.bounces + 1) * po.photons} each, "
+          f"grid dims {grid.dims} / {cgrid.dims}, peak device memory "
+          f"{pre_peak:.3f} GiB, launches {pre}")
+
+    def chunk(film, sample0):
+        with torch.no_grad():
+            return render_chunk(scene, types, opts, film, 0, PH_PM_CHUNK,
+                                sample0, aux)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    film = film_mod.make_film(PH_RES, PH_RES, device="cuda")
+    sync()
+    t0 = time.perf_counter()
+    film, rays = counted_rays(lambda: chunk(film, 0))
+    sync()
+    first = time.perf_counter() - t0
+    launches["cornellspec512_pm"] = all_launches()
+    brute_only(launches["cornellspec512_pm"], "cornellspec512_pm")
+    if plain_calls():
+        fail("cornellspec512_pm: the plain versions ran")
+    ms = []
+    for sample0 in range(PH_PM_CHUNK, PH_PM_AA, PH_PM_CHUNK):
+        t0 = time.perf_counter()
+        film = chunk(film, sample0)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    img = film_mod.flush(film)
+    if not bool(torch.isfinite(img).all()):
+        fail("cornellspec512_pm: image has non-finite values")
+    write_png(BUILD / "chip_smoke_cornellspec512_pm.png", img.cpu().numpy())
+    b = _busy_share(lambda: chunk(film_mod.make_film(PH_RES, PH_RES,
+                                                     device="cuda"), 0))
+    busy = "busy share not measured (the profiler saw no device time)" \
+        if b is None else f"profiled chunk: device {b[0]:.3f} ms over " \
+        f"{b[1]} launches in {b[2]:.3f} ms, busy share {b[0] / b[2]:.4f}"
+    per = ms[-1] if ms else first * 1e3
+    print(f"photons: cornellspec512_pm render: {PH_PM_AA} spp in "
+          f"{PH_PM_CHUNK}-spp chunks: first chunk {first * 1e3:.3f} ms, then "
+          f"{[round(t, 3) for t in ms]} ms; rays per chunk {rays}, "
+          f"{rays / per / 1e3:.3f} Mrays/s; peak device memory {peak:.3f} "
+          f"GiB; launches per chunk {launches['cornellspec512_pm']}; image "
+          f"mean {float(img[..., :3].mean()):.6f}; {busy}")
+    return captured
+
+
+def _photon_sppm512(launches):
+    """(d) cornellspec512_sppm, pass by pass."""
+    import torch
+    from core_tpu_torch.integrators import sppm as sppm_mod
+    from core_tpu_torch.integrators.photonmap import (scene_bound,
+                                                      world_sphere)
+    from core_tpu_torch.render import scene_material_types
+    from core_tpu_torch.scenes import cornell_box
+    from core_tpu_torch.vec import zeros3
+    scene = cornell_box(resx=PH_RES, resy=PH_RES, light_samples=16,
+                        block_materials=PH_BLOCKS, device="cuda")
+    so = sppm_mod.SPPMOptions(**PH_SPPM)
+    types = scene_material_types(scene)
+    bmin, bmax = scene_bound(scene)
+    center, world_r = world_sphere(scene, bmin, bmax)
+    r0 = float(so.search_radius)
+    zero = torch.zeros(PH_RES * PH_RES, device="cuda")
+    state = sppm_mod.HitPoints(r2=torch.full_like(zero, r0 * r0),
+                               acc_n=zero, tau=zeros3(zero),
+                               direct=zeros3(zero))
+    torch.cuda.reset_peak_memory_stats()
+    ms = []
+    with torch.no_grad():
+        for k in range(so.passes):
+            reset_counts()
+            sync()
+            t0 = time.perf_counter()
+            state = sppm_mod.one_pass_block(
+                scene, types, state, k, 0, PH_RES, PH_RES, so, scene.camera,
+                center, world_r, bmin, bmax, r0)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if k == 0:
+                launches["cornellspec512_sppm"] = all_launches()
+                brute_only(launches["cornellspec512_sppm"],
+                           "cornellspec512_sppm")
+                if plain_calls():
+                    fail("cornellspec512_sppm: the plain versions ran")
+    img = sppm_mod.finalize_sppm(state, so.passes, so.photons)
+    if not bool(torch.isfinite(img).all()):
+        fail("cornellspec512_sppm: image has non-finite values")
+    write_png(BUILD / "chip_smoke_cornellspec512_sppm.png",
+              img.reshape(PH_RES, PH_RES, 4).cpu().numpy())
+    print(f"photons: cornellspec512_sppm: {so.passes} passes of "
+          f"{so.photons} photons: {[round(t, 3) for t in ms]} ms a pass "
+          f"(median {sorted(ms)[len(ms) // 2]:.3f}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches "
+          f"per pass {launches['cornellspec512_sppm']}; image mean "
+          f"{float(img[:, :3].mean()):.6f}")
+
+
+def _photon_light_zoo(launches):
+    """(e) a diffuse shoot on the light zoo (kernel 4) against the plain
+    version; every light emits."""
+    import dataclasses
+    import torch
+    from core_tpu_torch import scene as sm
+    from core_tpu_torch.integrators.photonmap import (scene_bound,
+                                                      world_sphere)
+    from core_tpu_torch.photon import map as pmap_mod
+    from core_tpu_torch.render import scene_material_types
+    from core_tpu_torch.sampling import qmc
+    lz = light_zoo_scene(LZ_RES)
+    if (sm.accel_kind(lz.accel), lz.geom.n_tris) != ("flat", LZ_TRIS):
+        fail(f"lightzoo: {lz.geom.n_tris} triangles, not {LZ_TRIS} flat")
+    types = scene_material_types(lz)
+    bmin, bmax = scene_bound(lz)
+    center, radius = world_sphere(lz, bmin, bmax)
+    outs, ms = [], []
+    for isec in ("cuda", "torch"):
+        sc = dataclasses.replace(lz, intersector=isec)
+        reset_counts()
+        sync()
+        t0 = time.perf_counter()
+        outs.append(pmap_mod.shoot_photons(
+            sc, types, PH_ZOO_PHOTONS, PH_ZOO_BOUNCES, 1, "diffuse", center,
+            radius))
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if isec == "cuda":
+            launches["lightzoo256_shoot"] = all_launches()
+            _only_kernels(launches["lightzoo256_shoot"],
+                          ("cluster_closest_hit",), "lightzoo256_shoot")
+    for k, (a, b) in enumerate(zip(*outs)):
+        if not torch.equal(a, b):
+            fail(f"lightzoo shoot: output {k} through the kernel differs "
+                 f"from the plain version's")
+    pick = (qmc.scr_halton(5, torch.arange(PH_ZOO_PHOTONS, device="cuda")
+                           .to(torch.int64) + 77771) * len(lz.lights)
+            ).to(torch.int32).clamp_max(len(lz.lights) - 1)
+    power0 = outs[0][1][:PH_ZOO_PHOTONS]
+    lit = (power0 > 0).any(dim=1) & torch.isfinite(power0).all(dim=1)
+    emitted = {type(li).__name__: int((lit & (pick == i)).sum())
+               for i, li in enumerate(lz.lights)}
+    if min(emitted.values()) < 1:
+        fail(f"lightzoo shoot: a light emitted no photon: {emitted}")
+    print(f"photons: lightzoo256_shoot ({PH_ZOO_PHOTONS} photons, "
+          f"{PH_ZOO_BOUNCES} bounces, {LZ_TRIS} triangles): kernel "
+          f"{ms[0]:.3f} ms, plain {ms[1]:.3f} ms, deposits identical, "
+          f"stored {int(outs[0][3].sum())}; photons emitted per light "
+          f"{emitted}; launches {launches['lightzoo256_shoot']}")
+
+
+def phase_photons():
+    """Phase 20 (see the header): returns the launches of each photon
+    configuration and kernel 1's error row from the captured shoot."""
+    launches = {}
+    _photon_goldens(launches)
+    _photon_slice()
+    captured = _photon_pm512(launches)
+    _photon_sppm512(launches)
+    _photon_light_zoo(launches)
+    # (f) kernel 1 on the 1M-photon diffuse shoot's bounce wavefronts
+    if len(captured) != PH_PM["bounces"] + 1:
+        fail(f"cornellspec512_pm: {len(captured)} closest-hit calls in the "
+             f"diffuse shoot, not {PH_PM['bounces'] + 1}")
+    rows = [_check_captured(f"pm512 diffuse shoot: "
+                            f"{'emission' if i == 0 else f'bounce {i}'} "
+                            f"closest hit", *c)
+            for i, c in enumerate(captured)]
+    _gap("kernel 1 (brute closest hit), 1M-photon diffuse shoot", rows)
+    return launches, {"closest_hit": {"max_abs_err": max(
+        r["max_abs_err"] for r in rows)}}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2876,6 +3278,9 @@ def main():
     lightzoo, rows = timed("light zoo", phase_light_zoo)
     for name, row in rows.items():
         _merge(kt[name], row)
+    photons, rows = timed("photons", phase_photons)
+    for name, row in rows.items():
+        _merge(kt[name], row)
 
     replaces = {     # kernels 1 to 8
         "closest_hit": ("core_tpu/geometry/pallas_intersect.py:55",
@@ -2897,7 +3302,9 @@ def main():
     # fwdbwd_launches: the kernel's launches in one Cornell fwd+bwd step;
     # chain_launches / option_launches / golden_launches / zoo_launches /
     # lightzoo_launches: its launches per chunk of each chain / option /
-    # golden-mesh / mesh-zoo / light-zoo configuration;
+    # golden-mesh / mesh-zoo / light-zoo configuration; photon_launches:
+    # per request of each photon golden, per chunk of cornellspec512_pm,
+    # per pass of cornellspec512_sppm, per light-zoo shoot;
     # fold_launches: per step of each fold table row
     table = [{"name": name, "route": "cuda", "source": src,
               "replaces": rep, "launches": counts[name], **kt[name],
@@ -2907,7 +3314,8 @@ def main():
               "fold_launches": {r: folds[r][name] for r in folds},
               "golden_launches": {c: golden[c][name] for c in golden},
               "zoo_launches": {c: zoo[c][name] for c in zoo},
-              "lightzoo_launches": {c: lightzoo[c][name] for c in lightzoo}}
+              "lightzoo_launches": {c: lightzoo[c][name] for c in lightzoo},
+              "photon_launches": {c: photons[c][name] for c in photons}}
              for name, (rep, src) in replaces.items()]
     print(json.dumps({"kernels": table}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

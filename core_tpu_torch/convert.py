@@ -15,8 +15,10 @@ The flat cluster accel crosses as core_tpu's ClusterData (aabb, and the
 triangle block [C, L, 10]: v0, e1, e2, id), the grouped one as its
 GroupedData with the same triangle block (core_tpu's field-major
 [C, 16, L] block is transposed on the way).  A scene without an accel gets
-one by environment.accel_for's triangle-count rule.  This module imports
-no jax.
+one by environment.accel_for's triangle-count rule.
+photon_map_from_numpy grids a numpy photon deposit set into this package's
+PhotonMap, so both packages can gather from the same photons.  This module
+imports no jax.
 """
 from __future__ import annotations
 
@@ -281,3 +283,20 @@ def scene_from_numpy(leaves: dict, static: dict, *, device="cuda",
                      for m, slot, nds, out in static["node_programs"]),
                  texture_name_map=static["texture_name_map"],
                  intersector=resolve_intersector(intersector, device))
+
+
+def photon_map_from_numpy(pos, power, dirn, valid, radius: float, bmin,
+                          bmax, *, device="cuda"):
+    """This package's PhotonMap on `device` from a numpy deposit set
+    ([P, 3] pos, power, dirn and [P] valid, as either package's
+    shoot_photons returns them), gridded at `radius` over the host bound
+    (bmin, bmax): both packages then gather from the same photons."""
+    from core_tpu_torch.photon.map import build_photon_grid
+    device = check_device(device)
+
+    def t(a, dtype):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return build_photon_grid(t(pos, torch.float32), t(power, torch.float32),
+                             t(dirn, torch.float32), t(valid, torch.bool),
+                             radius, bmin, bmax)

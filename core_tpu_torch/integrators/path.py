@@ -25,8 +25,11 @@ direct light at chain hits, which core_tpu estimates with opaque shadows
 folding (fold_interval, fold_start, fold_sort) halves the path wavefront
 at the bounces core_tpu folds at, with its pairing pick (_fold).  The
 ambient-occlusion fields are carried and ignored, as core_tpu's path
-tracer ignores them.  Scope: caustic_type "path" or "none"; photon
-caustics raise NotImplementedError.
+tracer ignores them.  caustic_type "photon" or "both" adds a caustic
+photon map's radiance at the camera hits' diffuse vertices
+(pathtracer.cc:171 estimateCausticPhotons; the map comes from
+render.integrator_preprocess as aux["caustic"]); "path" or "both" lets
+the paths pick up emission and the background after caustic bounces.
 """
 from __future__ import annotations
 
@@ -50,12 +53,17 @@ from core_tpu_torch.vec import (RaysS, luminance3, map_lanes, rays_to_soa,
 @dataclass(frozen=True)
 class PathOptions:
     """core_tpu's PathOptions (core_tpu/integrators/path.py:41-93) but its
-    photon-caustic and SSS fields."""
+    SSS fields."""
     path_samples: int = 32        # reference "path_samples" (nPaths)
     bounces: int = 5              # reference "bounces" (maxBounces)
     raydepth: int = 5             # specular recursion depth
     no_recursive: bool = False
-    caustic_type: str = "path"    # none|path (photon|both not ported)
+    caustic_type: str = "path"    # none|path|photon|both
+    # photon caustics (pathtracer.cc:374-383): a caustic photon map built
+    # at preprocess, mixed in at the camera hits' diffuse vertices
+    c_photons: int = 500000       # reference "photons"
+    caustic_radius: float = 0.25  # reference "caustic_radius"
+    caustic_depth: int = 10       # reference "caustic_depth"
     transp_shad: bool = False     # reference transpShad
     shadow_depth: int = 5         # reference shadowDepth
     transp_background: bool = False
@@ -81,10 +89,13 @@ class PathOptions:
     fold_sort: bool = True
 
 
+CAUSTIC_TYPES = ("none", "path", "photon", "both")
+
+
 def _check_supported(opts: PathOptions):
-    if opts.caustic_type not in ("path", "none"):
-        raise NotImplementedError(f"caustic_type {opts.caustic_type!r} "
-                                  "(photon caustics) is not ported yet")
+    if opts.caustic_type not in CAUSTIC_TYPES:
+        raise ValueError(f"caustic_type {opts.caustic_type!r} is not one of "
+                         f"{CAUSTIC_TYPES}")
 
 
 def _nee_lanes(scene) -> int:
@@ -161,7 +172,7 @@ def _paths_batched(scene, types_present, sp0, p0, wo0, active0, n_paths,
     of the closest-hit and NEE shadow lanes (useful = lanes whose path was
     still alive at the launch), as core_tpu's _paths_batched does; a
     folded wavefront counts at its own width."""
-    trace_caustics = opts.caustic_type == "path"
+    trace_caustics = opts.caustic_type in ("path", "both")
     base = (n_paths * pixel_sample + sampling_offs) & qmc.MASK32
     offs = ((torch.arange(n_paths, dtype=torch.int64,
                           device=base.device)[:, None]
@@ -252,7 +263,7 @@ def _paths_batched(scene, types_present, sp0, p0, wo0, active0, n_paths,
 
 
 def integrate(scene, types_present, rays, pixel_sample, sampling_offs,
-              opts: PathOptions, stats=None, diff=None):
+              opts: PathOptions, aux=None, stats=None, diff=None):
     """Path-tracer integrate() for a camera wavefront -> rgba [N, 4].
 
     rays: types.Rays ([N, 3] o, d); pixel_sample, sampling_offs: [N] int64
@@ -264,7 +275,8 @@ def integrate(scene, types_present, rays, pixel_sample, sampling_offs,
     (raytrace.recursive_raytrace's "chain_live").  diff: optional (dxd,
     dyd) neighbour directions of the camera rays, whose footprint selects
     image-texture mip levels at the camera hits (core_tpu path.py:
-    320-326)."""
+    320-326).  aux: render.integrator_preprocess's caustic photon map
+    ({"caustic": PhotonMap}) under caustic_type "photon" or "both"."""
     _check_supported(opts)
     rs = rays_to_soa(rays)
     n = rs.tmin.shape[0]
@@ -289,6 +301,13 @@ def integrate(scene, types_present, rays, pixel_sample, sampling_offs,
                                              pixel_sample, sampling_offs,
                                              nee0, opts.transp_shad,
                                              opts.shadow_depth)
+    # photon-mapped caustics at the camera hits (pathtracer.cc:171)
+    if aux is not None and "caustic" in aux \
+            and opts.caustic_type in ("photon", "both"):
+        from core_tpu_torch.integrators.photonmap import _caustic_radiance
+        col = col + where3(nee0, _caustic_radiance(
+            aux["caustic"], p, sp, wo, types_present, opts.caustic_radius),
+            0.0)
     n_paths = max(1, opts.path_samples)
     col = col + _paths_batched(scene, types_present, sp, p, wo, nee0,
                                n_paths, pixel_sample, sampling_offs, opts,

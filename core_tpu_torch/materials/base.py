@@ -214,8 +214,8 @@ class MatParamsS(NamedTuple):
     MatParamsS.  The blend and mask composites are resolved before these
     rows leave scene.material_params_s, so their columns are not carried.
     The SSS columns join when the translucent family is ported; Beer
-    absorption is read by no ported integrator (core_tpu reads it only in
-    its SSS integrator)."""
+    absorption is read by the photon shoot (photon/map.py), as in
+    core_tpu."""
     mtype: torch.Tensor
     flags: torch.Tensor
     c_mirror: torch.Tensor
@@ -232,6 +232,7 @@ class MatParamsS(NamedTuple):
     mirror_color: V3
     glossy_color: V3
     filter_color: V3
+    absorption: V3
     glossy_reflect: torch.Tensor
     exp_u: torch.Tensor
     exp_v: torch.Tensor
@@ -267,6 +268,7 @@ def gather_params_s(table: MaterialTable, mat_idx) -> MatParamsS:
         mirror_color=g3(table.mirror_color),
         glossy_color=g3(table.glossy_color),
         filter_color=g3(table.filter_color),
+        absorption=g3(table.absorption),
         glossy_reflect=g(table.glossy_reflect),
         exp_u=ex[:, 0].contiguous(), exp_v=ex[:, 1].contiguous(),
         as_diffuse=g(table.as_diffuse), dispersion=g(table.dispersion),

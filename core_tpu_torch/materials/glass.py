@@ -14,8 +14,8 @@ Conventions, as core_tpu matches them:
 - rough glass sample: GGX half vector, Walter-style refraction Jacobian
   (roughglass.cc:55-146); rough glass has no perfect-specular branch
 - both are sample-only: eval and pdf return 0
-Beer absorption (the `absorption` column) is read by no integrator of either
-package but core_tpu's SSS one, so nothing here applies it.
+Beer absorption (the `absorption` column) is applied by the photon shoot
+(photon/map.py), not here.
 """
 from __future__ import annotations
 

@@ -10,6 +10,8 @@
     python3 -m core_tpu_torch.profile_chunk golden_pt  # the golden mesh
     python3 -m core_tpu_torch.profile_chunk zoo_pt     # the mesh zoo
     python3 -m core_tpu_torch.profile_chunk lightzoo_pt  # the light zoo
+    python3 -m core_tpu_torch.profile_chunk pm512      # photonmapping
+    python3 -m core_tpu_torch.profile_chunk sppm512    # one SPPM pass
 
 Run from the root of a checkout on a machine with a CUDA card.  "cornell"
 renders cornell_box(light_samples=4) with PathOptions(path_samples=8,
@@ -37,7 +39,10 @@ sets (meshzoo256_dl_fwd, meshzoo256_pt_fwd); "lightzoo_dl" and
 scenes.LIGHT_ZOO at 256^2, the sphere, mesh, IES and portal lights, a
 darksky with its sun and background light, a thin lens) under those two
 option sets with its Gauss filter (lightzoo256_dl_fwd,
-lightzoo256_pt_fwd).  With "fwdbwd" it
+lightzoo256_pt_fwd).  "pm512" renders one 2-spp chunk of chip_smoke.py's
+cornellspec512_pm (the 512^2 glass-and-glossy box, 1M + 1M photons, final
+gathering with 8 rays), its photon maps built once beforehand; "sppm512"
+runs one pass of cornellspec512_sppm (500k photons a pass).  With "fwdbwd" it
 profiles bench_cuda.py's step instead of a forward chunk: value_and_grad
 of the loss of one 1-spp chunk (Cornell: the mean squared RGB against a
 zero target; big and mesh: the mean RGB) with respect to
@@ -65,8 +70,8 @@ from core_tpu_torch import diff
 from core_tpu_torch import film as film_mod
 from core_tpu_torch.integrators.direct import DirectOptions
 from core_tpu_torch.integrators.path import PathOptions
-from core_tpu_torch.render import (RenderOptions, render_chunk,
-                                   scene_material_types)
+from core_tpu_torch.render import (RenderOptions, integrator_preprocess,
+                                   render_chunk, scene_material_types)
 from core_tpu_torch.scenes import big_scene, cornell_box, mesh_scene
 
 RUNS = 5
@@ -102,6 +107,14 @@ def _config(name):
         import chip_smoke
         return (chip_smoke.light_zoo_scene(256),
                 chip_smoke.light_zoo_opts(name[-2:]))
+    if name in ("pm512", "sppm512"):
+        import chip_smoke
+        kind = name[:-3]
+        return (cornell_box(resx=512, resy=512, light_samples=16,
+                            block_materials=chip_smoke.PH_BLOCKS,
+                            device="cuda"),
+                chip_smoke.photon_opts(kind, chip_smoke.PH_PM if kind == "pm"
+                                       else chip_smoke.PH_SPPM))
     direct = RenderOptions(aa_samples=1, spp_chunk=1,
                            integrator="directlight",
                            integrator_opts=DirectOptions(raydepth=1))
@@ -124,8 +137,8 @@ def _config(name):
     raise SystemExit(f"profile_chunk: unknown configuration {name!r} "
                      "(cornell, cornell_fold2, big, mesh, spec_pt, spec_dl, "
                      "blend_dl, ao_dl, pane_ts_dl, glass_ts_dl, golden_dl, "
-                     "golden_pt, zoo_dl, zoo_pt, lightzoo_dl or "
-                     "lightzoo_pt)")
+                     "golden_pt, zoo_dl, zoo_pt, lightzoo_dl, "
+                     "lightzoo_pt, pm512 or sppm512)")
 
 
 def _fwdbwd_step(name, scene, opts):
@@ -143,6 +156,28 @@ def _fwdbwd_step(name, scene, opts):
     return lambda: vg(params)
 
 
+def _sppm_pass(scene, types, so):
+    """One SPPM pass (pass 0) from a fresh state."""
+    from core_tpu_torch.integrators import sppm
+    from core_tpu_torch.integrators.photonmap import (scene_bound,
+                                                      world_sphere)
+    from core_tpu_torch.vec import zeros3
+    bmin, bmax = scene_bound(scene)
+    center, world_r = world_sphere(scene, bmin, bmax)
+    r0 = float(so.search_radius)
+    h, w = scene.camera.resy, scene.camera.resx
+    zero = torch.zeros(h * w, device="cuda")
+    state = sppm.HitPoints(r2=torch.full_like(zero, r0 * r0), acc_n=zero,
+                           tau=zeros3(zero), direct=zeros3(zero))
+
+    def one():
+        with torch.no_grad():
+            return sppm.one_pass_block(scene, types, state, 0, 0, h, w, so,
+                                       scene.camera, center, world_r, bmin,
+                                       bmax, r0)
+    return one
+
+
 def main(name="cornell", mode="fwd"):
     if not torch.cuda.is_available():
         raise SystemExit("profile_chunk: needs a CUDA card")
@@ -154,11 +189,19 @@ def main(name="cornell", mode="fwd"):
     types = scene_material_types(scene)
     res_y, res_x = scene.camera.resy, scene.camera.resx
 
+    spp, aux = 1, None
+    if name == "pm512":
+        spp = opts.spp_chunk
+        with torch.no_grad():
+            aux = integrator_preprocess(scene, types, opts)
+
     def chunk():
         with torch.no_grad():
             film = film_mod.make_film(res_y, res_x, device="cuda")
-            return render_chunk(scene, types, opts, film, 0, 1, 0)
+            return render_chunk(scene, types, opts, film, 0, spp, 0, aux)
 
+    if name == "sppm512":
+        chunk = _sppm_pass(scene, types, opts.integrator_opts)
     if mode == "fwdbwd":
         chunk = _fwdbwd_step(name, scene, opts)
 

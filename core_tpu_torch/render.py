@@ -8,9 +8,12 @@ wavefront per chunk.  Pixel-sample QMC matches the reference's renderTile
   single-pass:   dx = (0.5+s)/n, dy = RI_LP(s + offs)
   lens (u, v):   RI_3 / RI_5 of (pass_offs + offs + s + 1)
 
-Scope: one AA pass (aa_passes == 1), the path tracer and the directlight
-integrator, the full-raster chunk; other integrators, adaptive passes and
-row blocks raise NotImplementedError.
+Scope: one AA pass (aa_passes == 1); the path tracer (with its photon
+caustics), the directlight and photonmapping integrators on the
+full-raster chunk, and SPPM's own pass loop; other integrators, adaptive
+passes and row blocks raise NotImplementedError.  integrator_preprocess
+builds the photon maps once per render_image and render_chunk hands them
+to the integrator as `aux`.
 
 Cluster scenes, flat and grouped, trace their camera wavefront in 32x32
 pixel blocks (_pixel_grid_blocked, as core_tpu's render.py:201 does for
@@ -31,14 +34,19 @@ from core_tpu_torch.differentials import camera_diff_dirs
 from core_tpu_torch.film import Film, FilterType
 from core_tpu_torch.integrators import direct as direct_mod
 from core_tpu_torch.integrators import path as path_mod
+from core_tpu_torch.integrators import photonmap as pm_mod
+from core_tpu_torch.integrators import sppm as sppm_mod
 from core_tpu_torch.integrators.direct import DirectOptions
 from core_tpu_torch.integrators.path import PathOptions
+from core_tpu_torch.integrators.photonmap import PhotonOptions
+from core_tpu_torch.integrators.sppm import SPPMOptions
 from core_tpu_torch.sampling import qmc
 from core_tpu_torch.textures.base import TexType
 
 # integrator name -> (integrate function, its options type)
 _INTEGRATORS = {"pathtracing": (path_mod.integrate, PathOptions),
-                "directlight": (direct_mod.integrate, DirectOptions)}
+                "directlight": (direct_mod.integrate, DirectOptions),
+                "photonmapping": (pm_mod.integrate, PhotonOptions)}
 _BLOCK = 32   # pixel-block edge of cluster-scene camera wavefronts
 
 
@@ -55,15 +63,22 @@ class RenderOptions:
     premult: bool = False         # premultiply alpha at flush (reference)
     spp_chunk: int = 4            # samples per wavefront (memory bound)
     integrator: str = "directlight"
-    integrator_opts: PathOptions | DirectOptions = field(
-        default_factory=DirectOptions)
+    integrator_opts: PathOptions | DirectOptions | PhotonOptions \
+        | SPPMOptions = field(default_factory=DirectOptions)
 
 
-def _check_supported(opts: RenderOptions):
-    if opts.integrator not in _INTEGRATORS:
+def _check_supported(opts: RenderOptions, chunked: bool = True):
+    """chunked: the chunk loop's integrators; SPPM owns its pass loop and
+    renders only through render_image (chunked=False)."""
+    if opts.integrator == "SPPM" and chunked:
+        raise ValueError("SPPM replaces the chunked render loop (its own "
+                         "progressive pass loop, sppm.cc:62-109); use "
+                         "render_image")
+    if opts.integrator not in _INTEGRATORS and opts.integrator != "SPPM":
         raise NotImplementedError(f"integrator {opts.integrator!r} is not "
                                   "ported to core_tpu_torch yet")
-    want = _INTEGRATORS[opts.integrator][1]
+    want = SPPMOptions if opts.integrator == "SPPM" else \
+        _INTEGRATORS[opts.integrator][1]
     if not isinstance(opts.integrator_opts, want):
         raise TypeError(f"integrator {opts.integrator!r} takes "
                         f"{want.__name__}, got "
@@ -98,9 +113,31 @@ def _unblock_to_raster(a, spp, h, w, B=_BLOCK):
     return a.reshape((spp * h * w,) + rest)
 
 
+def integrator_preprocess(scene, types_present, opts: RenderOptions):
+    """The pre-render hook (the reference's surfaceIntegrator_t::preprocess
+    from scene_t::update): photonmapping's maps, the path tracer's caustic
+    photon map under caustic_type "photon" or "both" (pathtracer.cc:
+    90-93), else None.  Subsurface scattering (use_sss) raises."""
+    io = opts.integrator_opts
+    if getattr(io, "use_sss", False):
+        raise NotImplementedError("subsurface scattering (use_sss) is not "
+                                  "ported to core_tpu_torch yet")
+    if opts.integrator == "photonmapping":
+        return pm_mod.preprocess(scene, types_present, io)
+    if opts.integrator == "pathtracing" \
+            and io.caustic_type in ("photon", "both"):
+        popts = PhotonOptions(photons=1, c_photons=io.c_photons,
+                              bounces=io.caustic_depth,
+                              caustic_radius=io.caustic_radius,
+                              use_diffuse=False, use_caustics=True)
+        return pm_mod.preprocess(scene, types_present, popts) or None
+    return None
+
+
 def render_chunk(scene, types_present, opts: RenderOptions, film: Film,
-                 pass_offs: int, spp: int, sample0: int) -> Film:
-    """Trace spp samples for every pixel and splat them into film."""
+                 pass_offs: int, spp: int, sample0: int, aux=None) -> Film:
+    """Trace spp samples for every pixel and splat them into film.  aux:
+    integrator_preprocess's photon maps, when the integrator takes them."""
     _check_supported(opts)
     cam = scene.camera
     h, w = cam.resy, cam.resx
@@ -137,6 +174,8 @@ def render_chunk(scene, types_present, opts: RenderOptions, film: Film,
     # in core_tpu, only a scene with an image texture computes them
     diff_kw = {"diff": camera_diff_dirs(cam, px, py, lens_u, lens_v)} \
         if _has_image_textures(scene) else {}
+    if aux is not None:
+        diff_kw["aux"] = aux
     rgba = integrate(scene, types_present, rays, pixel_sample, sampling_offs,
                      opts.integrator_opts, **diff_kw)
     rgba = rgba * wt[..., None]
@@ -162,19 +201,32 @@ def scene_material_types(scene) -> tuple:
                  if t not in (int(MatType.BLEND), int(MatType.MASK)))
 
 
-def render_image(scene, opts: RenderOptions):
+def render_image(scene, opts: RenderOptions, checkpoint_path=None):
     """Full render; returns (image [H,W,4], Film).  Forward only: runs under
-    torch.no_grad()."""
-    _check_supported(opts)
+    torch.no_grad().  SPPM runs its own pass loop and folds the result into
+    a unit-weight film, so flush treats it as any other (core_tpu
+    render.py:357-370).  checkpoint_path (checkpoints) is not ported and
+    raises NotImplementedError."""
+    _check_supported(opts, chunked=False)
+    if checkpoint_path:
+        raise NotImplementedError("render checkpoints (checkpoint_path) are "
+                                  "not ported to core_tpu_torch yet")
     types_present = scene_material_types(scene)
     cam = scene.camera
     with torch.no_grad():
+        if opts.integrator == "SPPM":
+            rgba = sppm_mod.render_sppm(scene, opts.integrator_opts)
+            film = Film(rgba=rgba, weight=torch.ones_like(rgba[..., 0]))
+            return film_mod.flush(film, gamma=opts.gamma,
+                                  clamp=opts.clamp_rgb,
+                                  premult=opts.premult), film
+        aux = integrator_preprocess(scene, types_present, opts)
         film = film_mod.make_film(cam.resy, cam.resx, device=scene.device)
         done = 0
         while done < opts.aa_samples:
             spp = min(opts.spp_chunk, opts.aa_samples - done)
             film = render_chunk(scene, types_present, opts, film, 0, spp,
-                                done)
+                                done, aux)
             done += spp
         img = film_mod.flush(film, gamma=opts.gamma, clamp=opts.clamp_rgb,
                              premult=opts.premult)

@@ -47,7 +47,7 @@ def ri_vdc(i, scramble=0):
     bits = ((bits & 0x0F0F0F0F) << 4) | ((bits & 0xF0F0F0F0) >> 4)
     bits = ((bits & 0x33333333) << 2) | ((bits & 0xCCCCCCCC) >> 2)
     bits = ((bits & 0x55555555) << 1) | ((bits & 0xAAAAAAAA) >> 1)
-    return _to_unit(bits ^ as_u32(scramble, like=bits))
+    return _to_unit(bits ^ _scramble(scramble))
 
 
 @functools.lru_cache()
@@ -70,9 +70,18 @@ def _lp_dirs():
     return tuple(v)
 
 
+def _scramble(scramble):
+    """A scramble as an operand of ^: a tensor as uint32 values, a Python
+    int as a Python int (a device tensor made from a host int is a copy
+    that waits for the device)."""
+    if isinstance(scramble, torch.Tensor):
+        return as_u32(scramble)
+    return int(scramble) & MASK32
+
+
 def _ri_directions(i, scramble, dirs):
     i = as_u32(i)
-    r = as_u32(scramble, like=i).expand_as(i)
+    r = torch.zeros_like(i) ^ _scramble(scramble)
     for k in range(32):
         r = r ^ (((i >> k) & 1) * dirs[k])
     return _to_unit(r)
@@ -144,6 +153,15 @@ def _faure_permutation(b: int) -> tuple:
     return tuple(s[:c]) + (c,) + tuple(s[c:])
 
 
+@functools.lru_cache()
+def _faure_table(b: int, device) -> torch.Tensor:
+    """The permutation sigma_b as a float32 table on `device`, made once (a
+    table copied from the host at every call would wait for the device
+    each time)."""
+    return torch.tensor(_faure_permutation(b), dtype=torch.float32,
+                        device=device)
+
+
 def scr_halton(dim: int, n):
     """Faure-scrambled Halton sample of (static) dimension `dim` at index n
     (reference scrHalton, scr_halton.h:46-71): digits of n in base
@@ -156,8 +174,7 @@ def scr_halton(dim: int, n):
     base = PRIMES[dim]
     if base == 1:
         return torch.zeros(i.shape, dtype=torch.float32, device=i.device)
-    sigma = torch.tensor(_faure_permutation(base), dtype=torch.float32,
-                         device=i.device)
+    sigma = _faure_table(base, i.device)
     value = torch.zeros(i.shape, dtype=torch.float32, device=i.device)
     for f in _digit_factors(base):
         value = value + sigma[i % base] * f

@@ -2,15 +2,16 @@
 
 The cosine-weighted hemisphere and the uniform cone in SoA form (core_tpu
 keeps the hemisphere's SoA variant inside materials/shinydiffuse.py; it
-lives here beside its AoS counterpart's home), and the concentric disk of
-the thin-lens camera.
+lives here beside its AoS counterpart's home), the concentric disk of the
+thin-lens camera, and the uniform sphere and minimum-rotation frame of
+photon emission.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from core_tpu_torch.vec import V3
+from core_tpu_torch.vec import V3, cross3, dot3
 
 M_2PI = 2.0 * np.pi
 
@@ -49,3 +50,23 @@ def shirley_disk(r1, r2):
     r = torch.where(both_zero, 0.0, r)
     phi = torch.where(both_zero, 0.0, phi)
     return r * torch.cos(phi), r * torch.sin(phi)
+
+
+def sample_sphere(s1, s2) -> V3:
+    """Uniform sphere (reference sample_utils.h:56-76)."""
+    z = 1.0 - 2.0 * s1
+    r = torch.sqrt((1.0 - z * z).clamp_min(1e-12))
+    a = M_2PI * s2
+    return V3(torch.cos(a) * r, torch.sin(a) * r, z)
+
+
+def min_rot(d: V3, u: V3, d2: V3):
+    """The frame (d, u) turned onto the direction d2 (reference minRot,
+    sample_utils.h:158-167), as core_tpu computes it: the (1 - cos) term
+    adds the scalar (v . u) to every component.  Returns (u2, v2)."""
+    cos_alpha = dot3(d, d2)
+    sin_alpha = torch.sqrt((1.0 - cos_alpha * cos_alpha).clamp_min(1e-12))
+    v = cross3(d, d2)
+    u2 = u * cos_alpha + (1.0 - cos_alpha) * dot3(v, u) \
+        + cross3(v, u) * sin_alpha
+    return u2, cross3(d2, u2)

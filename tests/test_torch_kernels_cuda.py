@@ -8,7 +8,9 @@ triangles, kernels 1 and 3 on the edges of their tests (dead rays, edges
 and vertices, t at tmin and tcap, |det| near 1e-12, ties, exclusions) at
 36, 257, 1,634 and 4,096 triangles, and renders through the kernels
 against renders through the plain versions (among them the 64x64 light
-zoo, dl and pt, on the brute kernels 1-3).
+zoo, dl and pt, on the brute kernels 1-3, and the 64x64 glass-and-glossy
+box under photonmapping, SPPM and photon caustics), and the photonmapping
+and SPPM goldens at tests/test_golden_photon_family.py's bands.
 
 Marked `cuda`: each test asks its fixture for a CUDA device and skips
 without one.  Run on a GPU host with
@@ -830,3 +832,32 @@ def test_light_zoo_kernels_equal_plain_versions(device, kind):
                          light_zoo_opts(kind))[0] for isec in ("cuda", "torch")]
     assert torch.isfinite(imgs[0]).all()
     assert torch.equal(*imgs)
+
+
+@pytest.mark.parametrize("kind", ["pm", "sppm", "pt"])
+def test_photon_renders_through_kernels_equal_plain_versions(device, kind):
+    """chip_smoke's 64^2 glass-and-glossy box under photonmapping (final
+    gathering with its cache), SPPM over 2 passes and path tracing with
+    caustic_type "both": the renders through kernels 1 and 2 and through
+    the plain versions are identical."""
+    from chip_smoke import PH_BLOCKS, PH_SLICE_OPTS, photon_opts
+    imgs = [render_image(cornell_box(resx=64, resy=64, light_samples=4,
+                                     block_materials=PH_BLOCKS,
+                                     intersector=isec, device=device),
+                         photon_opts(kind, PH_SLICE_OPTS[kind], aa=2))[0]
+            for isec in ("cuda", "torch")]
+    assert torch.isfinite(imgs[0]).all()
+    assert torch.equal(*imgs)
+
+
+@pytest.mark.parametrize("kind", ["pm", "sppm"])
+def test_photon_goldens_through_kernels(device, kind):
+    """tests/test_golden_photon_family.py's photonmapping and SPPM goldens
+    on the card (the 64^2 Cornell box, the goldens' options), at its
+    bands."""
+    from chip_smoke import (PH_GOLDEN, photon_golden_ok, photon_golden_stats,
+                            photon_opts)
+    scene = cornell_box(resx=64, resy=64, light_samples=16, device=device)
+    img, _ = render_image(scene, photon_opts(kind, PH_GOLDEN[kind]))
+    stats = photon_golden_stats(kind, img)
+    assert photon_golden_ok(kind, *stats), stats

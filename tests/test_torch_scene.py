@@ -217,15 +217,14 @@ def test_unported_features_raise_by_name(scenes):
     # coated glossy shares the glossy family's module
     assert len(dispatch._modules((int(MatType.GLOSSY),
                                   int(MatType.COATED_GLOSSY)))) == 1
-    with pytest.raises(NotImplementedError, match="photon"):
+    with pytest.raises(NotImplementedError, match="bidirectional"):
         render_image(ts, RenderOptions(
-            integrator="pathtracing",
-            integrator_opts=PathOptions(caustic_type="photon")))
+            integrator="bidirectional", integrator_opts=PathOptions()))
     with pytest.raises(NotImplementedError, match="use_sss"):
         render_image(ts, RenderOptions(
             integrator_opts=DirectOptions(use_sss=True)))
-    with pytest.raises(NotImplementedError, match="photonmapping"):
-        render_image(ts, RenderOptions(integrator="photonmapping"))
+    with pytest.raises(NotImplementedError, match="debug"):
+        render_image(ts, RenderOptions(integrator="debug"))
     # mix and layer nodes and bump mapping are ported: each is recorded as
     # its material's program; a node type core_tpu does not know raises
     from core_tpu_torch.environment import SceneBuilder
