@@ -231,6 +231,36 @@ Phases, with their seconds:
                captured wavefronts against the plain version, timed, with
                bounds as in phase 7, and launches x (kernel - bound) per
                shoot
+  21. bidir — the bidirectional path tracer, subsurface scattering and
+               the debug integrator: (a) bd64_golden, the 64^2 Cornell box
+               (light_samples=16) under BidirOptions(do_light_image=False),
+               aa 8 in 2-spp chunks, box filter 1, through kernels 1 and 3
+               at tests/test_golden_photon_family.py's bands (block Pearson
+               > 0.99 against bd_128x128_64spp pooled 2x, energy rel in
+               [0.1, 0.6], mean within 10% of the float64 arbiter's
+               0.6524); (b) at 64^2, through the kernels bit-identical to
+               the plain versions: bidirectional with the light image, the
+               translucent box (tests/test_sss.py's scene, translucent_box)
+               under directlight and path tracing with use_sss, and every
+               debug type on golden_mesh_scene; (c) cornell256_bd
+               (cornell_box(light_samples=16), BidirOptions(): eye and
+               light depth 3, the light image on, 1-spp chunks): ms per
+               chunk, rays, peak memory, launches per chunk, the light
+               image's splats that land, the busy share of one profiled
+               chunk, and kernels 1 and 3 on the chunk's 6 closest-hit and
+               15 visibility wavefronts against the plain versions, timed,
+               with bounds; (d) emit_pdf of all ten light types on the
+               card; lightzoo256_bd (scenes.LIGHT_ZOO, BidirOptions(), one
+               1-spp chunk on kernels 4 and 5): ms, peak memory, launches,
+               busy share, each light's contribution alone (nonzero), and
+               kernels 4 and 5 on two captured wavefronts each against the
+               plain versions; (e) cornell256_sss_dl / _pt (the
+               translucent box at 256^2, light_samples=16, sigma_s 8, 8,192
+               photons, 4 interior steps): the SSS map's build seconds,
+               valid deposits and launches, the dipole estimate's device
+               ms at the 65,536 camera hits, ms per chunk, peak memory,
+               launches per chunk, the busy share, and the energy SSS adds
+               on the block
 The line before the last is the card's name and power limit (nvidia-smi),
 the one before that the kernel table as JSON, and the last line is
 {"ok": true, "device": {...}}.  Rows 1 and 2 of that table are phase 2's
@@ -241,7 +271,9 @@ option_launches, golden_launches, zoo_launches and lightzoo_launches those
 per chunk of each phase 10-12, 13-15, 17, 18 and 19 configuration, its
 fold_launches those per step of each fold-table row, its photon_launches
 those per request of each photon golden, per chunk of cornellspec512_pm,
-per pass of cornellspec512_sppm and per light-zoo shoot.
+per pass of cornellspec512_sppm and per light-zoo shoot, its
+bidir_launches those per bd64_golden request, per chunk of cornell256_bd,
+lightzoo256_bd and cornell256_sss_dl / _pt, and per SSS map build.
 Any failure raises (non-zero exit).  Imports nothing of jax or core_tpu.
 """
 from __future__ import annotations
@@ -2843,7 +2875,8 @@ PH_GOLDEN = {"pm": dict(photons=200000, c_photons=200000, bounces=4,
              "sppm": dict(passes=8, photons=100000, bounces=4,
                           search_radius=15.0, raydepth=5)}
 PH_GOLDEN_FILES = {"pm": "pm_128x128_32spp_ph200k",
-                   "sppm": "sppm_128x128_32pass_ph200k"}
+                   "sppm": "sppm_128x128_32pass_ph200k",
+                   "bd": "bd_128x128_64spp"}     # phase 21's golden
 # cornellspec512_pm / cornellspec512_sppm
 PH_PM = dict(photons=1_000_000, c_photons=1_000_000, bounces=5,
              diffuse_radius=40.0, caustic_radius=30.0, final_gather=True,
@@ -3195,6 +3228,491 @@ def phase_photons():
         r["max_abs_err"] for r in rows)}}
 
 
+# --------------------------------------------------------------------------
+# phase 21: the bidirectional path tracer, subsurface scattering with the
+# translucent material, the debug integrator
+# --------------------------------------------------------------------------
+
+BD_GOLDEN_RES = 64
+BD_GOLDEN_AA = 8
+# tests/test_golden_photon_family.py:100-106: refgold/arbiter64.py's float64
+# energy of the 64^2 box
+ARBITER64_ENERGY = 0.6524
+BD_RES = 256
+BD_TIMED = 3                 # timed 1-spp chunks after the counted one
+BD_SLICE = 64
+SSS_RES = 256
+SSS_SIGMA = (8.0, 8.0, 8.0)
+SSS_PHOTONS = 8192
+SSS_STEPS = 4
+SSS_TIMED = 2
+# tests/test_sss.py's options of each integrator
+SSS_FIELDS = {"dl": dict(raydepth=1),
+              "pt": dict(path_samples=2, bounces=2, raydepth=1)}
+SSS_BLOCK = (10, 34)         # the short block's triangles
+DEBUG_TYPES = ("N", "dPdU", "dPdV", "NU", "NV", "dSdU", "dSdV")
+BRUTE_BD = ("closest_hit", "any_hit")
+FLAT_BD = ("cluster_closest_hit", "cluster_any_hit")
+# the light types the light zoo lacks, for emit_pdf on all ten
+EMIT_EXTRA_LIGHTS = (
+    ("area", {"type": "arealight", "corner": (-1.0, 5.0, -1.0),
+              "point1": (1.0, 5.0, -1.0), "point2": (-1.0, 5.0, 1.0),
+              "color": (1.0, 1.0, 0.9), "power": 2.0, "samples": 1}),
+    ("point", {"type": "pointlight", "from": (0.5, 4.0, 0.5),
+               "color": (1.0, 0.9, 0.8), "power": 5.0}),
+    ("spot", {"type": "spotlight", "from": (2.0, 5.0, 1.0),
+              "to": (0.0, 0.0, 0.0), "color": (0.9, 0.9, 1.0), "power": 8.0,
+              "cone_angle": 30.0, "blend": 0.2}),
+    ("directional", {"type": "directional", "direction": (0.2, 1.0, 0.3),
+                     "color": (1.0, 1.0, 1.0), "power": 1.5}))
+
+
+def translucent_box(res, light_samples, sigma_s=SSS_SIGMA,
+                    intersector="auto", device="cuda"):
+    """tests/test_sss.py:18-49's scene built by the port: the Cornell box
+    whose short block (triangles 10-33) wears a translucent material."""
+    import dataclasses
+    from core_tpu_torch.materials.base import (MaterialDef, MatType,
+                                               build_material_table)
+    from core_tpu_torch.scenes import cornell_box
+    scene = cornell_box(resx=res, resy=res, light_samples=light_samples,
+                        with_blocks=True, device=device)
+    mats = [MaterialDef(name="white", diffuse_color=(0.75, 0.75, 0.75)),
+            MaterialDef(name="red", diffuse_color=(0.63, 0.065, 0.05)),
+            MaterialDef(name="green", diffuse_color=(0.14, 0.45, 0.091)),
+            MaterialDef(name="light", diffuse_color=(1.0, 1.0, 1.0),
+                        diffuse_strength=0.0, emit_strength=30.0),
+            MaterialDef(name="sss", mtype=MatType.TRANSLUCENT,
+                        diffuse_color=(0.9, 0.7, 0.6),
+                        glossy_color=(0.2, 0.2, 0.2), glossy_reflect=0.1,
+                        diffuse_strength=0.4, ior=1.3,
+                        absorption=(0.02, 0.04, 0.06), sigma_s=sigma_s,
+                        sss_g=0.0)]
+    tri_mat = scene.geom.tri_mat.clone()
+    tri_mat[SSS_BLOCK[0]:SSS_BLOCK[1]] = 4
+    scene = dataclasses.replace(
+        scene, geom=scene.geom._replace(tri_mat=tri_mat),
+        materials=build_material_table(mats, scene.device),
+        mat_types=tuple(sorted({int(d.mtype) for d in mats})))
+    return scene if intersector == "auto" else \
+        dataclasses.replace(scene, intersector=intersector)
+
+
+def bidir_opts(aa, spp_chunk, **fields):
+    """The bidirectional integrator with BidirOptions(**fields) and the
+    goldens' film (a box filter of size 1)."""
+    from core_tpu_torch.film import FilterType
+    from core_tpu_torch.integrators.bidir import BidirOptions
+    from core_tpu_torch.render import RenderOptions
+    return RenderOptions(integrator="bidirectional",
+                         integrator_opts=BidirOptions(**fields),
+                         aa_samples=aa, spp_chunk=spp_chunk, filter_size=1.0,
+                         filter_type=FilterType.BOX)
+
+
+def sss_opts(kind, use_sss, aa=1, spp_chunk=1):
+    """tests/test_sss.py's directlight ("dl") or path-tracing ("pt")
+    options, with use_sss and this phase's photons and steps."""
+    from core_tpu_torch.integrators.direct import DirectOptions
+    from core_tpu_torch.integrators.path import PathOptions
+    from core_tpu_torch.render import RenderOptions
+    integ, cls = {"dl": ("directlight", DirectOptions),
+                  "pt": ("pathtracing", PathOptions)}[kind]
+    return RenderOptions(integrator=integ, aa_samples=aa,
+                         spp_chunk=spp_chunk, integrator_opts=cls(
+                             use_sss=use_sss, sss_photons=SSS_PHOTONS,
+                             sss_steps=SSS_STEPS, **SSS_FIELDS[kind]))
+
+
+def _timed_chunks(scene, opts, cfg, want, launches, aux=None, timed=1,
+                  res=BD_RES):
+    """One counted 1-spp chunk (launches[cfg]; only the kernels of `want`
+    may launch), then `timed` more on the host clock; returns (film,
+    [ms], peak MiB, rays of the counted chunk)."""
+    import torch
+    from core_tpu_torch import film as film_mod
+    from core_tpu_torch.render import render_chunk, scene_material_types
+    types = scene_material_types(scene)
+    film = film_mod.make_film(res, res, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    sync()
+    with torch.no_grad():
+        film, rays = counted_rays(lambda: render_chunk(
+            scene, types, opts, film, 0, 1, 0, aux))
+    sync()
+    launches[cfg] = all_launches()
+    _only_kernels(launches[cfg], want, cfg)
+    ms = []
+    for k in range(timed):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            film = render_chunk(scene, types, opts, film, 0, 1, k + 1, aux)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return film, ms, torch.cuda.max_memory_allocated() / 2**20, rays
+
+
+def _busy(fn):
+    b = _busy_share(fn)
+    return "busy share not measured (the profiler saw no device time)" \
+        if b is None else f"profiled chunk: device {b[0]:.3f} ms over " \
+        f"{b[1]} launches in {b[2]:.3f} ms, busy share {b[0] / b[2]:.4f}"
+
+
+def _bd_golden(launches):
+    """(a) the bidirectional golden through kernels 1 and 3."""
+    import torch
+    from core_tpu_torch.render import render_image
+    from core_tpu_torch.scenes import cornell_box
+    scene = cornell_box(resx=BD_GOLDEN_RES, resy=BD_GOLDEN_RES,
+                        light_samples=16, device="cuda")
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    img, _ = render_image(scene, bidir_opts(BD_GOLDEN_AA, 2,
+                                            do_light_image=False))
+    sync()
+    dt = time.perf_counter() - t0
+    launches["bd64_golden"] = all_launches()
+    _only_kernels(launches["bd64_golden"], BRUTE_BD, "bd64_golden")
+    if not bool(torch.isfinite(img).all()):
+        fail("bd64_golden: non-finite image")
+    rel, pearson, _ = photon_golden_stats("bd", img)
+    mean = float(img[..., :3].mean())
+    gap = abs(mean - ARBITER64_ENERGY) / ARBITER64_ENERGY
+    print(f"bidir: bd64_golden ({PH_GOLDEN_FILES['bd']}): Pearson "
+          f"{pearson:.6f} (> 0.99), energy rel {rel:.6f} (in [0.1, 0.6]), "
+          f"mean {mean:.6f} vs the float64 arbiter {ARBITER64_ENERGY}: "
+          f"{gap:.6f} (< 0.10); {dt:.3f} s a request, launches "
+          f"{launches['bd64_golden']}")
+    if not (pearson > 0.99 and 0.1 <= rel <= 0.6 and gap < 0.10):
+        fail("bd64_golden outside tests/test_golden_photon_family.py's bands")
+
+
+def _bd_slices():
+    """(b) 64^2 renders through the kernels against the plain versions:
+    bidirectional with the light image, SSS under both integrators, every
+    debug type on golden_mesh_scene."""
+    import torch
+    from core_tpu_torch.integrators.debug import DebugOptions
+    from core_tpu_torch.render import RenderOptions, render_image
+    from core_tpu_torch.scenes import cornell_box
+    cases = [("bidirectional, light image on", lambda isec: cornell_box(
+        resx=BD_SLICE, resy=BD_SLICE, light_samples=4, intersector=isec,
+        device="cuda"), bidir_opts(2, 2), BRUTE_BD)]
+    for kind in ("dl", "pt"):
+        cases.append((f"sss {kind}", lambda isec: translucent_box(
+            BD_SLICE, 4, intersector=isec), sss_opts(kind, True, aa=2,
+                                                     spp_chunk=2),
+            ("closest_hit", "any_hit_nee")))
+    for t in DEBUG_TYPES:
+        cases.append((f"debug {t}", lambda isec: golden_scene(BD_SLICE, isec),
+                      RenderOptions(integrator="debug",
+                                    integrator_opts=DebugOptions(
+                                        debug_type=t)), ("closest_hit",)))
+    for what, make, opts, want in cases:
+        imgs = []
+        for isec in ("cuda", "torch"):
+            reset_counts()
+            imgs.append(render_image(make(isec), opts)[0])
+            sync()
+            if isec == "cuda":
+                counts = all_launches()
+                _only_kernels(counts, want, f"{BD_SLICE}^2 {what}")
+        if not bool(torch.isfinite(imgs[0]).all()) \
+                or not torch.equal(*imgs):
+            fail(f"{BD_SLICE}^2 {what}: kernel and plain renders differ or "
+                 f"are not finite: max abs "
+                 f"{float((imgs[0] - imgs[1]).abs().max())}")
+        print(f"bidir slice: {BD_SLICE}x{BD_SLICE} {what}: through the "
+              f"kernels == through the plain versions (bit-identical), mean "
+              f"{float(imgs[0][..., :3].mean()):.6f}, sha256 "
+              f"{image_digest(imgs[0])}, kernel launches {counts}")
+
+
+def _bd_cornell256(launches):
+    """(c) cornell256_bd: chunks timed, the light image's splats counted,
+    kernels 1 and 3 on the captured inputs of one chunk; returns their
+    error rows."""
+    import torch
+    from core_tpu_torch import film as film_mod
+    from core_tpu_torch import render as render_mod
+    from core_tpu_torch.render import render_chunk, scene_material_types
+    from core_tpu_torch.scenes import cornell_box
+    scene = cornell_box(resx=BD_RES, resy=BD_RES, light_samples=16,
+                        device="cuda")
+    opts = bidir_opts(1, 1)
+    splats = []
+    orig = film_mod.add_density_samples
+
+    def counted(film, x, y, col, n_paths, sample_mask=None):
+        h, w = film.density.shape[:2]
+        inside = (x >= 0) & (x < w) & (y >= 0) & (y < h) & sample_mask
+        splats.append((int(inside.sum()), x.shape[0]))
+        return orig(film, x, y, col, n_paths, sample_mask)
+
+    render_mod.film_mod.add_density_samples = counted
+    try:
+        film, ms, peak, rays = _timed_chunks(scene, opts, "cornell256_bd",
+                                             BRUTE_BD, launches,
+                                             timed=BD_TIMED)
+    finally:
+        render_mod.film_mod.add_density_samples = orig
+    img = film_mod.flush(film)
+    if not bool(torch.isfinite(img).all()):
+        fail("cornell256_bd: non-finite image")
+    write_png(BUILD / "chip_smoke_cornell256_bd.png", img.cpu().numpy())
+    types = scene_material_types(scene)
+    with torch.no_grad():
+        busy = _busy(lambda: render_chunk(scene, types, opts,
+                                          film_mod.make_film(
+                                              BD_RES, BD_RES, device="cuda"),
+                                          0, 1, 0))
+    landed, tried = splats[0]
+    print(f"bidir: cornell256_bd: {BD_RES}x{BD_RES}, 1-spp chunks "
+          f"{[round(t, 3) for t in ms]} ms (median "
+          f"{sorted(ms)[len(ms) // 2]:.3f}), rays per chunk {rays}; peak "
+          f"device memory {peak:.1f} MiB; launches per chunk "
+          f"{launches['cornell256_bd']}; light-image splats per chunk: "
+          f"{landed} of {tried} land (unoccluded, in the image); image "
+          f"mean {float(img[..., :3].mean()):.6f}; {busy}")
+    calls = _capture_calls(scene, BD_RES, opts)
+    got = {q: [c for c in calls if c[0] == q] for q in ("closest", "any")}
+    if (len(got["closest"]), len(got["any"])) != (6, 15) \
+            or len(calls) != 21:
+        fail(f"cornell256_bd chunk: {len(got['closest'])} closest and "
+             f"{len(got['any'])} any-hit calls of {len(calls)}, not 6 and "
+             f"15")
+    names = {"closest": ["eye camera", "eye bounce 1", "eye bounce 2",
+                         "light emission", "light bounce 1",
+                         "light bounce 2"],
+             "any": [f"s={s} visibility, eye vertex {i + 1}"
+                     for i in range(3) for s in range(1, 5)]
+             + [f"t=1 visibility, light vertex {j + 1}" for j in range(3)]}
+    rows = {}
+    for kernel, k, q in (("closest_hit", 1, "closest"), ("any_hit", 3, "any")):
+        per = [_check_captured(f"cornell256_bd: {name}"
+                               f"{' closest hit' if q == 'closest' else ''}",
+                               *c) for name, c in zip(names[q], got[q])]
+        rows[kernel] = {"max_abs_err": max(r["max_abs_err"] for r in per)}
+        _gap(f"kernel {k}, cornell256_bd captured calls", per)
+    return rows
+
+
+def _emit_pdf_all_types():
+    """emit_pdf of all ten light types on the card, at emission points
+    and directions of emit_photon: finite, the pdfs positive, the cosines
+    in [0, 1]."""
+    import torch
+    from core_tpu_torch import scenes
+    from core_tpu_torch.environment import SceneBuilder
+    from core_tpu_torch.integrators.photonmap import scene_center_radius
+    from core_tpu_torch.lights.base import emit_pdf
+    from core_tpu_torch.params import ParamMap
+    from core_tpu_torch.photon.emit import emit_photon
+    b = light_zoo_builder(SceneBuilder("cuda"), ParamMap, scenes, 16,
+                          grid=12, torus=(12, 8), samples=1, panel=1)
+    for name, params in EMIT_EXTRA_LIGHTS:
+        b.create("light", name, ParamMap(dict(params)))
+    zoo = b.compile_scene()
+    center, radius = scene_center_radius(zoo)
+    s = torch.rand((4, 65536), generator=torch.Generator("cuda")
+                   .manual_seed(21), device="cuda")
+    seen = {}
+    for light in zoo.lights:
+        o, d, _, _ = emit_photon(light, *s, center, radius)
+        area, dirp, cos, sing, ddir = emit_pdf(light, o, d,
+                                               scene_radius=radius)
+        ok = all(bool(torch.isfinite(x).all()) for x in (area, dirp, cos)) \
+            and bool((area > 0).all()) and bool((dirp >= 0).all()) \
+            and float(dirp.max()) > 0 and bool((cos >= 0).all()) \
+            and float(cos.max()) <= 1.0 + 1e-6
+        if not ok:
+            fail(f"emit_pdf of {type(light).__name__} on the card: not "
+                 "finite or out of range")
+        seen[type(light).__name__] = (round(float(dirp.mean()), 6),
+                                      bool(sing), bool(ddir))
+    if len(seen) != 10:
+        fail(f"emit_pdf: {len(seen)} light types, not 10: {sorted(seen)}")
+    print(f"bidir: emit_pdf of the ten light types on the card (mean "
+          f"direction pdf, singular, dirac direction): {seen}")
+
+
+def _dark(light):
+    """The light with its emission scaled to 0 and its pdfs kept: its
+    colour, the sun's col_pdf, a portal's power, or a background light's
+    background's power."""
+    import dataclasses
+    import torch
+    fields = {f.name for f in dataclasses.fields(light)}
+    for f in ("color", "col_pdf", "power"):
+        if f in fields:
+            return dataclasses.replace(
+                light, **{f: torch.zeros_like(getattr(light, f))})
+    bg = light.background
+    return dataclasses.replace(light, background=dataclasses.replace(
+        bg, power=torch.zeros_like(bg.power)))
+
+
+def _bd_light_zoo(launches):
+    """(d) lightzoo256_bd on kernels 4 and 5: one counted and timed chunk,
+    each light's contribution alone, kernels 4 and 5 on captured
+    wavefronts; returns their error rows."""
+    import dataclasses
+    import torch
+    from core_tpu_torch import film as film_mod
+    from core_tpu_torch.integrators.bidir import BidirOptions
+    from core_tpu_torch.render import render_chunk, scene_material_types
+    lz = light_zoo_scene(LZ_RES)
+    opts = dataclasses.replace(light_zoo_opts("dl"),
+                               integrator="bidirectional",
+                               integrator_opts=BidirOptions())
+    film, ms, peak, rays = _timed_chunks(lz, opts, "lightzoo256_bd", FLAT_BD,
+                                         launches, res=LZ_RES)
+    img = film_mod.flush(film)
+    if not bool(torch.isfinite(img).all()):
+        fail("lightzoo256_bd: non-finite image")
+    write_png(BUILD / "chip_smoke_lightzoo256_bd.png", img.cpu().numpy())
+    types = scene_material_types(lz)
+
+    def chunk(sc):
+        with torch.no_grad():
+            f = render_chunk(sc, types, opts, film_mod.make_film(
+                LZ_RES, LZ_RES, device="cuda"), 0, 1, 0)
+        return film_mod.flush(f)
+
+    busy = _busy(lambda: chunk(lz))
+    # each light's contribution: the chunk minus the same chunk with that
+    # light's emission scaled to 0 (its pdfs, and so every weight, kept)
+    full = chunk(lz)[..., :3]
+    per = {}
+    for i, light in enumerate(lz.lights):
+        lights = list(lz.lights)
+        lights[i] = _dark(light)
+        dark = chunk(dataclasses.replace(lz, lights=tuple(lights)))[..., :3]
+        per[type(light).__name__] = float((full - dark).mean())
+    print(f"bidir: lightzoo256_bd: {LZ_RES}x{LZ_RES}, one 1-spp chunk "
+          f"{ms[0]:.3f} ms, rays {rays}; peak device memory {peak:.1f} MiB; "
+          f"launches per chunk {launches['lightzoo256_bd']}; image mean "
+          f"{float(img[..., :3].mean()):.6f}; each light's contribution "
+          f"(the chunk minus the chunk with its emission 0, image mean) "
+          f"{per}; {busy}")
+    if min(per.values()) <= 0:
+        fail(f"lightzoo256_bd: a light contributes nothing: {per}")
+    calls = _capture_calls(lz, LZ_RES, opts)
+    got = {q: [c for c in calls if c[0] == q] for q in ("closest", "any")}
+    if (len(got["closest"]), len(got["any"])) != (6, 15):
+        fail(f"lightzoo256_bd chunk: {len(got['closest'])} closest and "
+             f"{len(got['any'])} any-hit calls, not 6 and 15")
+    rows = {}
+    for kernel, k, q, picks in (
+            ("cluster_closest_hit", 4, "closest",
+             ((0, "eye camera closest hit"),
+              (3, "light emission closest hit"))),
+            ("cluster_any_hit", 5, "any",
+             ((0, "s=1 visibility, eye vertex 1"),
+              (1, "s=2 visibility, eye vertex 1")))):
+        per_k = [_check_captured(f"lightzoo256_bd: {name}", *got[q][i])
+                 for i, name in picks]
+        rows[kernel] = {"max_abs_err": max(r["max_abs_err"] for r in per_k)}
+        _gap(f"kernel {k}, lightzoo256_bd captured calls ({len(picks)} of "
+             f"{len(got[q])})", per_k)
+    return rows
+
+
+def _sss_configs(launches):
+    """(e) cornell256_sss_dl / _pt: the SSS map's build, chunks, the
+    dipole estimate's device time, the energy SSS adds on the block."""
+    import torch
+    from core_tpu_torch import film as film_mod
+    from core_tpu_torch import scene as sm
+    from core_tpu_torch.cameras import shoot_ray
+    from core_tpu_torch.integrators import sss as sss_mod
+    from core_tpu_torch.render import (render_chunk, render_image,
+                                       scene_material_types)
+    from core_tpu_torch.vec import rays_to_soa
+    scene = translucent_box(SSS_RES, 16)
+    types = scene_material_types(scene)
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        smap = sss_mod.build_sss_map(scene, types, n_photons=SSS_PHOTONS,
+                                     interior_steps=SSS_STEPS)
+    sync()
+    build_s = time.perf_counter() - t0
+    launches["cornell256_sss_map"] = all_launches()
+    _only_kernels(launches["cornell256_sss_map"], ("closest_hit",),
+                  "cornell256_sss_map")
+    n_valid = int(smap.valid.sum())
+    print(f"sss: cornell256_sss_map: {SSS_PHOTONS} photons, 2 surface "
+          f"bounces x {SSS_STEPS} interior steps: {build_s:.3f} s, valid "
+          f"deposits {n_valid} of {smap.valid.shape[0]}, launches "
+          f"{launches['cornell256_sss_map']}")
+    if n_valid == 0:
+        fail("cornell256_sss_map: no deposit")
+
+    # the camera hits of one chunk, for the dipole estimate alone
+    h = w = SSS_RES
+    ys, xs = torch.meshgrid(torch.arange(h, device="cuda"),
+                            torch.arange(w, device="cuda"), indexing="ij")
+    rays, _ = shoot_ray(scene.camera, xs.reshape(-1).float() + 0.5,
+                        ys.reshape(-1).float() + 0.5)
+    rs = rays_to_soa(rays)
+    hits = sm.closest_hit_s(scene, rs)
+    sps = sm.surface_points_s(scene, rs, hits)
+    p = sm.material_params_s(scene, sps)
+    est_ms, est = cuda_time_ms(lambda: sss_mod.estimate_sss(
+        smap, sps, p, -rs.d, hits.valid), 3, warmup=1)
+    block = (hits.prim >= SSS_BLOCK[0]) & (hits.prim < SSS_BLOCK[1])
+    print(f"sss: the dipole estimate at the {h * w} camera hits "
+          f"({int(block.sum())} on the block) over {n_valid} deposits: "
+          f"{est_ms:.3f} ms (CUDA events), mean on the block "
+          f"{float(torch.stack(list(est), -1)[block].mean()):.6f}")
+    block = block.reshape(h, w)
+    for kind in ("dl", "pt"):
+        cfg = f"cornell256_sss_{kind}"
+        opts = sss_opts(kind, True)
+        aux = smap if kind == "dl" else {"sss": smap}
+        film, ms, peak, rays = _timed_chunks(
+            scene, opts, cfg, ("closest_hit", "any_hit_nee"), launches,
+            aux=aux, timed=SSS_TIMED, res=SSS_RES)
+        img = film_mod.flush(film)
+        img_off, _ = render_image(scene, sss_opts(kind, False))
+        img_on, _ = render_image(scene, opts)
+        if not bool(torch.isfinite(img).all()) \
+                or not bool(torch.isfinite(img_on).all()):
+            fail(f"{cfg}: non-finite image")
+        gain = float((img_on - img_off)[..., :3][block].mean())
+        write_png(BUILD / f"chip_smoke_{cfg}.png", img.cpu().numpy())
+        with torch.no_grad():
+            busy = _busy(lambda: render_chunk(
+                scene, types, opts, film_mod.make_film(
+                    SSS_RES, SSS_RES, device="cuda"), 0, 1, 0, aux))
+        print(f"sss: {cfg}: {SSS_RES}x{SSS_RES}, 1-spp chunks "
+              f"{[round(t, 3) for t in ms]} ms, rays per chunk {rays}; "
+              f"peak device memory {peak:.1f} MiB; launches per chunk "
+              f"{launches[cfg]}; with SSS minus without, mean on the "
+              f"block {gain:.6f}; image mean "
+              f"{float(img[..., :3].mean()):.6f}; {busy}")
+        if gain <= 0:
+            fail(f"{cfg}: SSS adds no energy on the block ({gain})")
+
+
+def phase_bidir():
+    """Phase 21 (see the header): returns the launches of each
+    configuration and the kernels' error rows."""
+    launches, rows = {}, {}
+    _bd_golden(launches)
+    _bd_slices()
+    rows.update(_bd_cornell256(launches))
+    _emit_pdf_all_types()
+    rows.update(_bd_light_zoo(launches))
+    _sss_configs(launches)
+    return launches, rows
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3281,6 +3799,9 @@ def main():
     photons, rows = timed("photons", phase_photons)
     for name, row in rows.items():
         _merge(kt[name], row)
+    bidir, rows = timed("bidir", phase_bidir)
+    for name, row in rows.items():
+        _merge(kt[name], row)
 
     replaces = {     # kernels 1 to 8
         "closest_hit": ("core_tpu/geometry/pallas_intersect.py:55",
@@ -3304,7 +3825,9 @@ def main():
     # lightzoo_launches: its launches per chunk of each chain / option /
     # golden-mesh / mesh-zoo / light-zoo configuration; photon_launches:
     # per request of each photon golden, per chunk of cornellspec512_pm,
-    # per pass of cornellspec512_sppm, per light-zoo shoot;
+    # per pass of cornellspec512_sppm, per light-zoo shoot; bidir_launches:
+    # per bd64_golden request, per chunk of cornell256_bd, lightzoo256_bd
+    # and cornell256_sss_dl / _pt, per SSS map build;
     # fold_launches: per step of each fold table row
     table = [{"name": name, "route": "cuda", "source": src,
               "replaces": rep, "launches": counts[name], **kt[name],
@@ -3315,7 +3838,8 @@ def main():
               "golden_launches": {c: golden[c][name] for c in golden},
               "zoo_launches": {c: zoo[c][name] for c in zoo},
               "lightzoo_launches": {c: lightzoo[c][name] for c in lightzoo},
-              "photon_launches": {c: photons[c][name] for c in photons}}
+              "photon_launches": {c: photons[c][name] for c in photons},
+              "bidir_launches": {c: bidir[c][name] for c in bidir}}
              for name, (rep, src) in replaces.items()]
     print(json.dumps({"kernels": table}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -10,14 +10,17 @@ builds the Scene on a device.  Element types keep the reference's names:
               of shader nodes, `extra`, that its <slot>_shader parameters
               name, bump_shader included; glossy and coated_glossy take
               anisotropic with exp_u / exp_v), glass, rough_glass,
-              blend_mat, mask_mat, mirror, null, light_mat
+              blend_mat, mask_mat, mirror, null, light_mat, translucent
   background  constant, gradientback, sunsky, darksky, textureback (ibl /
               background_light add the importance-sampled background light
               at compile time; add_sun a sun light)
   light       arealight, spherelight, ieslight, meshlight, bgPortalLight,
               bglight, sunlight, pointlight, spotlight, directional
   camera      perspective, architect, angular, orthographic / ortho
-Any other type (translucent among them) raises NotImplementedError by name.
+  integrator  directlighting, pathtracing, photonmapping, SPPM,
+              bidirectional, DebugIntegrator (the parameters are recorded
+              as integrator_params, as core_tpu records them)
+Any other type raises NotImplementedError by name.
 A light that needs the compiled scene (the mesh lights and portals, which
 read an object's triangles; the background lights, which read the
 background) is made at the end of compile_scene by a deferred maker that
@@ -83,6 +86,8 @@ class SceneBuilder:
         self._deferred_lights: list = []
         # shader-node programs: (mat_index, slot, node_defs, out_node_name)
         self.node_programs: list = []
+        # the integrator element's parameters (the integrator factory)
+        self.integrator_params = None
 
     def create(self, kind: str, name: str, params: ParamMap, extra=None):
         """Create one element; `extra` is a material's list of shader-node
@@ -399,6 +404,31 @@ def _mat_null(b: SceneBuilder, name, p: ParamMap):
     return b.add_material(name, MaterialDef(diffuse_strength=0.0))
 
 
+def _mat_translucent(b: SceneBuilder, name, p: ParamMap):
+    """TheBounty's SSS material (src/materials/translucent.cc; core_tpu
+    environment.py:501-518): a glossy + diffuse surface whose sigmaA /
+    sigmaS / g drive the SSS map (integrators/sss.py) under use_sss."""
+    return b.add_material(name, MaterialDef(
+        mtype=MatType.TRANSLUCENT,
+        diffuse_color=p.get_color("color", (1.0, 1.0, 1.0)),
+        glossy_color=p.get_color("glossy_color", (1.0, 1.0, 1.0)),
+        glossy_reflect=p.get_float("glossy_reflect", 0.2),
+        diffuse_strength=p.get_float("diffuse_reflect", 1.0),
+        exp_u=p.get_float("exponent", 50.0),
+        exp_v=p.get_float("exponent", 50.0),
+        ior=p.get_float("IOR", 1.3),
+        absorption=p.get_color("sigmaA", (0.01, 0.01, 0.01)),
+        sigma_s=p.get_color("sigmaS", (1.0, 1.0, 1.0)),
+        sss_g=p.get_float("g", 0.0)))
+
+
+def _integrator(b: SceneBuilder, name, p: ParamMap):
+    """core_tpu environment.py:912-916: the parameters are kept for the
+    render options."""
+    b.integrator_params = p
+    return p
+
+
 def _mat_light(b: SceneBuilder, name, p: ParamMap):
     """What an emitter's geometry wears (a mesh light's object)."""
     return b.add_material(name, MaterialDef(
@@ -655,7 +685,8 @@ _FACTORIES: dict[str, dict[str, Callable]] = {
                  "coated_glossy": _mat_glossy, "glass": _mat_glass,
                  "rough_glass": _mat_glass, "blend_mat": _mat_blend,
                  "mask_mat": _mat_mask, "mirror": _mat_mirror,
-                 "null": _mat_null, "light_mat": _mat_light},
+                 "null": _mat_null, "light_mat": _mat_light,
+                 "translucent": _mat_translucent},
     "texture": {t: _texture for t in (
         "clouds", "marble", "wood", "voronoi", "musgrave", "distorted_noise",
         "rgb_cube", "blend", "image")},
@@ -670,4 +701,7 @@ _FACTORIES: dict[str, dict[str, Callable]] = {
     "camera": {"perspective": _cam_perspective,
                "architect": _cam_perspective, "angular": _cam_angular,
                "orthographic": _cam_ortho, "ortho": _cam_ortho},
+    "integrator": {t: _integrator for t in (
+        "directlighting", "pathtracing", "photonmapping", "SPPM",
+        "bidirectional", "DebugIntegrator")},
 }

@@ -12,8 +12,14 @@ filterw scales by 2.6 (Mitchell) and 2 (Gauss): at filter_size 1.5 the box
 splats a 3x3 stencil, Gauss (filterw 1.5) 4x4 and Mitchell (1.95) 5x5.
 
 Scope: the dense full-raster splat (add_samples_grid), a stencil of shifted
-adds per footprint offset; the scatter splat and the adaptive-AA flags come
-with the passes that use them.
+adds per footprint offset, and the light image of the bidirectional
+integrator (add_density_samples, merged at flush); the scatter splat and the
+adaptive-AA flags come with the passes that use them.
+
+The light image's splats land anywhere in the image, many on one pixel.
+add_density_samples sums them in a fixed order (a stable sort by pixel and
+a segment sum), never by atomics, so a render is the same from run to run
+on the card.
 """
 from __future__ import annotations
 
@@ -37,13 +43,18 @@ class FilterType(enum.IntEnum):
 class Film(NamedTuple):
     rgba: torch.Tensor      # [H,W,4] weighted sums
     weight: torch.Tensor    # [H,W]
+    # the light image (imagefilm.cc:566-614): t=1 splat sums, and the light
+    # paths traced (setNumSamples); None on a film that has none
+    density: torch.Tensor = None    # [H,W,3]
+    n_density: torch.Tensor = None  # [] f32
 
 
 def make_film(h: int, w: int, *, device) -> Film:
-    return Film(rgba=torch.zeros((h, w, 4), dtype=torch.float32,
-                                 device=device),
-                weight=torch.zeros((h, w), dtype=torch.float32,
-                                   device=device))
+    z = dict(dtype=torch.float32, device=device)
+    return Film(rgba=torch.zeros((h, w, 4), **z),
+                weight=torch.zeros((h, w), **z),
+                density=torch.zeros((h, w, 3), **z),
+                n_density=torch.zeros((), **z))
 
 
 def effective_filterw(filter_size: float, ftype: FilterType) -> float:
@@ -142,6 +153,38 @@ def add_samples_grid(film: Film, dx, dy, col_rgba, spp: int,
     return film._replace(rgba=rgba, weight=film.weight + acc[4])
 
 
+def add_density_samples(film: Film, x, y, col_rgb, n_paths,
+                        sample_mask=None) -> Film:
+    """Splat light-traced (t=1) contributions into the light image
+    (imageFilm_t::addDensitySample; core_tpu film.py:207-236): a box
+    splat at the projected pixel floor(x), floor(y).  x, y: [N] float pixel
+    coordinates; col_rgb: V3 of [N]; n_paths: the light paths this
+    wavefront traced, counted whether or not they reached the image.
+    Splats outside the image or masked out add nothing.
+
+    core_tpu scatter-adds; here the in-image splats are stably sorted by
+    pixel and each pixel's run is summed by torch.segment_reduce, an order
+    that does not change from run to run (index_add_ is atomic on the
+    card)."""
+    h, w = film.density.shape[:2]
+    px = torch.floor(x).to(torch.int64)
+    py = torch.floor(y).to(torch.int64)
+    ok = (px >= 0) & (px < w) & (py >= 0) & (py < h)
+    if sample_mask is not None:
+        ok = ok & sample_mask
+    key = torch.where(ok, py * w + px, h * w)
+    key, order = torch.sort(key, stable=True)
+    cols = torch.stack(list(col_rgb), dim=-1).index_select(0, order)
+    cells, lengths = torch.unique_consecutive(key, return_counts=True)
+    sums = torch.segment_reduce(cols, "sum", lengths=lengths, axis=0)
+    keep = cells < h * w
+    cells, sums = cells[keep], sums[keep]
+    dens = film.density.reshape(-1, 3)
+    dens = dens.index_put((cells,), dens.index_select(0, cells) + sums)
+    return film._replace(density=dens.reshape(h, w, 3),
+                         n_density=film.n_density + n_paths)
+
+
 def normalized(film: Film):
     """Per-pixel color = sum/weight (pixel_t::normalized)."""
     return film.rgba / film.weight[..., None].clamp_min(1e-10)
@@ -149,9 +192,14 @@ def normalized(film: Film):
 
 def flush(film: Film, gamma: float = 1.0, clamp: bool = False,
           premult: bool = False):
-    """Final image [H,W,4] with gamma correction (imageFilm_t::flush)."""
+    """Final image [H,W,4] with gamma correction (imageFilm_t::flush).
+    The light image is merged in scaled by w*h / max(n_density, 1)
+    (imagefilm.cc:402,411)."""
     img = normalized(film)
     rgb = img[..., :3]
+    if film.density is not None:
+        h, w = film.weight.shape
+        rgb = rgb + film.density * ((w * h) / film.n_density.clamp_min(1.0))
     if clamp:
         rgb = rgb.clamp(0.0, 1.0)
     if abs(gamma - 1.0) > 1e-3:

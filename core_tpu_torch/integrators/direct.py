@@ -8,8 +8,9 @@ occlusion) at the primary hit, the background where the camera ray misses
 chains of raytrace.recursive_raytrace up to `raydepth` (mirror, glass and
 rough-glass branches, dispersion, glossy indirect), each chain hit shaded
 like the primary one.  Transparent shadows (transp_shad) walk shadow rays
-through FILTER materials (common.transparent_shadow).  SSS (use_sss) is not
-ported and raises NotImplementedError.
+through FILTER materials (common.transparent_shadow).  Under use_sss every
+shaded hit (camera and chain) adds sss_scale times the dipole estimate of
+the SSS map that render.integrator_preprocess built (integrators/sss.py).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ import torch
 from core_tpu_torch import scene as scene_mod
 from core_tpu_torch.backgrounds import eval_background_s
 from core_tpu_torch.differentials import texture_lod
-from core_tpu_torch.integrators import common, raytrace
+from core_tpu_torch.integrators import common, raytrace, sss
 from core_tpu_torch.materials import dispatch
 from core_tpu_torch.materials.base import BSDF, detach_sample
 from core_tpu_torch.mathutils import MIN_RAYDIST
@@ -42,7 +43,8 @@ class DirectOptions:
     ao_dist: float = 1.0
     ao_color: tuple = (1.0, 1.0, 1.0)
     transp_background: bool = False
-    # TheBounty SSS: carried, not ported (use_sss=True raises)
+    # TheBounty SSS: the dipole estimate of the SSS map at translucent
+    # hits (mcintegrator.cc useSSS / sss_maps wiring)
     use_sss: bool = False
     sss_photons: int = 8192
     sss_steps: int = 4
@@ -51,13 +53,14 @@ class DirectOptions:
 
 def _shade_hit(scene, types_present, rays_s, hits, pixel_sample,
                sampling_offs, include_lights, opts: DirectOptions,
-               diff=None):
+               diff=None, aux=None):
     """Emission + direct lighting (+ ambient occlusion) at the hits; returns
     (col, sp, p).  A cross-family blend picks its sub-material with the
     seed 9781 * pixel_sample + sampling_offs, at camera and chain hits
     alike (core_tpu direct.py:62-64).  diff: the camera rays' neighbour
     directions (dxd, dyd), given at the camera hits only, whose footprint
-    selects image-texture mip levels (core_tpu direct.py:58-61)."""
+    selects image-texture mip levels (core_tpu direct.py:58-61).  aux: the
+    SSS map under use_sss (core_tpu direct.py:78-81)."""
     sp = scene_mod.surface_points_s(scene, rays_s, hits)
     lod = None if diff is None else texture_lod(scene, sp, rays_s, *diff)
     p = scene_mod.material_params_s(
@@ -74,6 +77,9 @@ def _shade_hit(scene, types_present, rays_s, hits, pixel_sample,
         col = col + _ambient_occlusion(scene, types_present, p, sp, wo,
                                        pixel_sample, sampling_offs, active,
                                        opts)
+    if opts.use_sss and aux is not None:
+        col = col + sss.estimate_sss(aux, sp, p, wo, active) \
+            * opts.sss_scale
     return col, sp, p
 
 
@@ -106,23 +112,21 @@ def _ambient_occlusion(scene, types_present, p, sp, wo, pixel_sample,
 
 
 def integrate(scene, types_present, rays, pixel_sample, sampling_offs,
-              opts: DirectOptions, stats=None, diff=None):
+              opts: DirectOptions, stats=None, diff=None, aux=None):
     """directlight integrate() for a camera wavefront -> rgba [N, 4].
 
     rays: types.Rays ([N, 3] o, d); pixel_sample, sampling_offs: [N] int64
     tensors holding uint32 values.  stats: optional dict that collects the
     chain's live lanes per depth (raytrace.recursive_raytrace).  diff:
     optional (dxd, dyd) neighbour directions of the camera rays
-    (differentials.camera_diff_dirs)."""
-    if opts.use_sss:
-        raise NotImplementedError("subsurface scattering (use_sss) is not "
-                                  "ported to core_tpu_torch yet")
+    (differentials.camera_diff_dirs).  aux: the SSS map
+    (sss.build_sss_map) under use_sss."""
     rs = rays_to_soa(rays)
     hits = scene_mod.closest_hit_s(scene, rs)
     primary_valid = hits.valid
     col, sp, p = _shade_hit(scene, types_present, rs, hits, pixel_sample,
                             sampling_offs, torch.ones_like(primary_valid),
-                            opts, diff)
+                            opts, diff, aux)
     col = where3(primary_valid, col,
                  eval_background_s(scene.background, rs.d))
     alpha = torch.where(primary_valid, 1.0,
@@ -136,7 +140,7 @@ def integrate(scene, types_present, rays, pixel_sample, sampling_offs,
             # shades it; `active` is the recursion's mask of live lanes
             return _shade_hit(scene, types_present, nrays, nhits,
                               pixel_sample, sampling_offs, include_lights,
-                              opts)
+                              opts, aux=aux)
 
         col = col + raytrace.recursive_raytrace(
             scene, types_present, rs, hits, sp, p, shade_fn, pixel_sample,

@@ -30,6 +30,8 @@ photon map's radiance at the camera hits' diffuse vertices
 (pathtracer.cc:171 estimateCausticPhotons; the map comes from
 render.integrator_preprocess as aux["caustic"]); "path" or "both" lets
 the paths pick up emission and the background after caustic bounces.
+use_sss adds sss_scale times the dipole estimate of an SSS map
+(aux["sss"], integrators/sss.py) at the camera hits (pathtracer.cc:94-101).
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ import torch
 from core_tpu_torch import scene as scene_mod
 from core_tpu_torch.backgrounds import eval_background_s
 from core_tpu_torch.differentials import texture_lod
-from core_tpu_torch.integrators import common, raytrace
+from core_tpu_torch.integrators import common, raytrace, sss
 from core_tpu_torch.lights import base as light_base
 from core_tpu_torch.materials import dispatch
 from core_tpu_torch.materials.base import BSDF, detach_sample
@@ -52,8 +54,7 @@ from core_tpu_torch.vec import (RaysS, luminance3, map_lanes, rays_to_soa,
 
 @dataclass(frozen=True)
 class PathOptions:
-    """core_tpu's PathOptions (core_tpu/integrators/path.py:41-93) but its
-    SSS fields."""
+    """core_tpu's PathOptions (core_tpu/integrators/path.py:41-93)."""
     path_samples: int = 32        # reference "path_samples" (nPaths)
     bounces: int = 5              # reference "bounces" (maxBounces)
     raydepth: int = 5             # specular recursion depth
@@ -73,6 +74,13 @@ class PathOptions:
     ao_samples: int = 32
     ao_dist: float = 1.0
     ao_color: tuple = (1.0, 1.0, 1.0)
+    # TheBounty SSS under pathtracing (the reference's path tracer builds
+    # SSS maps too, pathtracer.cc:43,94-101): the dipole estimate at the
+    # camera hits
+    use_sss: bool = False
+    sss_photons: int = 8192
+    sss_steps: int = 4
+    sss_scale: float = 1.0
     # indirect paths at camera-visible specular/glossy chain vertices (the
     # reference re-enters integrate() behind mirrors and glass,
     # mcintegrator.cc:421-628 -> pathtracer.cc:134): 0 = path_samples,
@@ -275,8 +283,9 @@ def integrate(scene, types_present, rays, pixel_sample, sampling_offs,
     (raytrace.recursive_raytrace's "chain_live").  diff: optional (dxd,
     dyd) neighbour directions of the camera rays, whose footprint selects
     image-texture mip levels at the camera hits (core_tpu path.py:
-    320-326).  aux: render.integrator_preprocess's caustic photon map
-    ({"caustic": PhotonMap}) under caustic_type "photon" or "both"."""
+    320-326).  aux: render.integrator_preprocess's maps, {"caustic":
+    PhotonMap} under caustic_type "photon" or "both" and {"sss": SSSMap}
+    under use_sss."""
     _check_supported(opts)
     rs = rays_to_soa(rays)
     n = rs.tmin.shape[0]
@@ -301,6 +310,10 @@ def integrate(scene, types_present, rays, pixel_sample, sampling_offs,
                                              pixel_sample, sampling_offs,
                                              nee0, opts.transp_shad,
                                              opts.shadow_depth)
+    # SSS at the camera hits (core_tpu path.py:345-353)
+    if aux is not None and "sss" in aux and opts.use_sss:
+        col = col + sss.estimate_sss(aux["sss"], sp, p, wo, primary_valid) \
+            * opts.sss_scale
     # photon-mapped caustics at the camera hits (pathtracer.cc:171)
     if aux is not None and "caustic" in aux \
             and opts.caustic_type in ("photon", "both"):

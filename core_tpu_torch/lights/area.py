@@ -118,3 +118,15 @@ def intersect_light_s(light: AreaLight, rays) -> LightHitS:
     col = splat3(light.color, like=t)
     return LightHitS(valid=valid, t=torch.where(valid, t, -1.0), col=col,
                      ipdf=ipdf)
+
+
+def illum_pdf_s(light: AreaLight, sp, p_light: V3):
+    """Solid-angle pdf of illum_sample_s choosing p_light from sp.p
+    (core_tpu lights/area.py:183-189); 0 behind the emitting side."""
+    wi = p_light - sp.p
+    r2 = dot3(wi, wi)
+    dm = torch.sqrt(r2).clamp_min(1e-12)
+    wi = V3(wi.x / dm, wi.y / dm, wi.z / dm)
+    cos_n = dot3(wi, splat3(light.fnormal))
+    return torch.where(cos_n > 0, r2 * np.pi
+                       / (light.area * cos_n).clamp_min(1e-12), 0.0)

@@ -57,3 +57,8 @@ def illuminate_s(light: PointLight, sp) -> LightSampleS:
     col = V3(light.color[0] / d2, light.color[1] / d2, light.color[2] / d2)
     return LightSampleS(valid=dist > 0, wi=wi, dist=dist, col=col,
                         pdf=torch.ones_like(dist))
+
+
+def illum_pdf_s(light: PointLight, sp, p_light: V3):
+    """A dirac position is never sampled by area: 0."""
+    return torch.zeros_like(sp.p.x)

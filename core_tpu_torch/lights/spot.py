@@ -69,3 +69,8 @@ def illuminate_s(light: SpotLight, sp) -> LightSampleS:
         valid = torch.zeros_like(valid)
     return LightSampleS(valid=valid, wi=wi, dist=dist, col=col,
                         pdf=torch.ones_like(dist))
+
+
+def illum_pdf_s(light: SpotLight, sp, p_light: V3):
+    """A dirac position is never sampled by area: 0."""
+    return torch.zeros_like(sp.p.x)

@@ -77,6 +77,10 @@ class _DirectionalOps:
                             col=splat3(light.color, like=like),
                             pdf=torch.ones_like(like))
 
+    @staticmethod
+    def illum_pdf_s(light: DirectionalLight, sp, p_light: V3):
+        return torch.zeros_like(sp.p.x)
+
 
 @dataclass(frozen=True)
 class SunLight:

@@ -115,8 +115,7 @@ class MaterialDef:
     def bsdf_flags(self) -> int:
         """shinyDiffuseMat_t::config flag accumulation
         (shinydiffuse.cc:28-99) and the other families' constructors, as
-        core_tpu's MaterialDef.bsdf_flags gives them.  The translucent
-        family raises until ported."""
+        core_tpu's MaterialDef.bsdf_flags gives them."""
         if self.mtype == MatType.GLASS:
             # FILTER only with fake_shadows (glass.cc:60-62)
             f = BSDF.ALL_SPECULAR
@@ -132,6 +131,11 @@ class MaterialDef:
             return f
         if self.mtype in (MatType.BLEND, MatType.MASK):
             return BSDF.ALL         # the picked row's flags apply per hit
+        if self.mtype == MatType.TRANSLUCENT:
+            # a glossy + diffuse surface over the SSS medium
+            # (core_tpu materials/base.py:156-157)
+            return BSDF.DIFFUSE | BSDF.GLOSSY | BSDF.REFLECT \
+                | BSDF.TRANSLUCENT
         if self.mtype in (MatType.GLOSSY, MatType.COATED_GLOSSY):
             f = BSDF.GLOSSY | BSDF.REFLECT
             if self.diffuse_strength > 0.0:
@@ -210,12 +214,12 @@ def build_material_table(defs: list[MaterialDef], device) -> MaterialTable:
 
 class MatParamsS(NamedTuple):
     """Per-hit material parameters in SoA layout: the columns the ported
-    families read (shiny-diffuse, glossy, glass), named as in core_tpu's
-    MatParamsS.  The blend and mask composites are resolved before these
-    rows leave scene.material_params_s, so their columns are not carried.
-    The SSS columns join when the translucent family is ported; Beer
-    absorption is read by the photon shoot (photon/map.py), as in
-    core_tpu."""
+    families read (shiny-diffuse, glossy, glass, translucent), named as in
+    core_tpu's MatParamsS.  The blend and mask composites are resolved
+    before these rows leave scene.material_params_s, so their columns are
+    not carried.  Beer absorption is read by the photon shoot
+    (photon/map.py) and, with sigma_s and sss_g, by the SSS medium
+    (integrators/sss.py), as in core_tpu."""
     mtype: torch.Tensor
     flags: torch.Tensor
     c_mirror: torch.Tensor
@@ -239,6 +243,8 @@ class MatParamsS(NamedTuple):
     as_diffuse: torch.Tensor
     dispersion: torch.Tensor
     alpha_rough: torch.Tensor
+    sigma_s: V3
+    sss_g: torch.Tensor
 
 
 def gather_params_s(table: MaterialTable, mat_idx) -> MatParamsS:
@@ -272,7 +278,8 @@ def gather_params_s(table: MaterialTable, mat_idx) -> MatParamsS:
         glossy_reflect=g(table.glossy_reflect),
         exp_u=ex[:, 0].contiguous(), exp_v=ex[:, 1].contiguous(),
         as_diffuse=g(table.as_diffuse), dispersion=g(table.dispersion),
-        alpha_rough=g(table.alpha_rough))
+        alpha_rough=g(table.alpha_rough), sigma_s=g3(table.sigma_s),
+        sss_g=g(table.sss_g))
 
 
 def detach_sample(sres):

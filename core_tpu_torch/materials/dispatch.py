@@ -3,10 +3,12 @@
 
 Each material family present in the scene is evaluated on the whole
 wavefront and its results are selected by type mask.  `types_present` is a
-static tuple of MatType values.  The shiny-diffuse, glossy (plain and
-coated), glass and rough-glass families are ported; translucent raises
-NotImplementedError by name.  Blend and mask rows never reach dispatch:
-scene.material_params_s resolves them to a sub-material's row.
+static tuple of MatType values.  Every family is ported: shiny-diffuse,
+glossy (plain and coated), glass and rough glass, and translucent, whose
+surface is the glossy family's BSDF (its subsurface transport lives in
+integrators/sss.py, keyed on the TRANSLUCENT type).  Blend and mask rows
+never reach dispatch: scene.material_params_s resolves them to a
+sub-material's row.
 """
 from __future__ import annotations
 
@@ -20,7 +22,8 @@ _FAMILIES = {int(MatType.SHINY_DIFFUSE): shinydiffuse,
              int(MatType.GLOSSY): glossy,
              int(MatType.COATED_GLOSSY): glossy,
              int(MatType.GLASS): glass,
-             int(MatType.ROUGH_GLASS): glass}
+             int(MatType.ROUGH_GLASS): glass,
+             int(MatType.TRANSLUCENT): glossy}
 
 
 def _modules(types_present):

@@ -12,6 +12,8 @@
     python3 -m core_tpu_torch.profile_chunk lightzoo_pt  # the light zoo
     python3 -m core_tpu_torch.profile_chunk pm512      # photonmapping
     python3 -m core_tpu_torch.profile_chunk sppm512    # one SPPM pass
+    python3 -m core_tpu_torch.profile_chunk bd256      # bidirectional
+    python3 -m core_tpu_torch.profile_chunk sss256_dl  # translucent box
 
 Run from the root of a checkout on a machine with a CUDA card.  "cornell"
 renders cornell_box(light_samples=4) with PathOptions(path_samples=8,
@@ -42,7 +44,14 @@ option sets with its Gauss filter (lightzoo256_dl_fwd,
 lightzoo256_pt_fwd).  "pm512" renders one 2-spp chunk of chip_smoke.py's
 cornellspec512_pm (the 512^2 glass-and-glossy box, 1M + 1M photons, final
 gathering with 8 rays), its photon maps built once beforehand; "sppm512"
-runs one pass of cornellspec512_sppm (500k photons a pass).  With "fwdbwd" it
+runs one pass of cornellspec512_sppm (500k photons a pass).  "bd256"
+renders chip_smoke.py's cornell256_bd (cornell_box(light_samples=16) at
+256^2, BidirOptions(): eye and light depth 3, the light image on);
+"sss256_dl" and "sss256_pt" its cornell256_sss_dl / _pt (the translucent
+box of tests/test_sss.py at 256^2, light_samples=16, sigma_s 8, under
+DirectOptions(raydepth=1) or PathOptions(path_samples=2, bounces=2,
+raydepth=1) with use_sss, 8,192 photons and 4 interior steps), the SSS map
+built once beforehand.  With "fwdbwd" it
 profiles bench_cuda.py's step instead of a forward chunk: value_and_grad
 of the loss of one 1-spp chunk (Cornell: the mean squared RGB against a
 zero target; big and mesh: the mean RGB) with respect to
@@ -115,6 +124,16 @@ def _config(name):
                             device="cuda"),
                 chip_smoke.photon_opts(kind, chip_smoke.PH_PM if kind == "pm"
                                        else chip_smoke.PH_SPPM))
+    if name == "bd256":
+        import chip_smoke
+        return (cornell_box(resx=chip_smoke.BD_RES, resy=chip_smoke.BD_RES,
+                            light_samples=16, device="cuda"),
+                chip_smoke.bidir_opts(1, 1))
+    if name in ("sss256_dl", "sss256_pt"):
+        import chip_smoke
+        kind = name[-2:]
+        return (chip_smoke.translucent_box(chip_smoke.SSS_RES, 16),
+                chip_smoke.sss_opts(kind, True))
     direct = RenderOptions(aa_samples=1, spp_chunk=1,
                            integrator="directlight",
                            integrator_opts=DirectOptions(raydepth=1))
@@ -138,7 +157,8 @@ def _config(name):
                      "(cornell, cornell_fold2, big, mesh, spec_pt, spec_dl, "
                      "blend_dl, ao_dl, pane_ts_dl, glass_ts_dl, golden_dl, "
                      "golden_pt, zoo_dl, zoo_pt, lightzoo_dl, "
-                     "lightzoo_pt, pm512 or sppm512)")
+                     "lightzoo_pt, pm512, sppm512, bd256, sss256_dl or "
+                     "sss256_pt)")
 
 
 def _fwdbwd_step(name, scene, opts):
@@ -190,7 +210,7 @@ def main(name="cornell", mode="fwd"):
     res_y, res_x = scene.camera.resy, scene.camera.resx
 
     spp, aux = 1, None
-    if name == "pm512":
+    if name in ("pm512", "sss256_dl", "sss256_pt"):
         spp = opts.spp_chunk
         with torch.no_grad():
             aux = integrator_preprocess(scene, types, opts)

@@ -9,11 +9,13 @@ wavefront per chunk.  Pixel-sample QMC matches the reference's renderTile
   lens (u, v):   RI_3 / RI_5 of (pass_offs + offs + s + 1)
 
 Scope: one AA pass (aa_passes == 1); the path tracer (with its photon
-caustics), the directlight and photonmapping integrators on the
-full-raster chunk, and SPPM's own pass loop; other integrators, adaptive
-passes and row blocks raise NotImplementedError.  integrator_preprocess
-builds the photon maps once per render_image and render_chunk hands them
-to the integrator as `aux`.
+caustics and subsurface scattering), the directlight, photonmapping,
+bidirectional and debug integrators on the full-raster chunk, and SPPM's
+own pass loop; other integrators, adaptive passes and row blocks raise
+NotImplementedError.  integrator_preprocess builds the photon maps and the
+SSS map once per render_image and render_chunk hands them to the integrator
+as `aux`.  The bidirectional integrator's t=1 splats go to the film's light
+image (film.add_density_samples).
 
 Cluster scenes, flat and grouped, trace their camera wavefront in 32x32
 pixel blocks (_pixel_grid_blocked, as core_tpu's render.py:201 does for
@@ -32,10 +34,15 @@ from core_tpu_torch import film as film_mod
 from core_tpu_torch.cameras import shoot_ray
 from core_tpu_torch.differentials import camera_diff_dirs
 from core_tpu_torch.film import Film, FilterType
+from core_tpu_torch.integrators import bidir as bidir_mod
+from core_tpu_torch.integrators import debug as debug_mod
 from core_tpu_torch.integrators import direct as direct_mod
 from core_tpu_torch.integrators import path as path_mod
 from core_tpu_torch.integrators import photonmap as pm_mod
 from core_tpu_torch.integrators import sppm as sppm_mod
+from core_tpu_torch.integrators import sss as sss_mod
+from core_tpu_torch.integrators.bidir import BidirOptions
+from core_tpu_torch.integrators.debug import DebugOptions
 from core_tpu_torch.integrators.direct import DirectOptions
 from core_tpu_torch.integrators.path import PathOptions
 from core_tpu_torch.integrators.photonmap import PhotonOptions
@@ -46,7 +53,11 @@ from core_tpu_torch.textures.base import TexType
 # integrator name -> (integrate function, its options type)
 _INTEGRATORS = {"pathtracing": (path_mod.integrate, PathOptions),
                 "directlight": (direct_mod.integrate, DirectOptions),
-                "photonmapping": (pm_mod.integrate, PhotonOptions)}
+                "photonmapping": (pm_mod.integrate, PhotonOptions),
+                "bidirectional": (bidir_mod.integrate, BidirOptions),
+                "debug": (debug_mod.integrate, DebugOptions)}
+# the integrators whose camera hits take primary-ray differentials
+_DIFF_INTEGRATORS = ("directlight", "pathtracing", "photonmapping")
 _BLOCK = 32   # pixel-block edge of cluster-scene camera wavefronts
 
 
@@ -64,7 +75,8 @@ class RenderOptions:
     spp_chunk: int = 4            # samples per wavefront (memory bound)
     integrator: str = "directlight"
     integrator_opts: PathOptions | DirectOptions | PhotonOptions \
-        | SPPMOptions = field(default_factory=DirectOptions)
+        | SPPMOptions | BidirOptions | DebugOptions = field(
+            default_factory=DirectOptions)
 
 
 def _check_supported(opts: RenderOptions, chunked: bool = True):
@@ -115,29 +127,42 @@ def _unblock_to_raster(a, spp, h, w, B=_BLOCK):
 
 def integrator_preprocess(scene, types_present, opts: RenderOptions):
     """The pre-render hook (the reference's surfaceIntegrator_t::preprocess
-    from scene_t::update): photonmapping's maps, the path tracer's caustic
-    photon map under caustic_type "photon" or "both" (pathtracer.cc:
-    90-93), else None.  Subsurface scattering (use_sss) raises."""
+    from scene_t::update), as core_tpu's render.py:141-176 runs it:
+    photonmapping's maps; the path tracer's {"caustic": photon map} under
+    caustic_type "photon" or "both" (pathtracer.cc:90-93) and {"sss": SSS
+    map} under use_sss (pathtracer.cc:94-101); directlight's SSS map under
+    use_sss; else None."""
     io = opts.integrator_opts
-    if getattr(io, "use_sss", False):
-        raise NotImplementedError("subsurface scattering (use_sss) is not "
-                                  "ported to core_tpu_torch yet")
     if opts.integrator == "photonmapping":
         return pm_mod.preprocess(scene, types_present, io)
-    if opts.integrator == "pathtracing" \
-            and io.caustic_type in ("photon", "both"):
-        popts = PhotonOptions(photons=1, c_photons=io.c_photons,
-                              bounces=io.caustic_depth,
-                              caustic_radius=io.caustic_radius,
-                              use_diffuse=False, use_caustics=True)
-        return pm_mod.preprocess(scene, types_present, popts) or None
+    if opts.integrator == "pathtracing":
+        aux = {}
+        if io.caustic_type in ("photon", "both"):
+            popts = PhotonOptions(photons=1, c_photons=io.c_photons,
+                                  bounces=io.caustic_depth,
+                                  caustic_radius=io.caustic_radius,
+                                  use_diffuse=False, use_caustics=True)
+            aux.update(pm_mod.preprocess(scene, types_present, popts) or {})
+        if io.use_sss:
+            aux["sss"] = sss_mod.build_sss_map(
+                scene, types_present, n_photons=io.sss_photons,
+                interior_steps=io.sss_steps)
+        return aux or None
+    if opts.integrator == "directlight" and io.use_sss:
+        return sss_mod.build_sss_map(scene, types_present,
+                                     n_photons=io.sss_photons,
+                                     interior_steps=io.sss_steps)
     return None
 
 
 def render_chunk(scene, types_present, opts: RenderOptions, film: Film,
-                 pass_offs: int, spp: int, sample0: int, aux=None) -> Film:
+                 pass_offs: int, spp: int, sample0: int, aux=None,
+                 density_y0: int = 0) -> Film:
     """Trace spp samples for every pixel and splat them into film.  aux:
-    integrator_preprocess's photon maps, when the integrator takes them."""
+    integrator_preprocess's photon or SSS maps, when the integrator takes
+    them.  The bidirectional integrator's light-image splats land in the
+    film's density plane shifted up by density_y0 rows (core_tpu
+    render.py:285-301; 0 for a full-image film)."""
     _check_supported(opts)
     cam = scene.camera
     h, w = cam.resy, cam.resx
@@ -173,11 +198,21 @@ def render_chunk(scene, types_present, opts: RenderOptions, film: Film,
     # +1-pixel neighbour directions drive image-texture mip filtering; as
     # in core_tpu, only a scene with an image texture computes them
     diff_kw = {"diff": camera_diff_dirs(cam, px, py, lens_u, lens_v)} \
-        if _has_image_textures(scene) else {}
+        if opts.integrator in _DIFF_INTEGRATORS \
+        and _has_image_textures(scene) else {}
     if aux is not None:
         diff_kw["aux"] = aux
     rgba = integrate(scene, types_present, rays, pixel_sample, sampling_offs,
                      opts.integrator_opts, **diff_kw)
+    if opts.integrator == "bidirectional":
+        rgba, splat = rgba
+        if splat is not None:
+            # t=1 splats land anywhere in the image (core_tpu
+            # render.py:285-301)
+            sx, sy, scol, smask, n_paths = splat
+            film = film_mod.add_density_samples(film, sx, sy - density_y0,
+                                                scol, n_paths,
+                                                sample_mask=smask)
     rgba = rgba * wt[..., None]
     if blocked:
         dx, dy, rgba, wt = (_unblock_to_raster(a, spp, h, w)

@@ -9,8 +9,10 @@ and vertices, t at tmin and tcap, |det| near 1e-12, ties, exclusions) at
 36, 257, 1,634 and 4,096 triangles, and renders through the kernels
 against renders through the plain versions (among them the 64x64 light
 zoo, dl and pt, on the brute kernels 1-3, and the 64x64 glass-and-glossy
-box under photonmapping, SPPM and photon caustics), and the photonmapping
-and SPPM goldens at tests/test_golden_photon_family.py's bands.
+box under photonmapping, SPPM and photon caustics; the 64x64
+bidirectional, translucent-box SSS and debug renders), and the
+photonmapping, SPPM and bidirectional goldens at
+tests/test_golden_photon_family.py's bands.
 
 Marked `cuda`: each test asks its fixture for a CUDA device and skips
 without one.  Run on a GPU host with
@@ -861,3 +863,53 @@ def test_photon_goldens_through_kernels(device, kind):
     img, _ = render_image(scene, photon_opts(kind, PH_GOLDEN[kind]))
     stats = photon_golden_stats(kind, img)
     assert photon_golden_ok(kind, *stats), stats
+
+
+@pytest.mark.parametrize("kind", ["bd", "sss_dl", "sss_pt", "debug"])
+def test_bidir_sss_debug_renders_through_kernels_equal_plain_versions(
+        device, kind):
+    """chip_smoke's 64^2 phase-21 renders: the Cornell box under the
+    bidirectional integrator with the light image (kernels 1 and 3), the
+    translucent box under directlight and path tracing with use_sss
+    (kernels 1 and 2), and every debug type on golden_mesh_scene (kernel
+    1): through the kernels and through the plain versions identical."""
+    import dataclasses
+    from chip_smoke import (DEBUG_TYPES, bidir_opts, sss_opts,
+                            translucent_box)
+    from core_tpu_torch.integrators.debug import DebugOptions
+    from core_tpu_torch.scenes import golden_mesh_scene
+    if kind == "bd":
+        cases = [(lambda isec: cornell_box(resx=64, resy=64, light_samples=4,
+                                           intersector=isec, device=device),
+                  bidir_opts(2, 2))]
+    elif kind == "debug":
+        gm = golden_mesh_scene(64, 64, device=device)
+        cases = [(lambda isec: dataclasses.replace(gm, intersector=isec),
+                  RenderOptions(integrator="debug", integrator_opts=(
+                      DebugOptions(debug_type=t)))) for t in DEBUG_TYPES]
+    else:
+        cases = [(lambda isec: translucent_box(64, 4, intersector=isec,
+                                               device=device),
+                  sss_opts(kind[-2:], True, aa=2, spp_chunk=2))]
+    for make, opts in cases:
+        imgs = [render_image(make(isec), opts)[0]
+                for isec in ("cuda", "torch")]
+        assert torch.isfinite(imgs[0]).all()
+        assert torch.equal(*imgs)
+
+
+def test_bidir_golden_through_kernels(device):
+    """tests/test_golden_photon_family.py's bidirectional golden on the
+    card (the 64^2 Cornell box, its options) at its bands: block Pearson
+    against the golden, energy relative to it, and the mean against the
+    float64 arbiter."""
+    from chip_smoke import (ARBITER64_ENERGY, BD_GOLDEN_AA, bidir_opts,
+                            photon_golden_stats)
+    scene = cornell_box(resx=64, resy=64, light_samples=16, device=device)
+    img, _ = render_image(scene, bidir_opts(BD_GOLDEN_AA, 2,
+                                            do_light_image=False))
+    rel, pearson, _ = photon_golden_stats("bd", img)
+    assert pearson > 0.99, pearson
+    assert 0.1 <= rel <= 0.6, rel
+    mean = float(img[..., :3].mean())
+    assert abs(mean - ARBITER64_ENERGY) / ARBITER64_ENERGY < 0.10, mean

@@ -409,9 +409,20 @@ def test_lights_over_empty_objects_make_no_light(ies_path):
 
 
 def test_translucent_still_raises():
-    with pytest.raises(NotImplementedError, match="translucent"):
-        SceneBuilder("cpu").create("material", "t", ParamMap(
-            {"type": "translucent"}))
+    """The translucent factory is ported: it makes a TRANSLUCENT row with
+    core_tpu's defaults (environment.py:501-518); a material type neither
+    package knows still raises by name."""
+    from core_tpu_torch.materials.base import BSDF, MatType
+    b = SceneBuilder("cpu")
+    d = b.materials[b.create("material", "t", ParamMap(
+        {"type": "translucent"}))]
+    assert d.mtype == MatType.TRANSLUCENT
+    assert np.allclose(d.sigma_s, 1.0) and np.allclose(d.absorption, 0.01)
+    assert (d.ior, d.sss_g, d.glossy_reflect) == (1.3, 0.0, 0.2)
+    assert d.bsdf_flags() == (BSDF.DIFFUSE | BSDF.GLOSSY | BSDF.REFLECT
+                              | BSDF.TRANSLUCENT)
+    with pytest.raises(NotImplementedError, match="velvet"):
+        b.create("material", "v", ParamMap({"type": "velvet"}))
 
 
 # ---------------------------------------------------------------------------

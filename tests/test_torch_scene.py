@@ -211,20 +211,24 @@ def test_unported_features_raise_by_name(scenes):
     from core_tpu_torch.materials.base import MatType
     from core_tpu_torch.render import RenderOptions, render_image
     js, ts = scenes
-    with pytest.raises(NotImplementedError, match="TRANSLUCENT"):
-        dispatch._modules((int(MatType.SHINY_DIFFUSE),
-                           int(MatType.TRANSLUCENT)))
-    # coated glossy shares the glossy family's module
+    # blend and mask rows never reach dispatch (material_params_s resolves
+    # them); coated glossy and translucent share the glossy family's module
+    with pytest.raises(NotImplementedError, match="BLEND"):
+        dispatch._modules((int(MatType.SHINY_DIFFUSE), int(MatType.BLEND)))
     assert len(dispatch._modules((int(MatType.GLOSSY),
-                                  int(MatType.COATED_GLOSSY)))) == 1
-    with pytest.raises(NotImplementedError, match="bidirectional"):
+                                  int(MatType.COATED_GLOSSY),
+                                  int(MatType.TRANSLUCENT)))) == 1
+    # the bidirectional and debug integrators and SSS are ported: each
+    # integrator takes its own options; an integrator core_tpu renders
+    # volumes with is not a surface integrator of the port
+    with pytest.raises(TypeError, match="BidirOptions"):
         render_image(ts, RenderOptions(
             integrator="bidirectional", integrator_opts=PathOptions()))
-    with pytest.raises(NotImplementedError, match="use_sss"):
-        render_image(ts, RenderOptions(
-            integrator_opts=DirectOptions(use_sss=True)))
-    with pytest.raises(NotImplementedError, match="debug"):
+    with pytest.raises(TypeError, match="DebugOptions"):
         render_image(ts, RenderOptions(integrator="debug"))
+    with pytest.raises(NotImplementedError, match="SkyIntegrator"):
+        render_image(ts, RenderOptions(integrator="SkyIntegrator",
+                                       integrator_opts=DirectOptions()))
     # mix and layer nodes and bump mapping are ported: each is recorded as
     # its material's program; a node type core_tpu does not know raises
     from core_tpu_torch.environment import SceneBuilder
