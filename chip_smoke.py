@@ -261,6 +261,36 @@ Phases, with their seconds:
                ms at the 65,536 camera hits, ms per chunk, peak memory,
                launches per chunk, the busy share, and the energy SSS adds
                on the block
+  22. volumes — the volume regions, the volume integrators and the rest
+               of render_image: (a) vol128_golden, golden_volume_scene at
+               128^2 under tests/test_golden_volume.py's options (16 spp
+               in 2-spp chunks, box filter 1.0, directlight raydepth 1,
+               single scattering in 24 steps) through kernels 1 (2 a
+               chunk: the camera hit and the volume branch's own) and 3
+               (25 a chunk: 24 march steps and the spotlight's NEE), held
+               to that test's bands (air mean and MAE, ground mean and 12
+               x 12 block Pearson, optimize against the march at 64^2);
+               (b) at 64^2 each configuration of (c) through the kernels
+               bit-identical to the plain versions; (c) vol128_golden,
+               vol512_ss (the golden scene at 512^2, one 4-spp chunk: 24
+               steps over 1,048,576 lanes), cornell256_fog_pt (the Cornell
+               box with a NoiseVolume inside under the phase-3 path
+               tracer and 16-step single scattering: kernels 1, 2, 3 and
+               the NEE transmittance), goldenmesh256_sky_dl (the golden
+               mesh under the sky integrator) and cornell256_aa3_dl (three
+               adaptive passes with show_sam_pix, the flagged pixels per
+               pass): ms per chunk, launches per chunk, peak memory, the
+               busy share of one profiled request; (d) one chunk of
+               vol512_ss (1,048,576 lanes) and of cornell256_fog_pt at
+               full size, every call of kernels 1, 2 and 3 in it (the
+               camera hits, the path's bounces and NEE bundles, the
+               spotlight's NEE, every march step's shadow wavefront)
+               against the plain versions lane by lane, timed, with
+               bounds, and launches x (kernel - bound) per chunk
+A busy share, in every phase, is the summed duration of the device events
+(kernels, copies, memsets) of one profiled call under torch.profiler's
+CUDA activity, over that call's wall time under the same profiler
+(_busy_share).
 The line before the last is the card's name and power limit (nvidia-smi),
 the one before that the kernel table as JSON, and the last line is
 {"ok": true, "device": {...}}.  Rows 1 and 2 of that table are phase 2's
@@ -273,7 +303,9 @@ fold_launches those per step of each fold-table row, its photon_launches
 those per request of each photon golden, per chunk of cornellspec512_pm,
 per pass of cornellspec512_sppm and per light-zoo shoot, its
 bidir_launches those per bd64_golden request, per chunk of cornell256_bd,
-lightzoo256_bd and cornell256_sss_dl / _pt, and per SSS map build.
+lightzoo256_bd and cornell256_sss_dl / _pt, and per SSS map build, its
+volume_launches those per vol128_golden request and per chunk of each
+phase-22 configuration.
 Any failure raises (non-zero exit).  Imports nothing of jax or core_tpu.
 """
 from __future__ import annotations
@@ -1228,16 +1260,18 @@ def _recording(scene):
         route.update(orig)
 
 
-def _capture_calls(scene, res, opts=None):
-    """Run one 1-spp chunk of a flat or brute scene (directlight at
-    raydepth 1, or `opts`) with its route's kernel wrappers recorded.
-    Returns every call as (query, args, kwargs), in order."""
+def _capture_calls(scene, res, opts=None, spp=1, vol_aux=None):
+    """Run one spp-sample chunk of a flat or brute scene (directlight at
+    raydepth 1, or `opts`; `vol_aux`, precompute_attenuation's grids) with
+    its route's kernel wrappers recorded.  Returns every call as (query,
+    args, kwargs), in order."""
     import torch
     from core_tpu_torch import film as film_mod
     from core_tpu_torch.render import render_chunk, scene_material_types
     with _recording(scene) as calls, torch.no_grad():
         render_chunk(scene, scene_material_types(scene), opts or _big_opts(),
-                     film_mod.make_film(res, res, device="cuda"), 0, 1, 0)
+                     film_mod.make_film(res, res, device="cuda"), 0, spp, 0,
+                     vol_aux=vol_aux)
         sync()
     return calls
 
@@ -2683,21 +2717,33 @@ LZ_SWEEP = (
 
 
 def _busy_share(fn):
-    """(device kernel ms, launches) of one fn() under torch.profiler, and
-    fn's wall ms beside it; None when the profiler saw no device time."""
+    """(device ms, device events, wall ms) of one fn() under torch.profiler's
+    CUDA activity alone; None when the profiler saw no device time.  Device
+    ms is the sum of the durations of every device event (kernels, copies,
+    memsets) read from the raw kineto events (no CPU op tree and no
+    per-event Python records, so a call of 10^5 launches digests in
+    seconds); wall ms is fn()'s wall time under that profiler, through its
+    final synchronisation.  The busy share is device ms over wall ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         sync()
         wall = (time.perf_counter() - t0) * 1e3
-    kern = [(e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.device_time_total > 0]
-    if not kern:
+    durs = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0]
+    if not durs:
         return None
-    return sum(d for d, _ in kern), sum(c for _, c in kern), wall
+    return sum(durs) / 1e6, len(durs), wall
+
+
+def _busy(fn, what="chunk"):
+    b = _busy_share(fn)
+    return "busy share not measured (the profiler saw no device time)" \
+        if b is None else f"profiled {what}: device {b[0]:.3f} ms over " \
+        f"{b[1]} device events in {b[2]:.3f} ms, busy share " \
+        f"{b[0] / b[2]:.4f}"
 
 
 def _light_zoo_kernels(scene):
@@ -2812,7 +2858,8 @@ def phase_light_zoo():
             busy = "; busy share not measured (the profiler saw no " \
                 "device time)" if b is None else \
                 f"; profiled chunk: device {b[0]:.3f} ms over {b[1]} " \
-                f"launches in {b[2]:.3f} ms, busy share {b[0] / b[2]:.4f} " \
+                f"device events in {b[2]:.3f} ms, busy share " \
+                f"{b[0] / b[2]:.4f} " \
                 f"(of the unprofiled mean {b[0] / per:.4f})"
         print(f"{st['cfg']}: {LZ_RES}x{LZ_RES}, 1-spp chunks timed in turns "
               f"{[round(t, 3) for t in st['ms']]} ms: {per:.3f} ms/chunk "
@@ -3088,11 +3135,8 @@ def _photon_pm512(launches):
     if not bool(torch.isfinite(img).all()):
         fail("cornellspec512_pm: image has non-finite values")
     write_png(BUILD / "chip_smoke_cornellspec512_pm.png", img.cpu().numpy())
-    b = _busy_share(lambda: chunk(film_mod.make_film(PH_RES, PH_RES,
-                                                     device="cuda"), 0))
-    busy = "busy share not measured (the profiler saw no device time)" \
-        if b is None else f"profiled chunk: device {b[0]:.3f} ms over " \
-        f"{b[1]} launches in {b[2]:.3f} ms, busy share {b[0] / b[2]:.4f}"
+    busy = _busy(lambda: chunk(film_mod.make_film(PH_RES, PH_RES,
+                                                  device="cuda"), 0))
     per = ms[-1] if ms else first * 1e3
     print(f"photons: cornellspec512_pm render: {PH_PM_AA} spp in "
           f"{PH_PM_CHUNK}-spp chunks: first chunk {first * 1e3:.3f} ms, then "
@@ -3351,13 +3395,6 @@ def _timed_chunks(scene, opts, cfg, want, launches, aux=None, timed=1,
         sync()
         ms.append((time.perf_counter() - t0) * 1e3)
     return film, ms, torch.cuda.max_memory_allocated() / 2**20, rays
-
-
-def _busy(fn):
-    b = _busy_share(fn)
-    return "busy share not measured (the profiler saw no device time)" \
-        if b is None else f"profiled chunk: device {b[0]:.3f} ms over " \
-        f"{b[1]} launches in {b[2]:.3f} ms, busy share {b[0] / b[2]:.4f}"
 
 
 def _bd_golden(launches):
@@ -3713,6 +3750,325 @@ def phase_bidir():
     return launches, rows
 
 
+# --------------------------------------------------------------------------
+# phase 22
+# --------------------------------------------------------------------------
+
+VOL_GOLDEN_RES = 128
+VOL_GOLDEN_AA = 16
+VOL_STEPS = 24
+VOL_RES = 512
+VOL_SLICE = 64
+VOL_TIMED = 1                # timed requests after the counted (and timed) one
+FOG_RES = 256
+# the fog filling the Cornell box's interior: sigma_s 0.05, sigma_a 0.01
+# per unit of density; a density of 0.01 keeps the box's 550 units of
+# depth at an optical depth near 0.3 (the noise's own values scale it)
+FOG = dict(sigma_s=0.05, sigma_a=0.01, density=0.01,
+           bmin=(0.0, 0.0, 0.0), bmax=(556.0, 548.8, 559.2))
+FOG_STEPS = 16
+AA3 = dict(aa_passes=3, aa_samples=2, aa_inc_samples=2, aa_threshold=0.05,
+           show_sam_pix=True, spp_chunk=2)
+# tests/test_golden_volume.py's bands
+VOL_BANDS = {"air_mean_rel": 0.02, "air_mae_rel": 0.04,
+             "ground_mean_rel": 0.02, "optimize_rel": 0.03}
+VOL_PEARSON = 0.999
+# per chunk of the golden: the directlight camera hit and the volume
+# branch's own (kernel 1); 24 march steps and the spotlight's NEE (kernel 3)
+VOL_GOLDEN_LAUNCHES = {"closest_hit": 2, "any_hit": VOL_STEPS + 1}
+VOL_CFGS = {  # name: (resolution on the card, the kernels it launches)
+    "vol128_golden": (VOL_GOLDEN_RES, ("closest_hit", "any_hit")),
+    "vol512_ss": (VOL_RES, ("closest_hit", "any_hit")),
+    "cornell256_fog_pt": (FOG_RES, ("closest_hit", "any_hit_nee",
+                                    "any_hit")),
+    "goldenmesh256_sky_dl": (256, ("closest_hit", "any_hit_nee")),
+    "cornell256_aa3_dl": (256, ("closest_hit", "any_hit_nee"))}
+
+
+def volume_golden_opts(aa=VOL_GOLDEN_AA, spp_chunk=2, optimize=False):
+    """tests/test_golden_volume.py's options: directlight raydepth 1,
+    single scattering in 24 steps, box filter 1.0."""
+    from core_tpu_torch.film import FilterType
+    from core_tpu_torch.integrators.direct import DirectOptions
+    from core_tpu_torch.integrators.volume import VolumeOptions
+    from core_tpu_torch.render import RenderOptions
+    return RenderOptions(
+        aa_samples=aa, spp_chunk=spp_chunk, filter_size=1.0,
+        filter_type=FilterType.BOX,
+        integrator_opts=DirectOptions(raydepth=1),
+        volume_opts=VolumeOptions(integrator="singlescatter",
+                                  steps=VOL_STEPS, optimize=optimize))
+
+
+def fog_box(res, intersector="auto", device="cuda"):
+    """The Cornell box (light_samples=4) with a NoiseVolume (FOG) filling
+    its interior."""
+    import dataclasses
+    from core_tpu_torch.scenes import cornell_box
+    from core_tpu_torch.volumes import make_noise_volume
+    scene = cornell_box(resx=res, resy=res, light_samples=4,
+                        intersector=intersector, device=device)
+    return dataclasses.replace(scene, volumes=(make_noise_volume(
+        **FOG, device=scene.device),))
+
+
+def volume_config(name, res, intersector="auto", device="cuda"):
+    """(scene, RenderOptions) of a phase-22 configuration at res^2."""
+    import dataclasses
+    from core_tpu_torch.integrators.direct import DirectOptions
+    from core_tpu_torch.integrators.path import PathOptions
+    from core_tpu_torch.integrators.volume import VolumeOptions
+    from core_tpu_torch.render import RenderOptions
+    from core_tpu_torch.scenes import (cornell_box, golden_mesh_scene,
+                                       golden_volume_scene)
+    if name in ("vol128_golden", "vol512_ss"):
+        scene = golden_volume_scene(res, res, device=device)
+        opts = volume_golden_opts() if name == "vol128_golden" \
+            else volume_golden_opts(aa=4, spp_chunk=4)
+    elif name == "cornell256_fog_pt":
+        scene = fog_box(res, device=device)
+        opts = RenderOptions(
+            integrator="pathtracing", integrator_opts=PathOptions(
+                path_samples=PATH_SAMPLES, bounces=BOUNCES, raydepth=2),
+            volume_opts=VolumeOptions(integrator="singlescatter",
+                                      steps=FOG_STEPS))
+    elif name == "goldenmesh256_sky_dl":
+        scene = golden_mesh_scene(res, res, ibl_samples=8, device=device)
+        opts = dataclasses.replace(golden_opts("dl"),
+                                   volume_opts=VolumeOptions(
+                                       integrator="sky"))
+    elif name == "cornell256_aa3_dl":
+        scene = cornell_box(resx=res, resy=res, light_samples=LIGHT_SAMPLES,
+                            device=device)
+        opts = RenderOptions(integrator_opts=DirectOptions(raydepth=2),
+                             **AA3)
+    else:
+        raise ValueError(name)
+    if intersector != "auto":
+        scene = dataclasses.replace(scene, intersector=intersector)
+    return scene, opts
+
+
+def volume_golden_stats(img):
+    """tests/test_golden_volume.py's numbers of one 128^2 image, the 2-px
+    border cropped: the air's mean and mean-absolute errors over the
+    reference mean, the ground's mean error and 12 x 12 block Pearson."""
+    import numpy as np
+    ref = np.load(ROOT / "tests" / "golden" / "vol_ss_128x128_16spp.npz"
+                  )["img"][2:-2, 2:-2]
+    img = img.cpu().numpy()[2:-2, 2:-2]
+    if img.shape != ref.shape or not np.isfinite(img).all():
+        fail(f"vol128_golden: image {img.shape} vs {ref.shape}, or not "
+             "finite")
+    out = {}
+    for part, m in (("air", ref[..., 3] < 0.5), ("ground", ref[..., 3] > 0.5)):
+        a, r = img[m][:, :3], ref[m][:, :3]
+        out[f"{part}_mean_rel"] = float(abs(a.mean() - r.mean())
+                                        / max(r.mean(), 1e-6))
+        out[f"{part}_mae_rel"] = float(np.abs(a - r).mean()
+                                       / max(r.mean(), 1e-6))
+    bm = img[:120, :120, :3].reshape(12, 10, 12, 10, 3).mean((1, 3, 4))
+    br = ref[:120, :120, :3].reshape(12, 10, 12, 10, 3).mean((1, 3, 4))
+    out["ground_pearson"] = float(np.corrcoef(bm.ravel(), br.ravel())[0, 1])
+    return out
+
+
+def volume_golden_ok(stats) -> bool:
+    return (stats["air_mean_rel"] < VOL_BANDS["air_mean_rel"]
+            and stats["air_mae_rel"] < VOL_BANDS["air_mae_rel"]
+            and stats["ground_mean_rel"] < VOL_BANDS["ground_mean_rel"]
+            and stats["ground_pearson"] > VOL_PEARSON)
+
+
+def optimize_rel(device="cuda"):
+    """optimize=True against the march at 64^2, 4 spp (the golden test's
+    self-consistency check)."""
+    from core_tpu_torch.render import render_image
+    scene, _ = volume_config("vol128_golden", 64, device=device)
+    a, b = (render_image(scene, volume_golden_opts(4, 2, optimize=o))[0]
+            for o in (False, True))
+    return float(abs(b[..., :3].mean() - a[..., :3].mean())
+                 / max(float(a[..., :3].mean()), 1e-6))
+
+
+def _chunks(opts):
+    per = [opts.aa_samples] + [opts.aa_inc_samples] * (opts.aa_passes - 1)
+    return sum(-(-n // opts.spp_chunk) for n in per)
+
+
+def _vol_golden(launches):
+    """(a) the volume golden through kernels 1 and 3, at its bands."""
+    import torch
+    from core_tpu_torch.render import render_image
+    scene, opts = volume_config("vol128_golden", VOL_GOLDEN_RES)
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    img, _ = render_image(scene, opts)
+    sync()
+    dt = time.perf_counter() - t0
+    counts = all_launches()
+    launches["vol128_golden_request"] = counts
+    n = _chunks(opts)
+    want = {k: v * n for k, v in VOL_GOLDEN_LAUNCHES.items()}
+    if {k: c for k, c in counts.items() if c} != want or plain_calls():
+        fail(f"vol128_golden: launches {counts} per request, expected "
+             f"{want} ({n} chunks); plain calls {plain_calls()}")
+    stats = volume_golden_stats(img)
+    rel = optimize_rel()
+    print(f"volumes: vol128_golden (vol_ss_128x128_16spp): air mean rel "
+          f"{stats['air_mean_rel']:.6f} (< 0.02), air MAE rel "
+          f"{stats['air_mae_rel']:.6f} (< 0.04), ground mean rel "
+          f"{stats['ground_mean_rel']:.6f} (< 0.02), ground block Pearson "
+          f"{stats['ground_pearson']:.6f} (> 0.999); optimize against the "
+          f"march at 64^2 x 4 spp: rel {rel:.6f} (< 0.03); {dt:.3f} s a "
+          f"request of {n} chunks, launches per request {counts}")
+    write_png(BUILD / "chip_smoke_vol128_golden.png", img.cpu().numpy())
+    if not volume_golden_ok(stats) or not rel < VOL_BANDS["optimize_rel"]:
+        fail("vol128_golden outside tests/test_golden_volume.py's bands")
+    if not bool(torch.isfinite(img).all()):
+        fail("vol128_golden: non-finite image")
+
+
+def _vol_slices():
+    """(b) each configuration at 64^2 through the kernels and through the
+    plain versions: identical images (show_sam_pix's marks included)."""
+    import torch
+    from core_tpu_torch.render import render_image
+    for name, (_, want) in VOL_CFGS.items():
+        t0 = time.perf_counter()
+        imgs = []
+        for isec in ("cuda", "torch"):
+            scene, opts = volume_config(name, VOL_SLICE, isec)
+            reset_counts()
+            imgs.append(render_image(scene, opts)[0])
+            sync()
+            if isec == "cuda":
+                counts = all_launches()
+                _only_kernels(counts, want, f"{VOL_SLICE}^2 {name}")
+        if not bool(torch.isfinite(imgs[0]).all()) \
+                or not torch.equal(*imgs):
+            fail(f"{VOL_SLICE}^2 {name}: kernel and plain renders differ "
+                 f"or are not finite: max abs "
+                 f"{float((imgs[0] - imgs[1]).abs().max())}")
+        print(f"volumes slice: {VOL_SLICE}x{VOL_SLICE} {name}: through the "
+              f"kernels == through the plain versions (bit-identical), mean "
+              f"{float(imgs[0][..., :3].mean()):.6f}, sha256 "
+              f"{image_digest(imgs[0])}, kernel launches {counts}; "
+              f"{time.perf_counter() - t0:.1f} s")
+
+
+def _vol_timed(launches):
+    """(c) each configuration at its size: one counted request, VOL_TIMED
+    more, each timed; ms per chunk, launches per chunk of each kernel,
+    peak memory, the busy share of one profiled request; the adaptive
+    passes' flagged pixels (render_image's verbose lines) and the pixels
+    show_sam_pix marks red."""
+    import torch
+    from core_tpu_torch import film as film_mod
+    from core_tpu_torch.render import render_image
+    for name, (res, want) in VOL_CFGS.items():
+        scene, opts = volume_config(name, res)
+        n = _chunks(opts)
+        t_cfg = time.perf_counter()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        (img, film), rays = counted_rays(lambda: render_image(
+            scene, opts, verbose=opts.aa_passes > 1))
+        sync()
+        ms = [(time.perf_counter() - t_cfg) * 1e3 / n]
+        counts = all_launches()
+        _only_kernels(counts, want, name)
+        launches[name] = {k: c / n for k, c in counts.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        if not bool(torch.isfinite(img).all()):
+            fail(f"{name}: non-finite image")
+        for _ in range(VOL_TIMED):
+            t0 = time.perf_counter()
+            render_image(scene, opts)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3 / n)
+        t_busy = time.perf_counter()
+        busy = _busy(lambda: render_image(scene, opts), "request")
+        t_busy = time.perf_counter() - t_busy
+        write_png(BUILD / f"chip_smoke_{name}.png", img.cpu().numpy())
+        extra = f"; marked red by show_sam_pix " \
+            f"{int(film_mod.next_pass_flags(film, opts.aa_threshold).sum())}" \
+            if opts.show_sam_pix and opts.aa_passes > 1 else ""
+        print(f"volumes: {name}: {res}x{res}, {n} chunk(s) a request, ms "
+              f"per chunk {[round(t, 3) for t in ms]}, rays a request "
+              f"{rays}, launches per chunk {launches[name]}; peak device "
+              f"memory {peak:.1f} MiB; image mean "
+              f"{float(img[..., :3].mean()):.6f}; {busy}{extra}; "
+              f"{time.perf_counter() - t_cfg:.1f} s, the profile "
+              f"{t_busy:.1f} s of it")
+
+
+# the kernel calls of one captured chunk, in order: (closest, NEE, any)
+VOL_CAPTURED = {
+    # directlight's camera hit and the volume branch's own; the
+    # spotlight's NEE, then the 24 march steps' shadow tests
+    "vol512_ss": (["camera", "volume branch camera"], [],
+                  ["spotlight NEE"] + [f"march step {i + 1}"
+                                       for i in range(VOL_STEPS)]),
+    # the path tracer's camera hit, 5 bounces and the volume branch's
+    # camera hit; a bundle at each of the 6 vertices; the 16 march steps
+    "cornell256_fog_pt": (["camera"] + [f"bounce {i}" for i in range(1, 6)]
+                          + ["volume branch camera"],
+                          ["camera vertex"] + [f"bounce {i} vertex"
+                                               for i in range(1, 6)],
+                          [f"march step {i + 1}" for i in range(FOG_STEPS)])}
+
+
+def _vol_captured():
+    """(d) one chunk of vol512_ss (4 spp: 1,048,576 lanes) and of
+    cornell256_fog_pt at full size with the route's kernel wrappers
+    recorded: every captured call of kernels 1, 2 and 3 against its plain
+    version lane by lane, timed, with its bound, and launches x (kernel -
+    bound) per chunk; returns the kernels' error rows."""
+    from core_tpu_torch.integrators import volume as vol_mod
+    rows = {}
+    for name, names in VOL_CAPTURED.items():
+        res = VOL_CFGS[name][0]
+        scene, opts = volume_config(name, res)
+        # the request's first chunk: min(spp_chunk, aa_samples) samples
+        calls = _capture_calls(scene, res, opts,
+                               spp=min(opts.spp_chunk, opts.aa_samples),
+                               vol_aux=vol_mod.precompute_attenuation(
+                                   scene, opts.volume_opts))
+        got = [[c for c in calls if c[0] == q]
+               for q in ("closest", "nee", "any")]
+        if [len(g) for g in got] != [len(x) for x in names] \
+                or len(calls) != sum(len(x) for x in names):
+            fail(f"{name} chunk: {[len(g) for g in got]} closest, NEE and "
+                 f"any-hit calls of {len(calls)}, not "
+                 f"{[len(x) for x in names]}")
+        for (kernel, k), labels, cs in zip(
+                (("closest_hit", 1), ("any_hit_nee", 2), ("any_hit", 3)),
+                names, got):
+            if not cs:
+                continue
+            per = [_check_captured(f"{name}: {label}", *c)
+                   for label, c in zip(labels, cs)]
+            err = max(r["max_abs_err"] for r in per)
+            rows[kernel] = {"max_abs_err": max(
+                err, rows.get(kernel, {"max_abs_err": 0.0})["max_abs_err"])}
+            _gap(f"kernel {k}, {name} captured calls (all {len(cs)})", per)
+        del calls, got
+    return rows
+
+
+def phase_volumes():
+    """Phase 22 (see the header): returns the launches of each
+    configuration and the kernels' error rows."""
+    launches = {}
+    _vol_golden(launches)
+    _vol_slices()
+    _vol_timed(launches)
+    return launches, _vol_captured()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3802,6 +4158,9 @@ def main():
     bidir, rows = timed("bidir", phase_bidir)
     for name, row in rows.items():
         _merge(kt[name], row)
+    volume, rows = timed("volumes", phase_volumes)
+    for name, row in rows.items():
+        _merge(kt[name], row)
 
     replaces = {     # kernels 1 to 8
         "closest_hit": ("core_tpu/geometry/pallas_intersect.py:55",
@@ -3827,7 +4186,9 @@ def main():
     # per request of each photon golden, per chunk of cornellspec512_pm,
     # per pass of cornellspec512_sppm, per light-zoo shoot; bidir_launches:
     # per bd64_golden request, per chunk of cornell256_bd, lightzoo256_bd
-    # and cornell256_sss_dl / _pt, per SSS map build;
+    # and cornell256_sss_dl / _pt, per SSS map build; volume_launches:
+    # per vol128_golden request and per chunk of each phase-22
+    # configuration;
     # fold_launches: per step of each fold table row
     table = [{"name": name, "route": "cuda", "source": src,
               "replaces": rep, "launches": counts[name], **kt[name],
@@ -3839,7 +4200,8 @@ def main():
               "zoo_launches": {c: zoo[c][name] for c in zoo},
               "lightzoo_launches": {c: lightzoo[c][name] for c in lightzoo},
               "photon_launches": {c: photons[c][name] for c in photons},
-              "bidir_launches": {c: bidir[c][name] for c in bidir}}
+              "bidir_launches": {c: bidir[c][name] for c in bidir},
+              "volume_launches": {c: volume[c][name] for c in volume}}
              for name, (rep, src) in replaces.items()]
     print(json.dumps({"kernels": table}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

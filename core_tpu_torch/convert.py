@@ -5,7 +5,9 @@ field paths ("geom.verts", "materials.diffuse_color", "lights.0.corner",
 "accel.tris", "textures.0.image", ...) to numpy arrays, and `static` holds
 the plain Python settings (texture defs but their images, shader-node
 programs, light and background kinds and their settings, the camera's
-settings).  Every light, background and camera type of core_tpu crosses.  It
+settings, the volume regions' type names).  Every light, background,
+camera and volume region type of core_tpu crosses, a region's arrays as
+"volumes.<i>.<field>".  It
 reads fields by name only, so it accepts this package's Scene and any scene
 object with the same field names, such as core_tpu's (whose arrays
 np.asarray converts).  scene_from_numpy rebuilds this package's Scene on a
@@ -21,6 +23,8 @@ PhotonMap, so both packages can gather from the same photons.  This module
 imports no jax.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -42,6 +46,7 @@ from core_tpu_torch.materials.base import MaterialTable
 from core_tpu_torch.scene import Scene, check_device, resolve_intersector
 from core_tpu_torch.textures import base as tex_base
 from core_tpu_torch.textures.nodes import NodeDef
+from core_tpu_torch.volumes import regions as vr
 
 _LIGHTS = {  # type name -> (class, array fields, static fields)
     "AreaLight": (AreaLight, ("corner", "to_x", "to_y", "color", "area",
@@ -88,8 +93,9 @@ _BACKGROUNDS = {  # type name -> (class, array fields, static fields)
                            "ibl", "ibl_samples")),
 }
 _MESH_LIGHT = _LIGHTS["MeshLight"]
-# scene features this package does not port yet: must be absent
-_ABSENT = ("volumes",)
+# volume region type name -> (class, its array fields, all of them)
+_VOLUMES = {cls.__name__: (cls, tuple(f.name for f in dataclasses.fields(cls)))
+            for cls in vr.REGIONS}
 
 
 def _np(a) -> np.ndarray:
@@ -157,11 +163,16 @@ def _accel_numpy(acc):
 
 def scene_to_numpy(scene) -> tuple[dict, dict]:
     """(leaves, static) of a scene; raises for features not ported."""
-    for name in _ABSENT:
-        if getattr(scene, name, None):
-            raise NotImplementedError(f"scene.{name} is not ported to "
-                                      "core_tpu_torch yet")
     leaves = {}
+    volumes = []
+    for i, vol in enumerate(getattr(scene, "volumes", ())):
+        kind = type(vol).__name__
+        if kind not in _VOLUMES:
+            raise NotImplementedError(f"volume region {kind} is not ported "
+                                      "to core_tpu_torch yet")
+        for f in _VOLUMES[kind][1]:
+            leaves[f"volumes.{i}.{f}"] = _np(getattr(vol, f))
+        volumes.append(kind)
     for f in GeomData._fields:
         leaves[f"geom.{f}"] = _np(getattr(scene.geom, f))
     for f in MaterialTable._fields:
@@ -219,6 +230,8 @@ def scene_to_numpy(scene) -> tuple[dict, dict]:
         "has_specular": bool(scene.has_specular),
         "has_transparency": bool(scene.has_transparency),
         "mat_types": tuple(int(t) for t in scene.mat_types),
+        "volumes": volumes,
+        "n_objects": int(getattr(scene, "n_objects", 0)),
     }
     return leaves, static
 
@@ -270,8 +283,13 @@ def scene_from_numpy(leaves: dict, static: dict, *, device="cuda",
     # an empty mat_types means "derive from the table" (core_tpu/scene.py)
     mat_types = tuple(static["mat_types"]) or tuple(
         sorted(set(materials.mtype.tolist())))
+    volumes = tuple(
+        _VOLUMES[kind][0](**{f: t(f"volumes.{i}.{f}")
+                             for f in _VOLUMES[kind][1]})
+        for i, kind in enumerate(static.get("volumes", ())))
     return Scene(geom=geom, materials=materials, lights=tuple(lights),
                  camera=camera, background=background, accel=accel,
+                 volumes=volumes, n_objects=int(static.get("n_objects", 0)),
                  textures=None if static["textures"] is None
                  else _textures(static["textures"], leaves, "textures",
                                 device),

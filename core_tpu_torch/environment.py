@@ -19,8 +19,17 @@ builds the Scene on a device.  Element types keep the reference's names:
   camera      perspective, architect, angular, orthographic / ortho
   integrator  directlighting, pathtracing, photonmapping, SPPM,
               bidirectional, DebugIntegrator (the parameters are recorded
-              as integrator_params, as core_tpu records them)
+              as integrator_params, as core_tpu records them); the volume
+              integrators none, EmissionIntegrator, SingleScatterIntegrator,
+              SkyIntegrator (recorded as volume_integrator_params)
+  volumeregion UniformVolume, ExpDensityVolume, NoiseVolume, GridVolume
+              (a grid array, or a df3 / .npy density_file), SkyVolume
+  object      sphere (tessellated as core_tpu tessellates it)
 Any other type raises NotImplementedError by name.
+SceneBuilder.render_options / setup_render_options map the scene file's
+render, integrator and volume-integrator parameters onto RenderOptions, as
+core_tpu's do (environment.py:231-386); the volume integrator's world-space
+stepSize becomes a static march count (volume_march_steps).
 A light that needs the compiled scene (the mesh lights and portals, which
 read an object's triangles; the background lights, which read the
 background) is made at the end of compile_scene by a deferred maker that
@@ -52,6 +61,7 @@ from core_tpu_torch.textures import noise as nz
 from core_tpu_torch.textures import nodes
 from core_tpu_torch.textures.base import (MusgraveType, TexType, TextureDef,
                                           build_texture_set)
+from core_tpu_torch.volumes import regions as vr
 
 BRUTE_MAX_TRIS = 4096                                  # kernels 1-3
 
@@ -86,8 +96,12 @@ class SceneBuilder:
         self._deferred_lights: list = []
         # shader-node programs: (mat_index, slot, node_defs, out_node_name)
         self.node_programs: list = []
-        # the integrator element's parameters (the integrator factory)
+        self.volumes: list = []
+        # the integrator elements' parameters (the integrator factories)
+        # and the scene file's render parameters, for render_options
         self.integrator_params = None
+        self.volume_integrator_params = None
+        self.render_params = ParamMap()
 
     def create(self, kind: str, name: str, params: ParamMap, extra=None):
         """Create one element; `extra` is a material's list of shader-node
@@ -163,7 +177,7 @@ class SceneBuilder:
             geom=geom, materials=mats, lights=tuple(self.lights),
             camera=self.camera, background=self.background, accel=accel,
             textures=build_texture_set(self.textures, device)
-            if self.textures else None,
+            if self.textures else None, volumes=tuple(self.volumes),
             has_specular=has_spec, has_transparency=has_transp,
             mat_types=tuple(sorted({int(d.mtype) for d in self.materials})),
             node_programs=tuple(self.node_programs),
@@ -175,6 +189,146 @@ class SceneBuilder:
                 scene = dataclasses.replace(scene,
                                             lights=scene.lights + (light,))
         return scene
+
+    def render_options(self):
+        """RenderOptions from the recorded render, integrator and volume
+        integrator parameters; the largest volume's diagonal turns the
+        volume integrator's stepSize into a march count."""
+        span = None
+        if self.volumes:
+            span = max(float(np.linalg.norm((v.bmax - v.bmin).cpu().numpy()))
+                       for v in self.volumes)
+        return setup_render_options(self.render_params,
+                                    self.integrator_params,
+                                    self.volume_integrator_params,
+                                    volume_span=span)
+
+
+def volume_march_steps(step_size: float, volume_span) -> int:
+    """The static march count of a world-space stepSize
+    (SingleScatterIntegrator.cc:16): ceil(span / stepSize) over the largest
+    volume's diagonal, clamped to [4, 128]; 16 without volumes."""
+    if volume_span is None or volume_span <= 0:
+        return 16
+    return int(np.clip(np.ceil(volume_span / step_size), 4, 128))
+
+
+def setup_render_options(rp: ParamMap, ip, vp, volume_span=None):
+    """The reference's global render and integrator parameters as
+    RenderOptions (environment.cc setupScene :596-705, createImageFilm
+    :481-532; the integrator factories in src/integrators/), every field
+    as core_tpu's setup_render_options sets it.  An unknown surface
+    integrator raises ValueError, as in core_tpu."""
+    from core_tpu_torch.film import FilterType
+    from core_tpu_torch.integrators.bidir import BidirOptions
+    from core_tpu_torch.integrators.debug import DebugOptions
+    from core_tpu_torch.integrators.direct import DirectOptions
+    from core_tpu_torch.integrators.path import PathOptions
+    from core_tpu_torch.integrators.photonmap import PhotonOptions
+    from core_tpu_torch.integrators.sppm import SPPMOptions
+    from core_tpu_torch.integrators.volume import VolumeOptions
+    from core_tpu_torch.render import RenderOptions
+
+    ip = ip or ParamMap({"type": "directlighting"})
+    itype = ip.get_str("type", "directlighting")
+    raydepth = ip.get_int("raydepth", 5)
+    bg_transp = rp.get_bool("bg_transp", False)
+    common_ao = dict(
+        transp_shad=ip.get_bool("transpShad", False),
+        shadow_depth=ip.get_int("shadowDepth", 5),
+        use_ao=ip.get_bool("do_AO", False),
+        ao_samples=ip.get_int("AO_samples", 32),
+        ao_dist=ip.get_float("AO_distance", 1.0),
+        ao_color=ip.get_color("AO_color", (1.0, 1.0, 1.0)),
+        transp_background=bg_transp)
+    sss = dict(use_sss=ip.get_bool("useSSS", False),
+               sss_photons=ip.get_int("sssPhotons", 8192),
+               sss_steps=ip.get_int("sssDepth", 4),
+               sss_scale=ip.get_float("sssScale", 1.0))
+    if itype in ("pathtracing", "pathtracer"):
+        integrator = "pathtracing"
+        iopts = PathOptions(
+            path_samples=ip.get_int("path_samples", 32),
+            bounces=ip.get_int("bounces", 3), raydepth=raydepth,
+            no_recursive=ip.get_bool("no_recursive", False),
+            caustic_type=ip.get_str("caustic_type", "path"),
+            c_photons=ip.get_int("photons", 500000),
+            caustic_radius=ip.get_float("caustic_radius", 0.25),
+            caustic_depth=ip.get_int("caustic_depth", 10),
+            **sss, **common_ao)
+    elif itype == "photonmapping":
+        integrator = "photonmapping"
+        iopts = PhotonOptions(
+            photons=ip.get_int("photons", 100000),
+            c_photons=ip.get_int("cPhotons", 50000),
+            diffuse_radius=ip.get_float("diffuseRadius", 1.0),
+            caustic_radius=ip.get_float("causticRadius", 0.1),
+            bounces=ip.get_int("bounces", 5),
+            final_gather=ip.get_bool("finalGather", True),
+            fg_samples=ip.get_int("fg_samples", 16), raydepth=raydepth,
+            transp_background=bg_transp)
+    elif itype == "SPPM":
+        integrator = "SPPM"
+        iopts = SPPMOptions(
+            passes=ip.get_int("passNums", 8),
+            photons=ip.get_int("photons", 100000),
+            bounces=ip.get_int("bounces", 5),
+            search_radius=ip.get_float("photonRadius", 1.0)
+            * ip.get_float("times", 1.0),
+            pm_ire=ip.get_bool("pmIRE", False),
+            search_count=ip.get_int("searchNum", 64), raydepth=raydepth)
+    elif itype == "bidirectional":
+        integrator = "bidirectional"
+        iopts = BidirOptions(
+            eye_depth=min(raydepth, 6), light_depth=min(raydepth, 6),
+            transp_background=bg_transp,
+            do_light_image=ip.get_bool("do_LightImage", True))
+    elif itype == "DebugIntegrator":
+        integrator = "debug"
+        dbg = {1: "N", 2: "dPdU", 3: "dPdV", 4: "NU", 5: "NV",
+               6: "dSdU", 7: "dSdV"}
+        iopts = DebugOptions(
+            debug_type=dbg.get(ip.get_int("debugType", 1), "N"),
+            show_pn=ip.get_bool("showPN", False))
+    elif itype == "directlighting":
+        integrator = "directlight"
+        iopts = DirectOptions(raydepth=raydepth, **sss, **common_ao)
+    else:
+        raise ValueError(f"unknown surface integrator type '{itype}'")
+
+    vpm = vp or ParamMap()
+    step_size = max(1e-4, vpm.get_float("stepSize", 1.0))
+    vopts = VolumeOptions(
+        integrator=_VOLUME_INTEGRATORS.get(vpm.get_str("type", "none"),
+                                           "none"),
+        step_size=step_size,
+        steps=volume_march_steps(step_size, volume_span),
+        sky_alpha=vpm.get_float("alpha", 0.5),
+        sky_scale=vpm.get_float("sigma_t", 0.1),
+        sky_turbidity=vpm.get_float("turbidity", 3.0),
+        optimize=vpm.get_bool("optimize", False),
+        att_grid_res=max(4, 8 * vpm.get_int("attgridScale", 2)))
+    filt = {"box": FilterType.BOX, "mitchell": FilterType.MITCHELL,
+            "gauss": FilterType.GAUSS, "lanczos": FilterType.LANCZOS}.get(
+        rp.get_str("filter_type", "box").lower(), FilterType.BOX)
+    return RenderOptions(
+        aa_passes=max(1, rp.get_int("AA_passes", 1)),
+        aa_samples=max(1, rp.get_int("AA_minsamples", 1)),
+        aa_inc_samples=max(1, rp.get_int("AA_inc_samples", 1)),
+        aa_threshold=rp.get_float("AA_threshold", 0.05),
+        filter_type=filt, filter_size=rp.get_float("AA_pixelwidth", 1.5),
+        gamma=rp.get_float("gamma", 1.0),
+        clamp_rgb=rp.get_bool("clamp_rgb", False),
+        premult=rp.get_bool("premult", False),
+        show_sam_pix=rp.get_bool("show_sam_pix", False),
+        integrator=integrator, integrator_opts=iopts, volume_opts=vopts,
+        z_channel=rp.get_bool("z_channel", False))
+
+
+# the volume integrator element types (core_tpu environment.py:916-923)
+_VOLUME_INTEGRATORS = {"none": "none", "EmissionIntegrator": "emission",
+                       "SingleScatterIntegrator": "singlescatter",
+                       "SkyIntegrator": "sky"}
 
 
 # =====================  element factories  =====================
@@ -427,6 +581,112 @@ def _integrator(b: SceneBuilder, name, p: ParamMap):
     render options."""
     b.integrator_params = p
     return p
+
+
+def _vol_integrator(b: SceneBuilder, name, p: ParamMap):
+    """core_tpu environment.py:919-923: the parameters are kept for the
+    render options' VolumeOptions."""
+    b.volume_integrator_params = p
+    return p
+
+
+def _box_of(p: ParamMap):
+    return dict(bmin=(p.get_float("minX"), p.get_float("minY"),
+                      p.get_float("minZ")),
+                bmax=(p.get_float("maxX"), p.get_float("maxY"),
+                      p.get_float("maxZ")))
+
+
+def _media(p: ParamMap):
+    return dict(sigma_a=p.get_float("sigma_a", 0.1),
+                sigma_s=p.get_float("sigma_s", 0.1),
+                l_e=p.get_float("l_e", 0.0), g=p.get_float("g", 0.0))
+
+
+def _add_volume(b: SceneBuilder, vol):
+    b.volumes.append(vol)
+    return vol
+
+
+def _vol_uniform(b: SceneBuilder, name, p: ParamMap):
+    return _add_volume(b, vr.make_uniform_volume(
+        **_media(p), **_box_of(p), device=b.device))
+
+
+def _vol_exp(b: SceneBuilder, name, p: ParamMap):
+    return _add_volume(b, vr.make_expdensity_volume(
+        **_media(p), a=p.get_float("a", 1.0), b=p.get_float("b", 1.0),
+        **_box_of(p), device=b.device))
+
+
+def _vol_noise(b: SceneBuilder, name, p: ParamMap):
+    return _add_volume(b, vr.make_noise_volume(
+        **_media(p), sharpness=p.get_float("sharpness", 1.0),
+        cover=p.get_float("cover", 1.0), density=p.get_float("density", 1.0),
+        **_box_of(p), device=b.device))
+
+
+def _vol_grid(b: SceneBuilder, name, p: ParamMap):
+    """A `grid` array, else the voxels of `density_file` (df3 or .npy,
+    GridVolume.cc:40-125), else a 2x2x2 grid of ones."""
+    g = p.get("grid")
+    if g is None and p.get_str("density_file", ""):
+        g = vr.load_density_grid(p.get_str("density_file"))
+    if g is None:
+        g = np.ones((2, 2, 2), np.float32)
+    return _add_volume(b, vr.make_grid_volume(
+        grid=g, **_media(p), **_box_of(p), device=b.device))
+
+
+def _vol_sky(b: SceneBuilder, name, p: ParamMap):
+    return _add_volume(b, vr.make_sky_volume(
+        s_ray=p.get_float("sigma_t", 0.05) * 0.8,
+        s_mie=p.get_float("sigma_t", 0.05) * 0.2,
+        l_e=p.get_float("l_e", 0.0), g=p.get_float("g", 0.8), **_box_of(p),
+        device=b.device))
+
+
+def _obj_sphere(b: SceneBuilder, name, p: ParamMap):
+    """The sphere object (std_primitives.cc:33-90), tessellated as
+    core_tpu tessellates it (environment.py:926-960): tess_v + 1 rings of
+    tess_u + 1 vertices at exact sphere positions, U = atan2(y, x)/pi + 1,
+    V = 1 - theta/pi, outward winding, all-smooth normals.  Returns the
+    object id."""
+    center = np.asarray(p.get_point("center", (0.0, 0.0, 0.0)), np.float64)
+    radius = p.get_float("radius", 1.0)
+    mat = b.material_index(p.get_str("material", ""))
+    n_u = int(p.get_int("tess_u", 64))
+    n_v = int(p.get_int("tess_v", 32))
+    a = b.assembler
+    m = a.start_mesh()
+    verts, uvs = [], []
+    # element by element with numpy's scalar functions, as core_tpu does
+    for j in range(n_v + 1):
+        theta = np.pi * j / n_v
+        for i in range(n_u + 1):
+            phi = 2 * np.pi * i / n_u
+            nrm = np.array([np.sin(theta) * np.cos(phi),
+                            np.sin(theta) * np.sin(phi), np.cos(theta)])
+            verts.append(center + radius * nrm)
+            uvs.append((np.arctan2(nrm[1], nrm[0]) / np.pi + 1.0,
+                        1.0 - theta / np.pi))
+    v0 = a.add_vertices(m, np.asarray(verts))
+    u0 = a.add_uvs(m, np.asarray(uvs))
+    faces, face_uvs = [], []
+
+    def idx(j, i):
+        return j * (n_u + 1) + i
+
+    for j in range(n_v):
+        for i in range(n_u):
+            q = (idx(j, i), idx(j, i + 1), idx(j + 1, i + 1), idx(j + 1, i))
+            tris = ([(q[0], q[2], q[1])] if j > 0 else []) \
+                + ([(q[0], q[3], q[2])] if j < n_v - 1 else [])
+            faces += [tuple(v0 + k for k in t) for t in tris]
+            face_uvs += [tuple(u0 + k for k in t) for t in tris]
+    a.add_triangles(m, faces, mat, uv_ids=face_uvs)
+    a.smooth_mesh(m, 181.0)
+    return m.obj_id
 
 
 def _mat_light(b: SceneBuilder, name, p: ParamMap):
@@ -701,7 +961,13 @@ _FACTORIES: dict[str, dict[str, Callable]] = {
     "camera": {"perspective": _cam_perspective,
                "architect": _cam_perspective, "angular": _cam_angular,
                "orthographic": _cam_ortho, "ortho": _cam_ortho},
-    "integrator": {t: _integrator for t in (
+    "integrator": {**{t: _integrator for t in (
         "directlighting", "pathtracing", "photonmapping", "SPPM",
         "bidirectional", "DebugIntegrator")},
+        **{t: _vol_integrator for t in _VOLUME_INTEGRATORS}},
+    "volumeregion": {"UniformVolume": _vol_uniform,
+                     "ExpDensityVolume": _vol_exp,
+                     "NoiseVolume": _vol_noise, "GridVolume": _vol_grid,
+                     "SkyVolume": _vol_sky},
+    "object": {"sphere": _obj_sphere},
 }

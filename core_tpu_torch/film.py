@@ -12,9 +12,10 @@ filterw scales by 2.6 (Mitchell) and 2 (Gauss): at filter_size 1.5 the box
 splats a 3x3 stencil, Gauss (filterw 1.5) 4x4 and Mitchell (1.95) 5x5.
 
 Scope: the dense full-raster splat (add_samples_grid), a stencil of shifted
-adds per footprint offset, and the light image of the bidirectional
-integrator (add_density_samples, merged at flush); the scatter splat and the
-adaptive-AA flags come with the passes that use them.
+adds per footprint offset whose sample_mask also carries an adaptive pass's
+resample flags, the light image of the bidirectional integrator
+(add_density_samples, merged at flush), and the adaptive-AA flags of the
+next pass (next_pass_flags, imagefilm.cc:213-286).
 
 The light image's splats land anywhere in the image, many on one pixel.
 add_density_samples sums them in a fixed order (a stable sort by pixel and
@@ -207,3 +208,31 @@ def flush(film: Film, gamma: float = 1.0, clamp: bool = False,
     if premult:
         rgb = rgb * img[..., 3:4]
     return torch.cat([rgb, img[..., 3:]], dim=-1)
+
+
+def _col2bri(c):
+    """(R + G + B) / 3 of an [..., >= 3] image, summed left to right
+    (reference color_t::col2bri, color.h)."""
+    return (c[..., 0] + c[..., 1] + c[..., 2]) / 3.0
+
+
+def next_pass_flags(film: Film, aa_thresh: float):
+    """Adaptive-AA resample flags [H, W] bool (imageFilm_t::nextPass,
+    imagefilm.cc:226-270): each pixel's |brightness| against its right,
+    down, down-right and down-left neighbours' brightness; a difference
+    >= aa_thresh flags both pixels (core_tpu film.py:265-301)."""
+    img = normalized(film)
+    b = _col2bri(img)
+    c = b.abs()
+    h, w = c.shape
+    flags = torch.zeros((h, w), dtype=torch.bool, device=c.device)
+    # (this pixel's slice, the neighbour's slice) per neighbour
+    for mine, theirs in (
+            ((slice(None), slice(0, w - 1)), (slice(None), slice(1, w))),
+            ((slice(0, h - 1), slice(None)), (slice(1, h), slice(None))),
+            ((slice(0, h - 1), slice(0, w - 1)), (slice(1, h), slice(1, w))),
+            ((slice(0, h - 1), slice(1, w)), (slice(1, h), slice(0, w - 1)))):
+        d = (c[mine] - b[theirs]).abs() >= aa_thresh
+        flags[mine] |= d
+        flags[theirs] |= d
+    return flags

@@ -18,13 +18,18 @@ those occlusion queries with transparent_shadow's walks of closest hits
 (kernel 1, 4 or 7); the light-side and BSDF-side walks of an area light's
 samples share one wavefront.
 
-Scope: no volume transmittance (the port's scenes carry no volumes).
+Volumes: every light sample is attenuated by the scene volumes'
+transmittance toward the light (the reference's mcintegrator.cc:96,131,
+181), a march of NEE_VOL_STEPS per volume; an area light's two MIS sides
+march as one wavefront.  A scene without volumes skips it, so its renders
+do not change.
 """
 from __future__ import annotations
 
 import torch
 
 from core_tpu_torch import scene as scene_mod
+from core_tpu_torch.integrators import volume as vol_mod
 from core_tpu_torch.lights import base as light_base
 from core_tpu_torch.materials import dispatch
 from core_tpu_torch.materials.base import BSDF, detach_sample
@@ -48,6 +53,15 @@ def _shadow_tcap(valid, dist):
     bounded = torch.where(dist > SHADOW_BIAS, dist - SHADOW_BIAS, _DEAD_TCAP)
     return torch.where(valid, torch.where(dist > 0, bounded, -1.0),
                        _DEAD_TCAP)
+
+
+def _apply_vol_transmittance(scene, o: V3, wi: V3, dist, contrib: V3) -> V3:
+    """contrib attenuated through the scene volumes along wi up to dist
+    (<= 0: unbounded), core_tpu common.py:51-59; unchanged without
+    volumes."""
+    if not scene.volumes:
+        return contrib
+    return contrib * vol_mod.transmittance_nee_s(scene, o, wi, dist)
 
 
 def _walk_tcap(valid, dist):
@@ -109,6 +123,8 @@ def do_light_estimation_s(scene, types_present, p, sps, wo: V3, light,
         surf = dispatch.eval_bsdf_s(types_present, p, sps, wo, ls.wi,
                                     BSDF.ALL)
         contrib = surf * ls.col * dot3(sps.n, ls.wi).abs()
+        contrib = _apply_vol_transmittance(scene, sps.p, ls.wi, ls.dist,
+                                           contrib)
         ok = active & ls.valid
         if walk:
             att = transparent_shadow(
@@ -167,6 +183,14 @@ def do_light_estimation_s(scene, types_present, p, sps, wo: V3, light,
                          tmin=torch.full_like(s1, MIN_RAYDIST),
                          tmax=torch.full_like(s1, -1.0)))
         lcontrib = surf * ls.col * (cos_term * w / ls.pdf.clamp_min(1e-12))
+        if scene.volumes:
+            # both MIS sides' volume attenuation in one march over their
+            # 2nN lanes (core_tpu marches them one after the other)
+            tr = vol_mod.transmittance_nee_s(
+                scene, _cat3(spb.p, spb.p), _cat3(ls.wi, sres.wi),
+                torch.cat([ls.dist, lh.t]))
+            lcontrib = lcontrib * V3(*(c[:n * N] for c in tr))
+            b_tr = V3(*(c[n * N:] for c in tr))
         if walk:
             # both MIS sides walk as one wavefront (core_tpu walks them
             # one after the other; every lane is independent)
@@ -196,6 +220,8 @@ def do_light_estimation_s(scene, types_present, p, sps, wo: V3, light,
         m2b = sres.pdf * sres.pdf
         wb = m2b / (l2b + m2b).clamp_min(1e-20)
         bcontrib = sres.col * lh.col * (wb * sres.w)
+        if scene.volumes:
+            bcontrib = bcontrib * b_tr
         if walk:
             bcontrib = bcontrib * b_att
         b_ok = activeb & lh.valid & (~b_shadowed) & (sres.pdf > 1e-6) \
@@ -203,6 +229,8 @@ def do_light_estimation_s(scene, types_present, p, sps, wo: V3, light,
         total = where3(l_ok, lcontrib, 0.0) + where3(b_ok, bcontrib, 0.0)
     else:
         contrib = surf * ls.col * (cos_term / ls.pdf.clamp_min(1e-12))
+        contrib = _apply_vol_transmittance(scene, spb.p, ls.wi, ls.dist,
+                                           contrib)
         if walk:
             contrib = contrib * transparent_shadow(
                 scene, types_present, spb.p, ls.wi,

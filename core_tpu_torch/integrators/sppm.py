@@ -12,9 +12,10 @@ photon population in a sorted uniform grid of cells the initial radius
 wide, and a 27-cell flat gather at each pixel's shrinking radius.
 
 Eye rays, photons and the direct light trace through scene.closest_hit_s
-and common's NEE (kernels 1 and 2 on a brute scene).  Not ported:
-checkpoints (render_sppm's checkpoint_path) and device-sharded photon
-work (one_pass_block's photon_shard); both raise NotImplementedError.
+and common's NEE (kernels 1 and 2 on a brute scene).  render_sppm's
+checkpoint_path saves and resumes the hit points (checkpoint.py).  Not
+ported: device-sharded photon work (one_pass_block's photon_shard), which
+raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -256,10 +257,14 @@ def finalize_sppm(state: HitPoints, passes: int, photons: int):
 def render_sppm(scene, opts: SPPMOptions, verbose=False,
                 checkpoint_path=None):
     """The progressive pass loop (replaces the tiled render, sppm.cc:
-    62-109).  Returns the image [H, W, 4]."""
-    if checkpoint_path:
-        raise NotImplementedError("SPPM checkpoints (checkpoint_path) are "
-                                  "not ported to core_tpu_torch yet")
+    62-109).  Returns the image [H, W, 4].
+
+    checkpoint_path: the hit points and the pass counter are saved after
+    every pass, and an existing checkpoint (written by this package or by
+    core_tpu) is resumed from; the photon streams are a function of the
+    pass index, so the resumed render equals an uninterrupted one
+    (core_tpu sppm.py:205-217)."""
+    from core_tpu_torch import checkpoint as ck
     from core_tpu_torch.render import scene_material_types
     types_present = scene_material_types(scene)
     cam = scene.camera
@@ -270,9 +275,18 @@ def render_sppm(scene, opts: SPPMOptions, verbose=False,
     zero = torch.zeros(h * w, dtype=torch.float32, device=scene.device)
     state = HitPoints(r2=torch.full_like(zero, r0 * r0), acc_n=zero,
                       tau=zeros3(zero), direct=zeros3(zero))
-    for k in range(opts.passes):
+    start_pass = 0
+    if checkpoint_path:
+        saved = ck.load_sppm_checkpoint(checkpoint_path, device=scene.device)
+        if saved is not None:
+            state, start_pass = saved
+            if verbose:
+                print(f"SPPM resumed at pass {start_pass}")
+    for k in range(start_pass, opts.passes):
         state = one_pass_block(scene, types_present, state, k, 0, h, w, opts,
                                cam, center, world_r, bmin, bmax, r0)
+        if checkpoint_path:
+            ck.save_sppm_checkpoint(checkpoint_path, state, k + 1)
         if verbose:
             print(f"SPPM pass {k + 1}/{opts.passes}")
     return finalize_sppm(state, opts.passes, opts.photons).reshape(h, w, 4)

@@ -1,21 +1,36 @@
-"""Render orchestration: sample chunks and film accumulation
+"""Render orchestration: passes, sample chunks and film accumulation
 (counterpart of core_tpu/render.py).
 
 Every pixel of the image gets its samples generated and traced in one
 wavefront per chunk.  Pixel-sample QMC matches the reference's renderTile
 (integrator.cc:269-306):
   sampling_offs = fnv(i * fnv(j))
-  single-pass:   dx = (0.5+s)/n, dy = RI_LP(s + offs)
+  multi-pass AA: dx = RI_vdC(s, offs), dy = RI_S(s, offs)
+  single pass:   dx = (0.5+s)/n, dy = RI_LP(s + offs)
   lens (u, v):   RI_3 / RI_5 of (pass_offs + offs + s + 1)
+with s the pixel sample, pass_offs + the chunk's sample index.
 
-Scope: one AA pass (aa_passes == 1); the path tracer (with its photon
-caustics and subsurface scattering), the directlight, photonmapping,
-bidirectional and debug integrators on the full-raster chunk, and SPPM's
-own pass loop; other integrators, adaptive passes and row blocks raise
-NotImplementedError.  integrator_preprocess builds the photon maps and the
-SSS map once per render_image and render_chunk hands them to the integrator
-as `aux`.  The bidirectional integrator's t=1 splats go to the film's light
-image (film.add_density_samples).
+Scope: render_image's whole pass loop: the first pass of aa_samples, then
+aa_passes - 1 adaptive passes of aa_inc_samples that resample only the
+pixels film.next_pass_flags flags (the rest are masked out of the splat),
+pass_offs advancing by the samples taken; checkpoints (checkpoint.py)
+after every pass, resumed when the file exists; on_flush after every
+chunk; show_sam_pix paints the flagged pixels red.  The path tracer (with
+its photon caustics and subsurface scattering), the directlight,
+photonmapping, bidirectional and debug integrators on the full-raster
+chunk, and SPPM's own pass loop.  integrator_preprocess builds the photon
+maps and the SSS map once per render_image, and precompute_attenuation the
+single-scatter attenuation grids; render_chunk hands them on as `aux` and
+`vol_aux`.  The bidirectional integrator's t=1 splats go to the film's
+light image (film.add_density_samples).  render_zbuffer is the primary
+hits' depth image.  Not ported: row blocks and progress bars
+(`progress=`), which raise NotImplementedError.
+
+Volumes (core_tpu render.py:260-286): with VolumeOptions(integrator="sky")
+every chunk traces its camera rays once more (scene.closest_hit_s) and the
+surface colour is attenuated by the atmosphere and gains its in-scatter;
+a scene with volume regions does the same with the regions' transmittance
+and the emission or single-scatter march (integrators/volume.py).
 
 Cluster scenes, flat and grouped, trace their camera wavefront in 32x32
 pixel blocks (_pixel_grid_blocked, as core_tpu's render.py:201 does for
@@ -31,6 +46,7 @@ from dataclasses import dataclass, field
 import torch
 
 from core_tpu_torch import film as film_mod
+from core_tpu_torch import scene as scene_mod
 from core_tpu_torch.cameras import shoot_ray
 from core_tpu_torch.differentials import camera_diff_dirs
 from core_tpu_torch.film import Film, FilterType
@@ -41,14 +57,17 @@ from core_tpu_torch.integrators import path as path_mod
 from core_tpu_torch.integrators import photonmap as pm_mod
 from core_tpu_torch.integrators import sppm as sppm_mod
 from core_tpu_torch.integrators import sss as sss_mod
+from core_tpu_torch.integrators import volume as vol_mod
 from core_tpu_torch.integrators.bidir import BidirOptions
 from core_tpu_torch.integrators.debug import DebugOptions
 from core_tpu_torch.integrators.direct import DirectOptions
 from core_tpu_torch.integrators.path import PathOptions
 from core_tpu_torch.integrators.photonmap import PhotonOptions
 from core_tpu_torch.integrators.sppm import SPPMOptions
+from core_tpu_torch.integrators.volume import VolumeOptions
 from core_tpu_torch.sampling import qmc
 from core_tpu_torch.textures.base import TexType
+from core_tpu_torch.vec import rays_to_soa
 
 # integrator name -> (integrate function, its options type)
 _INTEGRATORS = {"pathtracing": (path_mod.integrate, PathOptions),
@@ -63,10 +82,12 @@ _BLOCK = 32   # pixel-block edge of cluster-scene camera wavefronts
 
 @dataclass(frozen=True)
 class RenderOptions:
-    """Same fields and defaults as core_tpu's RenderOptions where ported
+    """core_tpu's RenderOptions, field by field, with its defaults
     (directlight is the default integrator)."""
     aa_passes: int = 1
     aa_samples: int = 1
+    aa_inc_samples: int = 1
+    aa_threshold: float = 0.05
     filter_type: FilterType = FilterType.BOX
     filter_size: float = 1.5
     gamma: float = 1.0
@@ -77,6 +98,11 @@ class RenderOptions:
     integrator_opts: PathOptions | DirectOptions | PhotonOptions \
         | SPPMOptions | BidirOptions | DebugOptions = field(
             default_factory=DirectOptions)
+    volume_opts: VolumeOptions = field(default_factory=VolumeOptions)
+    z_channel: bool = False       # a z channel is wanted (render_zbuffer)
+    # debug: paint the pixels flagged for adaptive resampling red
+    # (the reference's show_sam_pix)
+    show_sam_pix: bool = False
 
 
 def _check_supported(opts: RenderOptions, chunked: bool = True):
@@ -95,9 +121,7 @@ def _check_supported(opts: RenderOptions, chunked: bool = True):
         raise TypeError(f"integrator {opts.integrator!r} takes "
                         f"{want.__name__}, got "
                         f"{type(opts.integrator_opts).__name__}")
-    if opts.aa_passes != 1:
-        raise NotImplementedError("adaptive AA passes (aa_passes > 1) are "
-                                  "not ported to core_tpu_torch yet")
+    vol_mod.check_supported(opts.volume_opts)
 
 
 def _pixel_grid_raster(h, w, spp, device):
@@ -157,11 +181,14 @@ def integrator_preprocess(scene, types_present, opts: RenderOptions):
 
 def render_chunk(scene, types_present, opts: RenderOptions, film: Film,
                  pass_offs: int, spp: int, sample0: int, aux=None,
-                 density_y0: int = 0) -> Film:
+                 density_y0: int = 0, resample_mask=None,
+                 vol_aux=None) -> Film:
     """Trace spp samples for every pixel and splat them into film.  aux:
     integrator_preprocess's photon or SSS maps, when the integrator takes
-    them.  The bidirectional integrator's light-image splats land in the
-    film's density plane shifted up by density_y0 rows (core_tpu
+    them; vol_aux: volume.precompute_attenuation's grids.  resample_mask:
+    [H, W] bool, the pixels an adaptive pass resamples (None: all).  The
+    bidirectional integrator's light-image splats land in the film's
+    density plane shifted up by density_y0 rows (core_tpu
     render.py:285-301; 0 for a full-image film)."""
     _check_supported(opts)
     cam = scene.camera
@@ -175,7 +202,10 @@ def render_chunk(scene, types_present, opts: RenderOptions, film: Film,
     pixel_sample = (pass_offs + s) & qmc.MASK32
 
     n_total = opts.aa_samples  # for single-pass stratification
-    if n_total > 1:
+    if opts.aa_passes > 1:
+        dx = qmc.ri_vdc(pixel_sample, sampling_offs)
+        dy = qmc.ri_s(pixel_sample, sampling_offs)
+    elif n_total > 1:
         dx = (0.5 + s.to(torch.float32)) / n_total
         dy = qmc.ri_lp((s + sampling_offs) & qmc.MASK32)
     else:
@@ -213,15 +243,46 @@ def render_chunk(scene, types_present, opts: RenderOptions, film: Film,
             film = film_mod.add_density_samples(film, sx, sy - density_y0,
                                                 scol, n_paths,
                                                 sample_mask=smask)
+    rgba = _apply_volumes(scene, opts.volume_opts, rays, rgba, pixel_sample,
+                          sampling_offs, vol_aux)
     rgba = rgba * wt[..., None]
     if blocked:
         dx, dy, rgba, wt = (_unblock_to_raster(a, spp, h, w)
                             for a in (dx, dy, rgba, wt))
+    mask = wt > 0.0
+    if resample_mask is not None:
+        mask = mask & resample_mask.reshape(1, h * w).expand(spp, -1) \
+            .reshape(-1)
     filterw = film_mod.effective_filterw(opts.filter_size, opts.filter_type)
     return film_mod.add_samples_grid(film, dx, dy, rgba, spp,
                                      filterw=filterw, ftype=opts.filter_type,
-                                     sample_mask=wt > 0.0,
+                                     sample_mask=mask,
                                      clamp_rgb=opts.clamp_rgb)
+
+
+def _apply_volumes(scene, vopts: VolumeOptions, rays, rgba, pixel_sample,
+                   sampling_offs, vol_aux):
+    """rgb * transmittance + in-scatter along the camera rays (core_tpu
+    render.py:260-286; the reference's renderTile applies the volume
+    integrator so, integrator.cc:308-312): the sky's atmosphere under
+    VolumeOptions(integrator="sky"), else the scene's volume regions when
+    it has any.  Either traces the camera rays once more for the surface
+    distance.  Returns rgba unchanged otherwise."""
+    sky = vopts.integrator == "sky"
+    if not sky and not scene.volumes:
+        return rgba
+    rs = rays_to_soa(rays)
+    vhits = scene_mod.closest_hit_s(scene, rs)
+    capped = rs._replace(tmax=torch.where(vhits.valid, vhits.t, rs.tmax))
+    if sky:
+        tr = vol_mod.sky_transmittance(capped, vopts)
+        ins = vol_mod.sky_integrate(scene, rs, vhits.t, vopts)
+    else:
+        tr = vol_mod.transmittance(scene, capped, vopts.steps)
+        ins = vol_mod.integrate(scene, rs, vhits.t, pixel_sample,
+                                sampling_offs, vopts, vol_aux=vol_aux)
+    rgb = [rgba[:, k] * tr[k] + ins[k] for k in range(3)]
+    return torch.cat([torch.stack(rgb, dim=-1), rgba[:, 3:]], dim=-1)
 
 
 def _has_image_textures(scene) -> bool:
@@ -236,33 +297,106 @@ def scene_material_types(scene) -> tuple:
                  if t not in (int(MatType.BLEND), int(MatType.MASK)))
 
 
-def render_image(scene, opts: RenderOptions, checkpoint_path=None):
-    """Full render; returns (image [H,W,4], Film).  Forward only: runs under
-    torch.no_grad().  SPPM runs its own pass loop and folds the result into
-    a unit-weight film, so flush treats it as any other (core_tpu
-    render.py:357-370).  checkpoint_path (checkpoints) is not ported and
-    raises NotImplementedError."""
+def render_image(scene, opts: RenderOptions, verbose: bool = False,
+                 progress=None, checkpoint_path: str | None = None,
+                 on_flush=None):
+    """Full multi-pass render; returns (image [H,W,4], Film).  Forward
+    only: runs under torch.no_grad().  SPPM runs its own pass loop and
+    folds the result into a unit-weight film, so flush treats it as any
+    other (core_tpu render.py:357-370).
+
+    checkpoint_path: the film and the pass counters are saved after every
+    pass, and an existing checkpoint (of this package or of core_tpu) is
+    resumed from; the QMC streams are a function of the stored offsets, so
+    the resumed render equals an uninterrupted one.  on_flush(img, pass_idx,
+    chunk_idx): called with the flushed film as a numpy [H,W,4] after every
+    chunk (the reference's imageFilm_t::finishArea output hook).
+    progress (a utils.monitor progress bar) is not ported and raises."""
     _check_supported(opts, chunked=False)
-    if checkpoint_path:
-        raise NotImplementedError("render checkpoints (checkpoint_path) are "
-                                  "not ported to core_tpu_torch yet")
+    if progress is not None:
+        raise NotImplementedError("progress bars (utils/monitor) are not "
+                                  "ported to core_tpu_torch yet")
+    from core_tpu_torch import checkpoint as ck
     types_present = scene_material_types(scene)
     cam = scene.camera
     with torch.no_grad():
         if opts.integrator == "SPPM":
-            rgba = sppm_mod.render_sppm(scene, opts.integrator_opts)
+            rgba = sppm_mod.render_sppm(scene, opts.integrator_opts,
+                                        verbose=verbose,
+                                        checkpoint_path=checkpoint_path)
             film = Film(rgba=rgba, weight=torch.ones_like(rgba[..., 0]))
             return film_mod.flush(film, gamma=opts.gamma,
                                   clamp=opts.clamp_rgb,
                                   premult=opts.premult), film
         aux = integrator_preprocess(scene, types_present, opts)
+        vol_aux = vol_mod.precompute_attenuation(scene, opts.volume_opts)
         film = film_mod.make_film(cam.resy, cam.resx, device=scene.device)
-        done = 0
-        while done < opts.aa_samples:
-            spp = min(opts.spp_chunk, opts.aa_samples - done)
-            film = render_chunk(scene, types_present, opts, film, 0, spp,
-                                done, aux)
-            done += spp
+        start_pass, offs = 0, 0
+        if checkpoint_path:
+            saved = ck.load_checkpoint(checkpoint_path, device=scene.device)
+            if saved is not None:
+                film, start_pass, offs, _ = saved
+                if verbose:
+                    print(f"resumed checkpoint at pass {start_pass}")
+
+        def run_pass(film, pass_offs, n_samples, resample_mask, pass_idx):
+            done, chunk_idx = 0, 0
+            while done < n_samples:
+                spp = min(opts.spp_chunk, n_samples - done)
+                film = render_chunk(scene, types_present, opts, film,
+                                    pass_offs, spp, done, aux,
+                                    resample_mask=resample_mask,
+                                    vol_aux=vol_aux)
+                done += spp
+                chunk_idx += 1
+                if on_flush is not None:
+                    on_flush(film_mod.flush(
+                        film, gamma=opts.gamma,
+                        clamp=opts.clamp_rgb).cpu().numpy(),
+                        pass_idx, chunk_idx)
+            return film
+
+        if start_pass == 0:
+            film = run_pass(film, 0, opts.aa_samples, None, 0)
+            offs = opts.aa_samples
+            if checkpoint_path:
+                ck.save_checkpoint(checkpoint_path, film, 1, offs)
+        for p in range(max(1, start_pass), opts.aa_passes):
+            flags = film_mod.next_pass_flags(film, opts.aa_threshold)
+            if verbose:
+                print(f"pass {p + 1}/{opts.aa_passes}: resampling "
+                      f"{int(flags.sum())} pixels")
+            film = run_pass(film, offs, opts.aa_inc_samples, flags, p)
+            offs += opts.aa_inc_samples
+            if checkpoint_path:
+                ck.save_checkpoint(checkpoint_path, film, p + 1, offs)
         img = film_mod.flush(film, gamma=opts.gamma, clamp=opts.clamp_rgb,
                              premult=opts.premult)
+        if opts.show_sam_pix and opts.aa_passes > 1:
+            flags = film_mod.next_pass_flags(film, opts.aa_threshold)
+            red = torch.tensor([1.0, 0.0, 0.0, 1.0], device=img.device)
+            img = torch.where(flags[..., None], red, img)
     return img, film
+
+
+def render_zbuffer(scene, normalize: bool = True):
+    """The primary hits' depth image [H,W] (the reference's z-channel,
+    core_tpu render.py:442-461): t of each pixel centre's camera ray, inf
+    where it misses; normalize maps the hit depths to 1 (nearest) .. 0
+    (farthest) like precalcDepths (integrator.cc:99), misses to 0."""
+    cam = scene.camera
+    h, w = cam.resy, cam.resx
+    with torch.no_grad():
+        x, y, _ = _pixel_grid_raster(h, w, 1, scene.device)
+        rays, _ = shoot_ray(cam, x.to(torch.float32) + 0.5,
+                            y.to(torch.float32) + 0.5)
+        hits = scene_mod.closest_hit_s(scene, rays_to_soa(rays))
+        z = torch.where(hits.valid, hits.t, torch.inf).reshape(h, w)
+        if not normalize:
+            return z
+        finite = torch.isfinite(z)
+        zmin = torch.where(finite, z, torch.inf).min()
+        zmax = torch.where(finite, z, -torch.inf).max()
+        zn = 1.0 - ((z - zmin) / (zmax - zmin).clamp_min(1e-9)).clamp(0.0,
+                                                                     1.0)
+        return torch.where(finite, zn, 0.0)

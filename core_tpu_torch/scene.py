@@ -49,6 +49,8 @@ class Scene:
     background: Any = None          # backgrounds.TextureBackground or None
     accel: Any = None               # cluster_intersect accel, None = brute
     textures: Any = None            # textures.base.CompiledTextures or None
+    volumes: tuple = ()             # volumes.regions region containers
+    n_objects: int = 0              # core_tpu's static object count
     # static capability flags from the material defs at build time
     has_specular: bool = True
     has_transparency: bool = False

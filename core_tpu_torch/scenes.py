@@ -10,6 +10,8 @@ add_dirac_lights gives such a builder the dirac variant's lighting.
 golden_mesh_scene: the reference renderer's textured torus and ground
 (checker.tga through texture_mapper nodes) lit only by a sky.tga
 environment with IBL, the scene of the mesh + IBL goldens.
+golden_volume_scene: a spotlight shaft through a uniform fog box over a
+grey ground, the scene of the volume golden.
 MESH_ZOO: the elements of the "mesh zoo", mesh_scene with its materials
 swapped for the procedural textures, mix / layer nodes, bump mapping and
 coated anisotropic glossy, as plain data (core_tpu has no scene function
@@ -567,4 +569,33 @@ def golden_mesh_scene(resx=128, resy=128, ibl_samples=8, asset_dir=None, *,
     b.camera = make_perspective(pos=(6.0, 3.2, -7.5), look=(0.0, 1.8, 0.0),
                                 up=(6.0, 4.2, -7.5), resx=resx, resy=resy,
                                 focal=1.1, device=b.device)
+    return b.compile_scene()
+
+
+def golden_volume_scene(resx=128, resy=128, *, device="cuda") -> Scene:
+    """core_tpu's golden_volume_scene, the scene of refgold/driver_vol.cc
+    (the volume golden): a grey 20 x 20 ground (2 triangles: the brute
+    kernels), a UniformVolume box [-2, 2] x [0, 4] x [-2, 2] (sigma_s 0.05,
+    sigma_a 0.01) and one 30-degree spotlight at (0, 6, 0) aimed straight
+    down.  Render with VolumeOptions(integrator="singlescatter")."""
+    from core_tpu_torch.environment import SceneBuilder
+    b = SceneBuilder(check_device(device))
+    b.create("material", "gray", ParamMap({
+        "type": "shinydiffusemat", "color": (0.6, 0.6, 0.6)}))
+    a = b.assembler
+    m = a.start_mesh()
+    a.add_vertices(m, [(-10.0, 0.0, -10.0), (10.0, 0.0, -10.0),
+                       (10.0, 0.0, 10.0), (-10.0, 0.0, 10.0)])
+    a.add_triangles(m, [(0, 1, 2), (0, 2, 3)], b.material_index("gray"))
+    b.create("volumeregion", "fog", ParamMap({
+        "type": "UniformVolume", "sigma_s": 0.05, "sigma_a": 0.01,
+        "l_e": 0.0, "g": 0.0, "minX": -2.0, "minY": 0.0, "minZ": -2.0,
+        "maxX": 2.0, "maxY": 4.0, "maxZ": 2.0}))
+    b.create("light", "spot", ParamMap({
+        "type": "spotlight", "from": (0.0, 6.0, 0.0), "to": (0.0, 0.0, 0.0),
+        "color": (1.0, 1.0, 1.0), "power": 200.0, "cone_angle": 30.0,
+        "blend": 0.15}))
+    b.camera = make_perspective(pos=(5.0, 2.5, -6.0), look=(0.0, 1.5, 0.0),
+                                up=(5.0, 3.5, -6.0), resx=resx, resy=resy,
+                                focal=1.2, device=b.device)
     return b.compile_scene()

@@ -40,8 +40,11 @@ primitives compile once for all of it.
   the light image) and "debug"; core_tpu's own assertions of
   tests/test_bidir_debug.py hold on the port's renders (the bidirectional
   mean within 40% of the path tracer's at 32^2, the debug normals of a
-  16^2 box in [0, 1]); volumes, checkpoint_path and aa_passes > 1 still
-  raise by name; a scene built with no device given asks for CUDA.
+  16^2 box in [0, 1]); the bidirectional integrator under a checkpoint
+  and under aa_passes = 2 renders, a scene with a volume region crosses
+  convert.py and the volume factories record their elements, progress
+  bars and an unknown volume region type raise by name; a scene built
+  with no device given asks for CUDA.
 The card's twins (64^2 bidirectional and debug renders through the
 kernels against the plain versions, the bidirectional golden) are in
 tests/test_torch_kernels_cuda.py.
@@ -397,7 +400,7 @@ def test_debug_matches_core_tpu(core):
                          DebugOptions(debug_type="Nx"))
 
 
-def test_bidir_debug_entry_points(cornell):
+def test_bidir_debug_entry_points(cornell, tmp_path):
     # tests/test_bidir_debug.py's assertions on the port's renders
     sc = t_scenes.cornell_box(resx=32, resy=32, light_samples=2,
                               with_blocks=False, device="cpu")
@@ -433,24 +436,34 @@ def test_bidir_debug_entry_points(cornell):
                        integrator_opts=BidirOptions())
     with pytest.raises(TypeError, match="BidirOptions"):
         render_image(cornell, RenderOptions(integrator="bidirectional"))
-    with pytest.raises(NotImplementedError, match="checkpoint_path"):
-        render_image(cornell, bd, checkpoint_path="ck.npz")
-    with pytest.raises(NotImplementedError, match="aa_passes"):
-        render_image(cornell, RenderOptions(
-            aa_passes=2, integrator="debug", integrator_opts=DebugOptions()))
+    ck = str(tmp_path / "bd.npz")
+    img_ck, _ = render_image(cornell, bd, checkpoint_path=ck)
+    assert os.path.isfile(ck) and bool(torch.isfinite(img_ck).all())
+    img2, _ = render_image(cornell, RenderOptions(
+        aa_passes=2, integrator="debug", integrator_opts=DebugOptions()))
+    assert bool(torch.isfinite(img2).all())
+    with pytest.raises(NotImplementedError, match="progress"):
+        render_image(cornell, bd, progress=object())
     js = j_cornell_box(resx=RES, resy=RES, light_samples=1,
                        intersector="brute")
-    with pytest.raises(NotImplementedError, match="volumes"):
-        convert.scene_to_numpy(dataclasses.replace(js, volumes=("fog",)))
+    from core_tpu.volumes import make_uniform_volume
+    fog = make_uniform_volume(sigma_a=0.01, bmax=(556, 548.8, 559.2))
+    tv = convert.scene_from_numpy(*convert.scene_to_numpy(
+        dataclasses.replace(js, volumes=(fog,))), device="cpu").volumes
+    assert len(tv) == 1 and type(tv[0]).__name__ == "UniformVolume"
+    np.testing.assert_array_equal(tv[0].bmax.numpy(), np.asarray(fog.bmax))
     b = SceneBuilder("cpu")
     for kind in ("bidirectional", "DebugIntegrator"):
         p = ParamMap({"type": kind, "light_depth": 3})
         assert b.create("integrator", "integr", p) is p
         assert b.integrator_params is p
-    for kind, tname in (("integrator", "SkyIntegrator"),
-                        ("volumeregion", "UniformVolume")):
-        with pytest.raises(NotImplementedError, match=tname):
-            b.create(kind, "vol", ParamMap({"type": tname}))
+    p = ParamMap({"type": "SkyIntegrator"})
+    assert b.create("integrator", "vol", p) is p
+    assert b.volume_integrator_params is p
+    b.create("volumeregion", "vol", ParamMap({"type": "UniformVolume"}))
+    assert len(b.volumes) == 1
+    with pytest.raises(NotImplementedError, match="FogVolume"):
+        b.create("volumeregion", "vol", ParamMap({"type": "FogVolume"}))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             t_scenes.cornell_box(resx=RES, resy=RES)

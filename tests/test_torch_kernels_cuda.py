@@ -10,9 +10,12 @@ and vertices, t at tmin and tcap, |det| near 1e-12, ties, exclusions) at
 against renders through the plain versions (among them the 64x64 light
 zoo, dl and pt, on the brute kernels 1-3, and the 64x64 glass-and-glossy
 box under photonmapping, SPPM and photon caustics; the 64x64
-bidirectional, translucent-box SSS and debug renders), and the
+bidirectional, translucent-box SSS and debug renders; the five 64x64
+volume and adaptive-pass renders of chip_smoke's phase 22), the
 photonmapping, SPPM and bidirectional goldens at
-tests/test_golden_photon_family.py's bands.
+tests/test_golden_photon_family.py's bands, and the volume golden at
+tests/test_golden_volume.py's.  The 28 edge cases of kernels 1 and 3 run
+as one item each, which names every failing case.
 
 Marked `cuda`: each test asks its fixture for a CUDA device and skips
 without one.  Run on a GPU host with
@@ -789,12 +792,29 @@ def _hard_case(device, T, case):
     return [(tri, rays, ex0, ex1)]
 
 
-@pytest.mark.parametrize("case", HARD_CASES)
-@pytest.mark.parametrize("T", [36, 257, 1634, 4096])
-def test_closest_hit_kernel_hard_cases(device, T, case):
+HARD_T = (36, 257, 1634, 4096)
+
+
+def _each_hard_case(device, check):
+    """check(T, case, inputs) on every (T, case) pair, HARD_T x HARD_CASES
+    (28 cases); fails after all of them ran, naming each failing case with
+    its assertion."""
+    failed = []
+    for T in HARD_T:
+        for case in HARD_CASES:
+            try:
+                for inputs in _hard_case(device, T, case):
+                    check(case, *inputs)
+            except AssertionError as e:
+                failed.append(f"T={T} case={case}: {e!r}")
+    assert not failed, "\n".join(failed)
+
+
+def test_closest_hit_kernel_hard_cases(device):
     """Kernel 1 (division-free pre-test, then the exact test) against the
-    plain version, every output bit for bit."""
-    for tri, rays, ex0, ex1 in _hard_case(device, T, case):
+    plain version, every output bit for bit, on each of the 28 hard cases
+    (one item; a failing case is reported by name)."""
+    def check(case, tri, rays, ex0, ex1):
         launches = ck.closest_hit_cuda.launches
         got = ck.closest_hit_cuda(tri, rays, ex0, ex1)
         want = isect.closest_hit_torch(tri, rays, ex0, ex1)
@@ -805,13 +825,14 @@ def test_closest_hit_kernel_hard_cases(device, T, case):
         if case in ("edges", "t_limits", "det", "ties", "excluded"):
             assert float(got.valid.float().mean()) > 0.05
 
+    _each_hard_case(device, check)
 
-@pytest.mark.parametrize("case", HARD_CASES)
-@pytest.mark.parametrize("T", [36, 257, 1634, 4096])
-def test_any_hit_kernel_hard_cases(device, T, case):
+
+def test_any_hit_kernel_hard_cases(device):
     """Kernel 3 (compacted live rays, the triangle-parallel tail) against
-    the plain version, bit for bit; dead rays never occluded."""
-    for tri, rays, ex0, ex1 in _hard_case(device, T, case):
+    the plain version, bit for bit, dead rays never occluded, on each of
+    the 28 hard cases (one item; a failing case is reported by name)."""
+    def check(case, tri, rays, ex0, ex1):
         launches = ck.any_hit_cuda.launches
         got = ck.any_hit_cuda(tri, rays, ex0, ex1)
         want = isect.any_hit_torch(tri, rays, ex0, ex1)
@@ -820,6 +841,8 @@ def test_any_hit_kernel_hard_cases(device, T, case):
         assert torch.equal(got, want)
         dead = (rays.tmax > 0) & (rays.tmax <= rays.tmin)
         assert not bool(got[dead].any())
+
+    _each_hard_case(device, check)
 
 
 @pytest.mark.parametrize("kind", ["dl", "pt"])
@@ -913,3 +936,41 @@ def test_bidir_golden_through_kernels(device):
     assert 0.1 <= rel <= 0.6, rel
     mean = float(img[..., :3].mean())
     assert abs(mean - ARBITER64_ENERGY) / ARBITER64_ENERGY < 0.10, mean
+
+
+def test_volume_golden_through_kernels(device):
+    """tests/test_golden_volume.py's volume golden on the card (the 128^2
+    spotlight shaft, its options) at its bands: the air's mean and MAE,
+    the ground's mean and block Pearson."""
+    from chip_smoke import (VOL_GOLDEN_RES, volume_config,
+                            volume_golden_ok, volume_golden_stats)
+    scene, opts = volume_config("vol128_golden", VOL_GOLDEN_RES,
+                                device=device)
+    stats = volume_golden_stats(render_image(scene, opts)[0])
+    assert volume_golden_ok(stats), stats
+
+
+def test_volume_optimize_matches_march_through_kernels(device):
+    """Single scattering with optimize=True (the attenuation grids) against
+    the march at 64^2, 4 spp: relative mean below 0.03, as
+    tests/test_golden_volume.py holds core_tpu."""
+    from chip_smoke import VOL_BANDS, optimize_rel
+    assert optimize_rel(device) < VOL_BANDS["optimize_rel"]
+
+
+@pytest.mark.parametrize("name", ["vol128_golden", "vol512_ss",
+                                  "cornell256_fog_pt",
+                                  "goldenmesh256_sky_dl",
+                                  "cornell256_aa3_dl"])
+def test_volume_and_pass_renders_through_kernels_equal_plain_versions(
+        device, name):
+    """chip_smoke's phase-22 configurations at 64^2 (the volume golden's
+    scene in single scattering, the fogged Cornell box path-traced, the
+    golden mesh under the sky integrator, three adaptive passes with
+    show_sam_pix): through the kernels and through the plain versions
+    identical."""
+    from chip_smoke import volume_config
+    imgs = [render_image(*volume_config(name, 64, isec, device=device))[0]
+            for isec in ("cuda", "torch")]
+    assert torch.isfinite(imgs[0]).all()
+    assert torch.equal(*imgs)

@@ -53,9 +53,10 @@ primitives and the gathers compile once for all of them.
   core_tpu's eager seed-7 photons at every pass: the HitPoints after each
   pass and the image, as photonmapping's lanes.
 - Entry points: render_image dispatches photonmapping, SPPM and the
-  path tracer's photon caustics; render_chunk refuses SPPM; a
-  checkpoint_path, a photon_shard and an unknown caustic_type raise by
-  name; a scene built with no device given asks for CUDA.
+  path tracer's photon caustics; render_chunk refuses SPPM; an SPPM
+  checkpoint_path is written and a finished render resumes from it to the
+  same image; a photon_shard and an unknown caustic_type raise by name; a
+  scene built with no device given asks for CUDA.
 The card's twins (the 64^2 renders through kernels 1 and 2 against the
 plain versions, the two photon goldens) are in
 tests/test_torch_kernels_cuda.py, which imports no jax.
@@ -609,7 +610,7 @@ def test_sppm_matches_core_tpu(core, box):
     assert float(core["sppm:0:acc_n"].max()) > 0
 
 
-def test_photon_entry_points(box):
+def test_photon_entry_points(box, tmp_path):
     _, ts = box
     pm = RenderOptions(integrator="photonmapping", integrator_opts=(
         PhotonOptions(**{**PM, "photons": 512, "c_photons": 512})))
@@ -624,10 +625,13 @@ def test_photon_entry_points(box):
     with pytest.raises(ValueError, match="SPPM"):
         render_chunk(ts, scene_material_types(ts), sppm,
                      tfilm.make_film(RES, RES, device="cpu"), 0, 1, 0)
-    with pytest.raises(NotImplementedError, match="checkpoint_path"):
-        render_image(ts, sppm, checkpoint_path="ck.npz")
-    with pytest.raises(NotImplementedError, match="checkpoint_path"):
-        tsppm.render_sppm(ts, sppm.integrator_opts, checkpoint_path="ck")
+    # SPPM checkpoints: written after the pass, and a finished render's
+    # checkpoint resumes to the same image
+    ck = str(tmp_path / "sppm.npz")
+    img_ck, _ = render_image(ts, sppm, checkpoint_path=ck)
+    assert os.path.isfile(ck)
+    img_again, _ = render_image(ts, sppm, checkpoint_path=ck)
+    assert torch.equal(img_ck, img_again)
     with pytest.raises(NotImplementedError, match="photon_shard"):
         tsppm.one_pass_block(ts, scene_material_types(ts), None, 0, 0, RES,
                              RES, sppm.integrator_opts, ts.camera, None,
