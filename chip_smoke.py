@@ -287,6 +287,39 @@ Phases, with their seconds:
                spotlight's NEE, every march step's shadow wavefront)
                against the plain versions lane by lane, timed, with
                bounds, and launches x (kernel - bound) per chunk
+  23. frontend — the front ends: (a) xml_cornell256_pt, phase 3's
+               configuration (256^2 Cornell box, light_samples=4, path
+               tracer with path_samples=8, bounces=5, raydepth=2, AA 4 in
+               1-spp chunks) written as a reference-schema scene file by
+               replaying scenes.cornell_box's elements and geometry through
+               io.xml_writer.XmlInterface (write_cornell_xml), rendered by
+               cli.main([xml, out, "-f", "png", "-z", "-dp", "--device",
+               "cuda"]) in process: kernels 1 and 2 at phase 3's launches a
+               chunk (kernel 1 once more for the z-buffer), no plain
+               version, the parsed options equal to phase 3's, the image
+               equal to render_image of parse_xml_scene's scene and in
+               phase 3's MEAN_REF band, the PNG equal to write_png of that
+               image under the same badge, the z-buffer PNG written; the
+               CLI's parse, compile and render seconds; (b) python -m
+               core_tpu_torch on the same file in a subprocess on the card
+               (no -dp): exit 0, the kernels' library not rebuilt, its PNG
+               and z-buffer PNG byte-identical to (a)'s image and z-buffer
+               (else the differing pixels and the largest difference are
+               printed, and a difference over 1 LSB fails); (c)
+               xml_mesh256_dl, mesh_scene's 73,602 triangles, materials,
+               textures, sun and clouds IBL written the same way (256^2,
+               directlight raydepth 1, as mesh256_dl_fwd) and rendered
+               through cli.main: the file's size, parse and compile
+               seconds, ms a chunk; kernels 4 and 6 at phase 7's launches a
+               chunk, no other kernel and no plain version; the image
+               equal to render_image of the parsed scene, and within a
+               mean relative difference of 1e-3 of phase 7's in-memory
+               image (.8g text moves a float32 vertex by an ulp at most);
+               (d) (a)'s calls into interface.Interface(device="cuda"),
+               rendered with gui.MemoryOutput and a
+               utils.monitor.CallbackProgressBar: flushes, ticks and
+               chunks equal, the image equal to (a)'s; (e) the phase within
+               90 s
 A busy share, in every phase, is the summed duration of the device events
 (kernels, copies, memsets) of one profiled call under torch.profiler's
 CUDA activity, over that call's wall time under the same profiler
@@ -305,7 +338,8 @@ per pass of cornellspec512_sppm and per light-zoo shoot, its
 bidir_launches those per bd64_golden request, per chunk of cornell256_bd,
 lightzoo256_bd and cornell256_sss_dl / _pt, and per SSS map build, its
 volume_launches those per vol128_golden request and per chunk of each
-phase-22 configuration.
+phase-22 configuration, its frontend_launches those per chunk of each
+phase-23 scene file.
 Any failure raises (non-zero exit).  Imports nothing of jax or core_tpu.
 """
 from __future__ import annotations
@@ -1206,6 +1240,7 @@ DIRAC_SMALL = dict(n_grid=24, torus_u=24, torus_v=12)   # 1,634 tris: brute
 # resolution change
 MEAN_REFS = {"mesh": 0.563554, "dirac flat": 0.577937, "dirac brute": 0.589587}
 MESH_BAND = 0.10
+MESH_IMAGES = {}     # each variant's rendered image, for phase 23
 
 
 def phase_mesh_build(res, variant="mesh"):
@@ -1508,6 +1543,7 @@ def phase_mesh_render(scene, name, kernels, timed):
              f"or sky rows' blue {sky} <= 0.5")
     png = f"chip_smoke_{name.replace(' ', '_')}.png"
     write_png(BUILD / png, img.cpu().numpy())
+    MESH_IMAGES[name] = img
     per = dt / timed
     print(f"{name}: render {res}x{res} directlight raydepth=1: rays per "
           f"chunk {rays}, warm-up chunk {t_warm:.4f} s, {timed} timed "
@@ -4068,6 +4104,427 @@ def phase_volumes():
     _vol_timed(launches)
     return launches, _vol_captured()
 
+# --------------------------------------------------------------------------
+# phase 23: the front ends (scene files, the CLI, the embedding Interface)
+# --------------------------------------------------------------------------
+
+FRONTEND_LIMIT_S = 90
+MESH_XML_REL = 1e-3          # mean |xml - in-memory| over mean in-memory
+
+
+def _set_params(yi, params):
+    """A dict of element parameters as an interface's paramsSet* calls."""
+    for k, v in params.items():
+        if isinstance(v, bool):
+            yi.params_set_bool(k, v)
+        elif isinstance(v, int):
+            yi.params_set_int(k, v)
+        elif isinstance(v, float):
+            yi.params_set_float(k, v)
+        elif isinstance(v, str):
+            yi.params_set_string(k, v)
+        elif "color" in k:
+            yi.params_set_color(k, *v)
+        else:
+            yi.params_set_point(k, *v)
+
+
+def _as_in_file(x) -> float:
+    """x at the 8 significant digits a scene file keeps (XmlInterface's
+    .8g), so that an Interface given the calls builds the scene the file
+    holds; writing it again gives the same text."""
+    return float(f"{x:.8g}")
+
+
+class _Replay:
+    """A MeshAssembler stand-in that turns scenes.py's geometry calls
+    (start_mesh, add_vertex / add_vertices, add_uvs, add_triangle /
+    add_triangles) into an interface's element calls, one per vertex, uv
+    and face, naming each face's material (mat_names: index -> name);
+    coordinates go through _as_in_file."""
+
+    def __init__(self, yi, mat_names, has_uv=False):
+        self.yi, self.names, self.has_uv = yi, mat_names, has_uv
+        self.open = False
+
+    def start_mesh(self):
+        self.end()
+        self.open, self.nv, self.nuv, self.mat = True, 0, 0, None
+        return self.yi.start_tri_mesh(has_uv=self.has_uv)
+
+    def end(self):
+        if self.open:
+            self.yi.end_tri_mesh()
+            self.open = False
+
+    def add_vertex(self, m, x, y, z):
+        self.yi.add_vertex(_as_in_file(x), _as_in_file(y), _as_in_file(z))
+        self.nv += 1
+        return self.nv - 1
+
+    def add_vertices(self, m, xyz):
+        import numpy as np
+        base = self.nv
+        for p in np.asarray(xyz, np.float64).reshape(-1, 3).tolist():
+            self.add_vertex(m, *p)
+        return base
+
+    def add_uvs(self, m, uv):
+        import numpy as np
+        base = self.nuv
+        for u, v in np.asarray(uv, np.float64).reshape(-1, 2).tolist():
+            self.yi.add_uv(_as_in_file(u), _as_in_file(v))
+            self.nuv += 1
+        return base
+
+    def add_triangle(self, m, a, b, c, mat, uv_ids=None):
+        if mat != self.mat:
+            self.yi.set_current_material(self.names[mat])
+            self.mat = mat
+        self.yi.add_triangle(int(a), int(b), int(c), uv=None if uv_ids is None
+                             else tuple(int(i) for i in uv_ids))
+
+    def add_triangles(self, m, faces, mat, uv_ids=None):
+        import numpy as np
+        faces = np.asarray(faces).reshape(-1, 3).tolist()
+        uvs = [None] * len(faces) if uv_ids is None else \
+            np.asarray(uv_ids).reshape(-1, 3).tolist()
+        for f, uv in zip(faces, uvs):
+            self.add_triangle(m, *f, mat, uv_ids=uv)
+
+
+def _camera_params(cam, res):
+    return {"type": "perspective", "from": cam["pos"], "to": cam["look"],
+            "up": cam["up"], "resx": res, "resy": res,
+            "focal": float(cam["focal"])}
+
+
+def cornell_calls(yi, res, aa=AA_SAMPLES):
+    """scenes.cornell_box(resx=res, resy=res, light_samples=LIGHT_SAMPLES)'s
+    materials, geometry (scenes.cornell_geometry), area light and camera as
+    an interface's calls (an XmlInterface or an interface.Interface), with
+    phase 3's path tracer; returns the render parameters (AA `aa` in 1-spp
+    chunks)."""
+    from core_tpu_torch.scenes import (CORNELL_CAMERA, CORNELL_LIGHT,
+                                       CORNELL_MATS, cornell_geometry)
+    # cornell_box's MaterialDefs as the factories' parameters
+    for name, color in (("white", (0.75, 0.75, 0.75)),
+                        ("red", (0.63, 0.065, 0.05)),
+                        ("green", (0.14, 0.45, 0.091))):
+        _set_params(yi, {"type": "shinydiffusemat", "color": color})
+        yi.create_material(name)
+    _set_params(yi, {"type": "light_mat", "color": (1.0, 1.0, 1.0),
+                     "power": 30.0})
+    yi.create_material("light")
+    rp = _Replay(yi, {i: n for n, i in CORNELL_MATS.items()})
+    cornell_geometry(rp)
+    rp.end()
+    corner, point1, point2 = CORNELL_LIGHT
+    _set_params(yi, {"type": "arealight", "corner": corner,
+                     "point1": point1, "point2": point2,
+                     "color": (1.0, 1.0, 1.0), "power": 30.0,
+                     "samples": LIGHT_SAMPLES})
+    yi.create_light("light")
+    _set_params(yi, _camera_params(CORNELL_CAMERA, res))
+    yi.create_camera("cam")
+    _set_params(yi, {"type": "pathtracing", "path_samples": PATH_SAMPLES,
+                     "bounces": BOUNCES, "raydepth": 2})
+    yi.create_integrator("default")
+    return {"AA_passes": 1, "AA_minsamples": aa, "spp_chunk": 1}
+
+
+def mesh_calls(yi, res):
+    """scenes.mesh_scene(resx=res, resy=res)'s textures, materials,
+    geometry (its terrain grid and torus, smoothed), camera, clouds IBL
+    and sun as an interface's calls, with mesh256_dl_fwd's directlight
+    (raydepth 1); returns the render parameters (1 spp)."""
+    from core_tpu_torch.scenes import (MESH_SCENE, MESH_ZOO, _grid_mesh,
+                                       _torus_mesh, mesh_scene_lighting)
+    for name, params in MESH_SCENE["textures"]:
+        _set_params(yi, params)
+        yi.create_texture(name)
+    for name, params in MESH_SCENE["materials"]:
+        _set_params(yi, params)
+        yi.create_material(name)
+    grid, torus = MESH_ZOO["grid"], MESH_ZOO["torus"]
+    rp = _Replay(yi, {0: "terrain", 1: "torus"}, has_uv=True)
+    m = rp.start_mesh()
+    _grid_mesh(rp, m, grid["n"], grid["extent"], 0)
+    rp.end()
+    yi.smooth_mesh(m, MESH_ZOO["smooth"])
+    m = rp.start_mesh()
+    _torus_mesh(rp, m, torus["nu"], torus["nv"], torus["R"], torus["r"],
+                torus["center"], 1)
+    rp.end()
+    yi.smooth_mesh(m, MESH_ZOO["smooth"])
+    _set_params(yi, _camera_params(MESH_SCENE["camera"], res))
+    yi.create_camera("cam")
+    for kind, name, params in mesh_scene_lighting():
+        _set_params(yi, params)
+        getattr(yi, f"create_{kind}")(name)
+    _set_params(yi, {"type": "directlighting", "raydepth": 1})
+    yi.create_integrator("default")
+    return {"AA_passes": 1, "AA_minsamples": 1, "spp_chunk": 1}
+
+
+def write_cornell_xml(path, res, aa=AA_SAMPLES):
+    """cornell_calls as a scene file at `path`; returns the path."""
+    from core_tpu_torch.io.xml_writer import XmlInterface
+    xi = XmlInterface()
+    _set_params(xi, cornell_calls(xi, res, aa))
+    xi.render(str(path))
+    return Path(path)
+
+
+@contextlib.contextmanager
+def _cli_images():
+    """A context in which every render_image call (the CLI's among them)
+    appends its image to the list it yields."""
+    from core_tpu_torch import render as render_mod
+    orig, images = render_mod.render_image, []
+
+    def spy(*args, **kw):
+        out = orig(*args, **kw)
+        images.append(out[0])
+        return out
+
+    render_mod.render_image = spy
+    try:
+        yield images
+    finally:
+        render_mod.render_image = orig
+
+
+def _cli(argv):
+    """cli.main(argv) in process; returns (its image, the seconds of the
+    timer events it added: parse, compile, render, write)."""
+    from core_tpu_torch import cli
+    from core_tpu_torch.utils.timer import timer
+    before = dict(timer.events())
+    with _cli_images() as images:
+        if cli.main(argv) != 0:
+            fail(f"cli.main({argv}) did not return 0")
+    if len(images) != 1:
+        fail(f"cli.main rendered {len(images)} images")
+    return images[0], {k: v - before.get(k, 0.0) for k, v in timer.events()}
+
+
+def _per_chunk(counts, chunks, names, what):
+    """Each kernel's launches a chunk from a phase's counts over `chunks`
+    chunks."""
+    out = {}
+    for k in names:
+        if counts[k] % chunks:
+            fail(f"{what}: {k} launched {counts[k]} times over {chunks} "
+                 "chunks, not the same number in each")
+        out[k] = counts[k] // chunks
+    return out
+
+
+def _png_diff(got, want, what):
+    """Byte-identical PNGs pass; otherwise the differing pixels and the
+    largest difference are printed, and a difference over 1 LSB fails."""
+    from core_tpu_torch.io.image import read_png
+    if got.read_bytes() == want.read_bytes():
+        return "byte-identical"
+    a = (read_png(str(got)) * 255).round()
+    b = (read_png(str(want)) * 255).round()
+    if a.shape != b.shape:
+        fail(f"{what}: PNG shapes {a.shape} and {b.shape} differ")
+    diff = abs(a - b).max(axis=-1)
+    n, worst = int((diff > 0).sum()), float(diff.max())
+    print(f"frontend: {what}: {n} pixels differ, the largest by {worst} LSB")
+    if worst > 1:
+        fail(f"{what}: a pixel differs by {worst} LSB")
+    return f"{n} pixels within 1 LSB"
+
+
+def _frontend_cornell(per_chunk):
+    """Parts (a), (b) and (d); returns the launches a chunk and the
+    image."""
+    import os
+
+    import torch
+    from core_tpu_torch import __version__
+    from core_tpu_torch.gui import MemoryOutput
+    from core_tpu_torch.interface import Interface
+    from core_tpu_torch.io.badge import badge_lines, draw_badge
+    from core_tpu_torch.io.image import write_png as write_png8
+    from core_tpu_torch.io.xml_loader import parse_xml_scene
+    from core_tpu_torch.render import render_image
+    from core_tpu_torch.scenes import cornell_box
+    from core_tpu_torch.utils.monitor import CallbackProgressBar
+    from core_tpu_torch.utils.timer import timer
+    xml = write_cornell_xml(BUILD / "frontend_cornell.xml", RES)
+    # (a) the CLI in process
+    out = BUILD / "frontend_cornell"
+    reset_counts()
+    img, ev = _cli([str(xml), str(out), "-f", "png", "-z", "-dp",
+                    "--device", "cuda", "-v", "1"])
+    launches = all_launches()
+    want = {k: AA_SAMPLES * n for k, n in per_chunk.items()}
+    want["closest_hit"] += 1                     # the z-buffer's camera hit
+    if {k: launches[k] for k in want} != want or \
+            sum(launches.values()) != sum(want.values()):
+        fail(f"xml_cornell256_pt: launches {launches}, expected {want}")
+    if plain_calls():
+        fail(f"xml_cornell256_pt: the plain versions ran {plain_calls()} "
+             "times")
+    scene, opts = parse_xml_scene(str(xml), device="cuda")
+    if opts != _cornell_opts(AA_SAMPLES):
+        fail(f"xml_cornell256_pt: parsed options {opts} differ from phase "
+             "3's")
+    ref = render_image(scene, opts)[0]
+    if not torch.equal(img, ref):
+        fail("xml_cornell256_pt: the CLI's image differs from render_image "
+             "of the parsed scene")
+    mean = check_image(scene, img)[0]
+    lines = badge_lines(__version__, opts.integrator,
+                        f"AA 1;{AA_SAMPLES};1", timer.get_time("render"))
+    want_png = BUILD / "frontend_cornell_want.png"
+    write_png8(str(want_png), draw_badge(img.cpu().numpy(), lines))
+    png = out.with_suffix(".png")
+    zpng = BUILD / "frontend_cornell_zbuffer.png"
+    if png.read_bytes() != want_png.read_bytes() or not zpng.is_file():
+        fail("xml_cornell256_pt: the CLI's PNG differs from write_png of "
+             "its image under the same badge, or no z-buffer PNG")
+    moved = float((scene.geom.verts - cornell_box(
+        resx=RES, resy=RES, light_samples=LIGHT_SAMPLES, device="cuda")
+        .geom.verts).abs().max())
+    print(f"frontend: xml_cornell256_pt {xml.relative_to(ROOT)} "
+          f"({xml.stat().st_size} bytes): parse {ev['parse']:.4f} s, "
+          f"compile {ev['compile']:.4f} s, render {ev['render']:.4f} s "
+          f"({ev['render'] * 1e3 / AA_SAMPLES:.3f} ms/chunk), write "
+          f"{ev['write']:.4f} s; launches {launches} (4 chunks and the "
+          f"z-buffer), plain calls 0; image == render_image of the parsed "
+          f"scene, mean {mean:.6f} (phase 3 band {MEAN_REF} +- "
+          f"{MEAN_BAND:.0%}), sha256 {image_digest(img)}; "
+          f"largest vertex move against cornell_box's {moved}; "
+          f"{png.relative_to(ROOT)} == write_png under the badge, "
+          f"{zpng.relative_to(ROOT)}")
+
+    # (b) python -m core_tpu_torch in a subprocess
+    libs = {p: p.stat().st_mtime_ns
+            for p in (BUILD / "core_tpu_torch").glob("*.so")}
+    sub = BUILD / "frontend_cornell_sub"
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "core_tpu_torch", str(xml), str(sub), "-f",
+         "png", "-z", "--device", "cuda"], capture_output=True, text=True,
+        cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        timeout=300)
+    t_sub = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"python -m core_tpu_torch exited {r.returncode}: "
+             f"{r.stderr[-3000:]}")
+    if {p: p.stat().st_mtime_ns
+            for p in (BUILD / "core_tpu_torch").glob("*.so")} != libs:
+        fail("python -m core_tpu_torch rebuilt the kernels' library")
+    nobadge = BUILD / "frontend_cornell_nobadge.png"
+    write_png8(str(nobadge), img.cpu().numpy())
+    same = _png_diff(sub.with_suffix(".png"), nobadge, "subprocess PNG")
+    zsame = _png_diff(BUILD / "frontend_cornell_sub_zbuffer.png", zpng,
+                      "subprocess z-buffer PNG")
+    events = [ln.split("]", 1)[-1].strip() for ln in r.stderr.splitlines()
+              if re.search(r"(parse|compile|render|write) +\d", ln)]
+    print(f"frontend: python -m core_tpu_torch: exit 0 in {t_sub:.3f} s, "
+          f"library not rebuilt, its events {events}; PNG vs (a)'s image: "
+          f"{same}; z-buffer PNG vs (a)'s: {zsame}")
+
+    # (d) the embedding Interface, (a)'s calls
+    yi = Interface(device="cuda")
+    yi.setup_render(**cornell_calls(yi, RES))
+    mem, flushes, ticks = MemoryOutput(RES, RES), [], []
+
+    def output(image, pass_idx, chunk_idx):
+        flushes.append(chunk_idx)
+        mem(image, pass_idx, chunk_idx)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    got = yi.render(output=output, progress=CallbackProgressBar(
+        lambda done, total, tag: ticks.append((done, total))))
+    dt = time.perf_counter() - t0
+    updates = len(ticks) - 1          # the last call is done()'s
+    if not (len(flushes) == updates == AA_SAMPLES == ticks[-1][1]):
+        fail(f"Interface: {len(flushes)} flushes, {updates} ticks, "
+             f"{ticks[-1][1]} chunks")
+    if not (torch.equal(torch.from_numpy(got), img.cpu())
+            and (mem.image == got).all()):
+        fail("Interface: the image differs from (a)'s")
+    ilaunch = all_launches()
+    if {k: ilaunch[k] for k in per_chunk} != \
+            {k: AA_SAMPLES * n for k, n in per_chunk.items()}:
+        fail(f"Interface: launches {ilaunch}")
+    print(f"frontend: Interface(device='cuda') replay: {len(flushes)} "
+          f"flushes, {updates} ticks, {AA_SAMPLES} chunks; image == (a)'s "
+          f"and == MemoryOutput.image; launches {ilaunch}; render "
+          f"{dt:.4f} s")
+    return per_chunk
+
+
+def _frontend_mesh(per_chunk):
+    """Part (c); returns the launches a chunk."""
+    import torch
+    from core_tpu_torch.io.xml_loader import parse_xml_scene
+    from core_tpu_torch.io.xml_writer import XmlInterface
+    from core_tpu_torch.render import render_image
+    xml = BUILD / "frontend_mesh.xml"
+    t0 = time.perf_counter()
+    xi = XmlInterface()
+    _set_params(xi, mesh_calls(xi, MESH_RES))
+    xi.render(str(xml))
+    t_write = time.perf_counter() - t0
+    reset_counts()
+    img, ev = _cli([str(xml), str(BUILD / "frontend_mesh"), "-f", "png",
+                    "--device", "cuda", "-v", "1"])
+    launches = all_launches()
+    if {k: n for k, n in launches.items() if n} != per_chunk:
+        fail(f"xml_mesh256_dl: launches {launches}, expected {per_chunk}")
+    if plain_calls():
+        fail(f"xml_mesh256_dl: the plain versions ran {plain_calls()} times")
+    scene, opts = parse_xml_scene(str(xml), device="cuda")
+    if scene.geom.n_tris != MESH_TRIS:
+        fail(f"xml_mesh256_dl: {scene.geom.n_tris} triangles")
+    if not torch.equal(img, render_image(scene, opts)[0]):
+        fail("xml_mesh256_dl: the CLI's image differs from render_image of "
+             "the parsed scene")
+    mem = MESH_IMAGES["mesh"][..., :3]
+    rel = float((img[..., :3] - mem).abs().mean() / mem.abs().mean())
+    if not rel < MESH_XML_REL:
+        fail(f"xml_mesh256_dl: mean relative difference {rel} to phase 7's "
+             f"image, over {MESH_XML_REL}")
+    print(f"frontend: xml_mesh256_dl {xml.relative_to(ROOT)} "
+          f"({xml.stat().st_size / 2**20:.3f} MiB, written in "
+          f"{t_write:.3f} s): {scene.geom.n_tris} triangles, parse "
+          f"{ev['parse']:.4f} s, compile {ev['compile']:.4f} s, render "
+          f"{ev['render'] * 1e3:.3f} ms (1 chunk); launches {launches}, "
+          f"plain calls 0; image == render_image of the parsed scene, "
+          f"mean {float(img[..., :3].mean()):.6f}, mean relative "
+          f"difference to phase 7's in-memory image {rel:.3e} (limit "
+          f"{MESH_XML_REL})")
+    return per_chunk
+
+
+def phase_frontend(cornell_counts, mesh_counts):
+    """Phase 23 (see the header).  cornell_counts: phase 3's launches over
+    its two requests of AA_SAMPLES chunks; mesh_counts: phase 7's over
+    MESH_TIMED + 1 chunks.  Returns each scene file's launches a chunk."""
+    t0 = time.perf_counter()
+    cornell = _frontend_cornell(_per_chunk(
+        cornell_counts, 2 * AA_SAMPLES, ("closest_hit", "any_hit_nee"),
+        "phase 3"))
+    mesh = _frontend_mesh(_per_chunk(
+        mesh_counts, MESH_TIMED + 1,
+        ("cluster_closest_hit", "cluster_any_hit_nee"), "phase 7"))
+    dt = time.perf_counter() - t0
+    if dt > FRONTEND_LIMIT_S:
+        fail(f"phase 23 took {dt:.1f} s, over {FRONTEND_LIMIT_S} s")
+    names = all_launches()
+    return {c: {k: per.get(k, 0) for k in names}
+            for c, per in (("xml_cornell256_pt", cornell),
+                           ("xml_mesh256_dl", mesh))}
+
 
 def main():
     import torch
@@ -4096,6 +4553,7 @@ def main():
                         device="cuda")
     kt = timed("kernels", phase_kernels, scene)
     counts = timed("render", phase_render)
+    cornell_counts = dict(counts)
     timed("slice", phase_slice)
     for name, row in timed("cornell kernels", phase_cornell_kernels,
                            scene).items():
@@ -4112,9 +4570,10 @@ def main():
     from core_tpu_torch.geometry import cuda_intersect as ck
     mesh, _ = timed("mesh build", phase_mesh_build, MESH_RES)
     kt.update(timed("mesh kernels", phase_mesh_kernels, mesh))
-    counts.update(timed("mesh render", phase_mesh_render, mesh, "mesh", {
+    mesh_counts = timed("mesh render", phase_mesh_render, mesh, "mesh", {
         "cluster_closest_hit": cc.closest_hit_flat_cuda,
-        "cluster_any_hit_nee": cc.any_hit_nee_flat_cuda}, MESH_TIMED))
+        "cluster_any_hit_nee": cc.any_hit_nee_flat_cuda}, MESH_TIMED)
+    counts.update(mesh_counts)
     del mesh
     flat, _ = timed("dirac build", phase_mesh_build, MESH_RES, "dirac flat")
     brute, _ = timed("dirac build", phase_mesh_build, MESH_RES,
@@ -4161,6 +4620,7 @@ def main():
     volume, rows = timed("volumes", phase_volumes)
     for name, row in rows.items():
         _merge(kt[name], row)
+    frontend = timed("frontend", phase_frontend, cornell_counts, mesh_counts)
 
     replaces = {     # kernels 1 to 8
         "closest_hit": ("core_tpu/geometry/pallas_intersect.py:55",
@@ -4188,7 +4648,8 @@ def main():
     # per bd64_golden request, per chunk of cornell256_bd, lightzoo256_bd
     # and cornell256_sss_dl / _pt, per SSS map build; volume_launches:
     # per vol128_golden request and per chunk of each phase-22
-    # configuration;
+    # configuration; frontend_launches: per chunk of each phase-23 scene
+    # file;
     # fold_launches: per step of each fold table row
     table = [{"name": name, "route": "cuda", "source": src,
               "replaces": rep, "launches": counts[name], **kt[name],
@@ -4201,7 +4662,8 @@ def main():
               "lightzoo_launches": {c: lightzoo[c][name] for c in lightzoo},
               "photon_launches": {c: photons[c][name] for c in photons},
               "bidir_launches": {c: bidir[c][name] for c in bidir},
-              "volume_launches": {c: volume[c][name] for c in volume}}
+              "volume_launches": {c: volume[c][name] for c in volume},
+              "frontend_launches": {c: frontend[c][name] for c in frontend}}
              for name, (rep, src) in replaces.items()]
     print(json.dumps({"kernels": table}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

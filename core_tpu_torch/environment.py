@@ -36,6 +36,13 @@ background) is made at the end of compile_scene by a deferred maker that
 takes the scene, in creation order; one that finds nothing (an object with
 no triangles, no background) makes no light.
 
+The geometry calls of core_tpu's SceneBuilder (start_mesh, add_vertex,
+add_uv, set_material, add_triangle, smooth_mesh, end_mesh, the curve calls
+and add_instance) drive the assembler as core_tpu's do; a scene without a
+camera gets core_tpu's default one.  The render parameter spp_chunk (the
+samples of one wavefront, RenderOptions.spp_chunk) is this package's own:
+core_tpu ignores it and renders in chunks of 4.
+
 compile_scene picks the intersection path by core_tpu's rule
 (scene.py:57,78 and cluster_intersect.py:139-141,179): at most 4,096
 triangles go to the brute kernels 1-3 (no accel); above that the clusters
@@ -102,6 +109,11 @@ class SceneBuilder:
         self.integrator_params = None
         self.volume_integrator_params = None
         self.render_params = ParamMap()
+        # the geometry state machine: the open mesh, its current material
+        # and the elements pushed since the last flush into its blocks
+        self._cur_mesh = None
+        self._cur_mesh_mat = 0
+        self._clear_pending()
 
     def create(self, kind: str, name: str, params: ParamMap, extra=None):
         """Create one element; `extra` is a material's list of shader-node
@@ -156,11 +168,103 @@ class SceneBuilder:
             self.texture_names[name] = len(self.textures) - 1
         return len(self.textures) - 1
 
+    # ---- geometry: scene_t's state machine (core_tpu environment.py:
+    # 123-177).  Elements pushed one call each are kept in Python lists and
+    # become one numpy block each when the mesh ends, so a file of 100k+
+    # elements assembles in one pass. ----
+
+    def _clear_pending(self):
+        self._pend_v, self._pend_uv = [], []
+        self._pend_f, self._pend_fuv, self._pend_fmat = [], [], []
+        self._curve_points = []
+
+    def _flush_mesh(self):
+        m, a = self._cur_mesh, self.assembler
+        if m is not None:
+            if self._pend_v:
+                a.add_vertices(m, self._pend_v)
+            if self._pend_uv:
+                a.add_uvs(m, self._pend_uv)
+            if self._pend_f:
+                fuv = self._pend_fuv
+                uv_ids = None if all(u is None for u in fuv) else [
+                    (-1, -1, -1) if u is None else u for u in fuv]
+                a.add_triangles(m, self._pend_f, self._pend_fmat, uv_ids)
+        self._clear_pending()
+
+    def start_mesh(self, obj_id=None, has_uv=False):
+        """Opens a mesh under the next object id (obj_id is not used, as in
+        core_tpu: the XML loader sets an explicit id on the result)."""
+        self._flush_mesh()
+        self._cur_mesh = self.assembler.start_mesh()
+        self._cur_mesh_mat = 0
+        return self._cur_mesh
+
+    def add_vertex(self, x, y, z) -> int:
+        self._pend_v.append((float(x), float(y), float(z)))
+        return self._cur_mesh.n_verts + len(self._pend_v) - 1
+
+    def add_uv(self, u, v) -> int:
+        self._pend_uv.append((float(u), float(v)))
+        return self._cur_mesh.n_uvs + len(self._pend_uv) - 1
+
+    def set_material(self, name: str):
+        """An unknown name selects material 0, as material_index does."""
+        self._cur_mesh_mat = self.material_index(name)
+
+    def add_triangle(self, a, b, c, uv=None):
+        self._pend_f.append((int(a), int(b), int(c)))
+        self._pend_fuv.append(None if uv is None
+                              else tuple(int(i) for i in uv))
+        self._pend_fmat.append(self._cur_mesh_mat)
+
+    def smooth_mesh(self, obj_id, angle) -> bool:
+        for m in self.assembler.meshes:
+            if m.obj_id == obj_id:
+                self.assembler.smooth_mesh(m, angle)
+                return True
+        return False
+
+    def end_mesh(self):
+        self._flush_mesh()
+        self._cur_mesh = None
+
+    def start_curve_mesh(self, obj_id=None):
+        """A strand (scene_t::startCurveMesh, scene.cc:118): its points are
+        collected until end_curve_mesh."""
+        self._flush_mesh()
+        self._cur_mesh = self.assembler.start_mesh()
+        return self._cur_mesh
+
+    def add_curve_vertex(self, x, y, z) -> int:
+        self._curve_points.append((float(x), float(y), float(z)))
+        return len(self._curve_points) - 1
+
+    def end_curve_mesh(self, mat_name: str, strand_start: float,
+                       strand_end: float, strand_shape: float):
+        """Tessellates the collected strand (scene_t::endCurveMesh)."""
+        self.assembler.add_curve(self._cur_mesh, self._curve_points,
+                                 self.material_index(mat_name),
+                                 strand_start, strand_end, strand_shape)
+        self._cur_mesh = None
+        self._clear_pending()
+        return True
+
+    def add_instance(self, base_obj_id, matrix) -> int:
+        return self.assembler.add_instance(base_obj_id, np.asarray(matrix))
+
     def compile_scene(self) -> Scene:
+        """The Scene on the builder's device.  Without a camera, core_tpu's
+        default one (environment.py:192-195): perspective from (0, 1, -5)
+        toward (0, 1, 0), 320 x 240."""
+        self._flush_mesh()
         if not self.materials:
             self.add_material("default", MaterialDef())
         if self.camera is None:
-            raise ValueError("compile_scene needs a camera")
+            from core_tpu_torch.cameras import make_perspective
+            self.camera = make_perspective(pos=(0, 1, -5), look=(0, 1, 0),
+                                           up=(0, 2, -5), resx=320,
+                                           resy=240, device=self.device)
         device = self.device
         geom = self.assembler.build(device)
         mats = build_material_table(self.materials, device)
@@ -321,6 +425,7 @@ def setup_render_options(rp: ParamMap, ip, vp, volume_span=None):
         clamp_rgb=rp.get_bool("clamp_rgb", False),
         premult=rp.get_bool("premult", False),
         show_sam_pix=rp.get_bool("show_sam_pix", False),
+        spp_chunk=max(1, rp.get_int("spp_chunk", RenderOptions.spp_chunk)),
         integrator=integrator, integrator_opts=iopts, volume_opts=vopts,
         z_channel=rp.get_bool("z_channel", False))
 

@@ -1,12 +1,16 @@
 """Host-side scene geometry assembly (counterpart of core_tpu/geometry/mesh.py).
 
-A numpy assembler bakes every mesh into one flat SoA triangle soup, the
-layout the intersection kernels consume; per-object identity is an int
-column.  Scope: meshes with optional per-face UVs and angle-thresholded
+A numpy assembler bakes every mesh and instance into one flat SoA triangle
+soup, the layout the intersection kernels consume; per-object identity is
+an int column.  Meshes take optional per-face UVs and angle-thresholded
 smoothing (start_mesh / add_vertex / add_triangle / smooth_mesh / build),
 plus bulk forms (add_vertices / add_uvs / add_triangles) that take whole
-numpy arrays, so a million-triangle mesh assembles in seconds.
-Curves and instances come with the scenes that need them.
+numpy arrays, so a million-triangle mesh assembles in seconds.  add_curve
+extrudes a strand ribbon and add_instance repeats a mesh under a 4x4
+transform, as core_tpu's do; object ids come from one counter, _next_obj,
+which build also advances for every instance it emits (core_tpu
+mesh.py:219-225), so an instance's triangles carry the id it gets at build,
+not the one add_instance returned.
 """
 from __future__ import annotations
 
@@ -46,23 +50,28 @@ class MeshObject:
     n_verts: int = 0
     n_uvs: int = 0
     smooth_angle: Optional[float] = None             # degrees; None = flat
+    light_idx: int = -1                              # area light, -1 none
 
 
 class MeshAssembler:
-    """Builds GeomData from a sequence of meshes.
+    """Builds GeomData from a sequence of meshes and instances.
 
         a = MeshAssembler()
         m = a.start_mesh()
         a.add_vertex(m, x, y, z); a.add_triangle(m, ia, ib, ic, mat)
         a.smooth_mesh(m, angle)
+        a.add_instance(base_obj_id, matrix4)
         geom = a.build(device)
     """
 
     def __init__(self):
         self.meshes: list[MeshObject] = []
+        self.instances: list[tuple[int, np.ndarray]] = []
+        self._next_obj = 0
 
-    def start_mesh(self) -> MeshObject:
-        m = MeshObject(obj_id=len(self.meshes))
+    def start_mesh(self, light_idx: int = -1) -> MeshObject:
+        m = MeshObject(obj_id=self._next_obj, light_idx=light_idx)
+        self._next_obj += 1
         self.meshes.append(m)
         return m
 
@@ -83,13 +92,20 @@ class MeshAssembler:
         m.n_uvs += uv.shape[0]
         return m.n_uvs - uv.shape[0]
 
-    def add_triangles(self, m: MeshObject, faces, mat: int, uv_ids=None):
-        """Appends [k,3] faces of one material, with [k,3] uv ids or none."""
+    def add_uv(self, m: MeshObject, u, v) -> int:
+        return self.add_uvs(m, [(float(u), float(v))])
+
+    def add_triangles(self, m: MeshObject, faces, mat, uv_ids=None):
+        """Appends [k,3] faces of one material (an int) or of one each
+        ([k] ints), with [k,3] uv ids (a row of -1: that face has none) or
+        none."""
         faces = np.asarray(faces, np.int32).reshape(-1, 3)
         m.faces.append(faces)
         m.face_uvs.append(None if uv_ids is None
                           else np.asarray(uv_ids, np.int64).reshape(-1, 3))
-        m.face_mats.append(np.full(faces.shape[0], int(mat), np.int32))
+        mat = np.asarray(mat, np.int32)
+        m.face_mats.append(np.full(faces.shape[0], int(mat), np.int32)
+                           if mat.ndim == 0 else mat.reshape(-1))
 
     def add_triangle(self, m: MeshObject, a, b, c, mat: int, uv_ids=None):
         self.add_triangles(m, [(int(a), int(b), int(c))], mat,
@@ -98,41 +114,154 @@ class MeshAssembler:
     def smooth_mesh(self, m: MeshObject, angle_deg: float):
         m.smooth_angle = float(angle_deg)
 
+    def add_curve(self, m: MeshObject, points, mat: int,
+                  strand_start: float = 0.01, strand_end: float = 0.01,
+                  strand_shape: float = 0.0):
+        """Strand/hair curve (reference scene_t::endCurveMesh,
+        scene.cc:138-230; core_tpu mesh.py:92-158): the points, then per
+        point a radius from the strand taper and two side vertices in the
+        tangent frame, 6 side triangles per segment plus end caps, with
+        1-D strand UVs (u = v = the arc parameter).  The same float64
+        arithmetic, in the same order, as core_tpu."""
+        pts = np.asarray(points, np.float64).reshape(-1, 3)
+        n = pts.shape[0]
+        if n < 2:
+            raise ValueError("curve needs >= 2 points")
+        base = m.n_verts
+        verts = [p for p in pts]
+        u = v = None
+        for i in range(n):
+            t = i / (n - 1)
+            if strand_shape < 0:
+                r = strand_start + t ** (1 + strand_shape) \
+                    * (strand_end - strand_start)
+            else:
+                r = strand_start + (1 - (1 - t) ** (1 - strand_shape)) \
+                    * (strand_end - strand_start)
+            if i < n - 1:
+                N = pts[i + 1] - pts[i]
+                N = N / max(np.linalg.norm(N), 1e-20)
+                # createCS (include/core_api/vector3d.h:316-334)
+                if N[0] == 0 and N[1] == 0:
+                    u = np.array([-1.0, 0, 0]) if N[2] < 0 \
+                        else np.array([1.0, 0, 0])
+                    v = np.array([0.0, 1, 0])
+                else:
+                    d = 1.0 / np.sqrt(N[1] * N[1] + N[0] * N[0])
+                    u = np.array([N[1] * d, -N[0] * d, 0.0])
+                    v = np.cross(N, u)
+            o = pts[i]
+            verts.append(o - 0.5 * r * v - 1.5 * r / np.sqrt(3.0) * u)
+            verts.append(o - 0.5 * r * v + 1.5 * r / np.sqrt(3.0) * u)
+        self.add_vertices(m, np.asarray(verts, np.float64))
+        uv_base = m.n_uvs
+        uvs, faces, face_uvs = [], [], []
+
+        def uvid(s):
+            uvs.append(s)
+            return uv_base + len(uvs) - 1
+
+        def tri(a, b, c, uv):
+            faces.append((a, b, c))
+            face_uvs.append(uv)
+
+        for i in range(n - 1):
+            su = i / (n - 1)
+            sv = su + 1.0 / (n - 1)
+            iu, iv = uvid(su), uvid(sv)
+            a1, a2 = base + i, base + n + 2 * i
+            a3 = a2 + 1
+            b1, b2 = base + i + 1, a2 + 2
+            b3 = b2 + 1
+            if i == 0:  # bottom cap
+                tri(a1, a3, a2, (iu, iu, iu))
+            tri(a1, b2, b1, (iu, iv, iv))
+            tri(a1, a2, b2, (iu, iu, iv))
+            tri(a2, b3, b2, (iu, iv, iv))
+            tri(a2, a3, b3, (iu, iu, iv))
+            tri(b3, a3, a1, (iv, iu, iu))
+            tri(b3, a1, b1, (iv, iu, iv))
+        # top cap (i = n-1 after the loop, reference scene.cc:227)
+        i = n - 1
+        iv_top = uvid(1.0)
+        tri(base + i, base + n + 2 * i, base + n + 2 * i + 1,
+            (iv_top, iv_top, iv_top))
+        self.add_uvs(m, np.repeat(np.asarray(uvs, np.float64)[:, None], 2,
+                                  axis=1))
+        self.add_triangles(m, faces, mat, uv_ids=face_uvs)
+
+    def add_instance(self, base_obj_id: int, matrix) -> int:
+        """Instance an already-added mesh with a 4x4 transform (reference
+        scene_t::addInstance, scene.cc:982).  Returns the next object id;
+        build emits the instance under the id the counter holds then."""
+        self.instances.append((base_obj_id, np.asarray(matrix, np.float64)))
+        obj_id = self._next_obj
+        self._next_obj += 1
+        return obj_id
+
     def build(self, device) -> GeomData:
-        if not any(m.faces for m in self.meshes):
-            raise ValueError("empty scene geometry")
         all_v, all_f, all_cn, all_sm, all_uv, all_mat, all_light, all_obj = \
             [], [], [], [], [], [], [], []
         v_off = 0
-        for m in self.meshes:
-            verts = np.concatenate(m.verts) if m.verts \
-                else np.zeros((0, 3), np.float32)
-            faces = np.concatenate(m.faces) if m.faces \
-                else np.zeros((0, 3), np.int32)
+        # obj id -> (verts, faces, uv blocks, uv pool, face mats, smooth
+        # angle, light idx), the sources of instances; uv blocks are
+        # (face count, [k,3] uv ids or None) pairs
+        base_ranges = {}
+
+        def emit(verts, faces, uv_blocks, uv_pool, face_mats, smooth_angle,
+                 light_idx, obj_id):
+            nonlocal v_off
             nT = faces.shape[0]
-            corner_n, smooth = _smooth_normals(verts, faces, m.smooth_angle)
+            corner_n, smooth = _smooth_normals(verts, faces, smooth_angle)
             uvs = np.zeros((nT, 3, 2), np.float32)
-            if any(fu is not None for fu in m.face_uvs):
-                if not m.uvs:
+            if any(fu is not None for _, fu in uv_blocks):
+                if uv_pool is None:
                     raise ValueError("mesh has per-face UV indices but no "
                                      "UV pool")
-                pool = np.concatenate(m.uvs)
                 row = 0
-                for fb, fu in zip(m.faces, m.face_uvs):
+                for k, fu in uv_blocks:
                     if fu is not None:
-                        uvs[row:row + fb.shape[0]] = pool[fu]
-                    row += fb.shape[0]
+                        has = (fu >= 0).all(axis=1)
+                        uvs[row:row + k][has] = uv_pool[fu[has]]
+                    row += k
             all_v.append(verts)
             all_f.append(faces + v_off)
             all_cn.append(corner_n)
             all_sm.append(smooth)
             all_uv.append(uvs)
-            all_mat.append(np.concatenate(m.face_mats) if m.face_mats
-                           else np.zeros(0, np.int32))
-            # no mesh is bound to an area light (mesh lights not ported)
-            all_light.append(np.full(nT, -1, np.int32))
-            all_obj.append(np.full(nT, m.obj_id, np.int32))
+            all_mat.append(face_mats)
+            all_light.append(np.full(nT, light_idx, np.int32))
+            all_obj.append(np.full(nT, obj_id, np.int32))
+            base_ranges[obj_id] = (verts, faces, uv_blocks, None, face_mats,
+                                   smooth_angle, light_idx)
             v_off += verts.shape[0]
+
+        for m in self.meshes:
+            verts = np.concatenate(m.verts) if m.verts \
+                else np.zeros((0, 3), np.float32)
+            faces = np.concatenate(m.faces) if m.faces \
+                else np.zeros((0, 3), np.int32)
+            pool = np.concatenate(m.uvs) if m.uvs else None
+            uv_blocks = [(f.shape[0], fu) for f, fu in zip(m.faces,
+                                                           m.face_uvs)]
+            mats = np.concatenate(m.face_mats) if m.face_mats \
+                else np.zeros(0, np.int32)
+            emit(verts, faces, uv_blocks, pool, mats, m.smooth_angle,
+                 m.light_idx, m.obj_id)
+            # keep the uv pool for instances
+            base_ranges[m.obj_id] = (verts, faces, uv_blocks, pool, mats,
+                                     m.smooth_angle, m.light_idx)
+        for obj_id_src, mat4 in self.instances:
+            verts, faces, uv_blocks, uv_pool, face_mats, sm_ang, light_idx = \
+                base_ranges[obj_id_src]
+            vh = np.concatenate(
+                [verts, np.ones((verts.shape[0], 1), np.float32)], axis=1)
+            tv = (vh @ mat4.T)[:, :3].astype(np.float32)
+            emit(tv, faces, uv_blocks, uv_pool, face_mats, sm_ang, light_idx,
+                 obj_id=self._next_obj)
+            self._next_obj += 1
+        if not any(f.shape[0] for f in all_f):
+            raise ValueError("empty scene geometry")
 
         def dev(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)

@@ -1,4 +1,4 @@
-"""Texture image loading (counterpart of core_tpu/io/image.py's readers).
+"""Image input and output (counterpart of core_tpu/io/image.py).
 
 read_image(path) -> float32 [H, W, C], row 0 the top of the picture, by
 extension, with numpy and zlib only (the card's machine has no image
@@ -18,6 +18,12 @@ library):
 - .npy: the array it holds.
 Other TGA variants raise NotImplementedError, as do other extensions,
 which core_tpu reads through PIL.
+
+The writers are core_tpu's, and write the same bytes for the same array:
+write_png (8-bit RGB or RGBA, zlib level 6), write_hdr (flat RGBE),
+write_tga (uncompressed, top-left origin), write_exr (uncompressed FLOAT
+scanlines), and write_image by extension (those four and .npy).  Other
+extensions, which core_tpu writes through PIL, raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -259,3 +265,131 @@ def read_image(path: str) -> np.ndarray:
     raise NotImplementedError(f"reading .{ext} images is not ported to "
                               "core_tpu_torch (read: .tga, .png, .hdr, "
                               ".pic, .exr, .npy)")
+
+
+# ---- writers (core_tpu/io/image.py:16-43, 97-115, 152-211, 259-277) ----
+
+def to_uint8(img: np.ndarray) -> np.ndarray:
+    return np.clip(np.asarray(img) * 255.0 + 0.5, 0, 255).astype(np.uint8)
+
+
+def _png_chunk(tag: bytes, payload: bytes) -> bytes:
+    c = tag + payload
+    return struct.pack(">I", len(payload)) + c + struct.pack(
+        ">I", zlib.crc32(c) & 0xFFFFFFFF)
+
+
+def encode_png(data: np.ndarray, level: int = 6) -> bytes:
+    """8-bit [H,W,3] (RGB) or [H,W,4] (RGBA) -> PNG bytes, every scanline
+    unfiltered, zlib at `level`."""
+    h, w, ch = data.shape
+    raw = b"".join(b"\x00" + data[r].tobytes() for r in range(h))
+    return (_PNG_MAGIC
+            + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                              6 if ch == 4 else 2, 0, 0, 0))
+            + _png_chunk(b"IDAT", zlib.compress(raw, level))
+            + _png_chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray, alpha: bool = False):
+    """img: [H,W,3|4] (or [H,W]) float in [0,1], gamma already applied."""
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[..., None].repeat(3, -1)
+    ch = 4 if alpha and img.shape[-1] >= 4 else 3
+    png = encode_png(to_uint8(img[..., :ch]))
+    with open(path, "wb") as f:
+        f.write(png)
+
+
+def write_hdr(path: str, img: np.ndarray):
+    """Radiance RGBE, flat scanlines (reference hdrHandler.cc)."""
+    rgb = np.asarray(img)[..., :3].astype(np.float32)
+    h, w = rgb.shape[:2]
+    maxc = rgb.max(axis=-1)
+    e = np.zeros(maxc.shape, np.int32)
+    m = np.zeros(maxc.shape, np.float32)
+    nz = maxc > 1e-32
+    m[nz], e[nz] = np.frexp(maxc[nz])
+    scale = np.where(nz, m * 256.0 / np.maximum(maxc, 1e-32), 0.0)
+    rgbe = np.zeros((h, w, 4), np.uint8)
+    rgbe[..., :3] = np.clip(rgb * scale[..., None], 0, 255).astype(np.uint8)
+    rgbe[..., 3] = np.where(nz, e + 128, 0).astype(np.uint8)
+    with open(path, "wb") as f:
+        f.write(b"#?RADIANCE\nFORMAT=32-bit_rle_rgbe\n\n")
+        f.write(f"-Y {h} +X {w}\n".encode())
+        f.write(rgbe.tobytes())
+
+
+def write_tga(path: str, img: np.ndarray, alpha: bool = False):
+    """Uncompressed true-colour TGA, BGR(A), top-left origin (reference
+    tgaHandler.cc)."""
+    data = to_uint8(np.asarray(img))
+    h, w = data.shape[:2]
+    ch = 4 if alpha and data.shape[-1] >= 4 else 3
+    hdr = struct.pack("<BBBHHBHHHHBB", 0, 0, 2, 0, 0, 0, 0, 0, w, h, ch * 8,
+                      0x20 | (8 if ch == 4 else 0))
+    bgr = data[..., [2, 1, 0]] if ch == 3 else data[..., [2, 1, 0, 3]]
+    with open(path, "wb") as f:
+        f.write(hdr)
+        f.write(bgr.tobytes())
+
+
+def _exr_attr(name: bytes, typ: bytes, payload: bytes) -> bytes:
+    return name + b"\0" + typ + b"\0" + struct.pack("<i", len(payload)) \
+        + payload
+
+
+def write_exr(path: str, img: np.ndarray, alpha: bool = False):
+    """OpenEXR 2.0, uncompressed FLOAT scanlines, channels in sorted-name
+    order (the subset read_exr reads)."""
+    img = np.asarray(img, np.float32)
+    h, w = img.shape[:2]
+    chans = ["A", "B", "G", "R"] if (alpha and img.shape[-1] > 3) else \
+        ["B", "G", "R"]
+    # channel list: name, pixel type (2 = FLOAT), pLinear + fill, sampling
+    chl = b"".join(c.encode() + b"\0" + struct.pack("<iBBBBii", 2, 0, 0, 0,
+                                                    0, 1, 1)
+                   for c in chans) + b"\0"
+    box = struct.pack("<iiii", 0, 0, w - 1, h - 1)
+    hdr = _EXR_MAGIC + struct.pack("<i", 2)
+    hdr += _exr_attr(b"channels", b"chlist", chl)
+    hdr += _exr_attr(b"compression", b"compression", b"\0")
+    hdr += _exr_attr(b"dataWindow", b"box2i", box)
+    hdr += _exr_attr(b"displayWindow", b"box2i", box)
+    hdr += _exr_attr(b"lineOrder", b"lineOrder", b"\0")
+    hdr += _exr_attr(b"pixelAspectRatio", b"float", struct.pack("<f", 1.0))
+    hdr += _exr_attr(b"screenWindowCenter", b"v2f", struct.pack("<ff", 0, 0))
+    hdr += _exr_attr(b"screenWindowWidth", b"float", struct.pack("<f", 1.0))
+    hdr += b"\0"
+    line_bytes = w * 4 * len(chans)
+    data0 = len(hdr) + 8 * h
+    src = {"R": img[..., 0], "G": img[..., 1], "B": img[..., 2],
+           "A": img[..., 3] if img.shape[-1] > 3 else
+           np.ones((h, w), np.float32)}
+    with open(path, "wb") as f:
+        f.write(hdr)
+        for y in range(h):
+            f.write(struct.pack("<Q", data0 + y * (8 + line_bytes)))
+        for y in range(h):
+            f.write(struct.pack("<ii", y, line_bytes))
+            for c in chans:
+                f.write(np.ascontiguousarray(src[c][y]).tobytes())
+
+
+def write_image(path: str, img: np.ndarray, alpha: bool = False):
+    """Write by extension: .png, .hdr, .tga, .exr or .npy."""
+    ext = path.rsplit(".", 1)[-1].lower()
+    if ext == "png":
+        return write_png(path, img, alpha)
+    if ext == "hdr":
+        return write_hdr(path, img)
+    if ext == "tga":
+        return write_tga(path, img, alpha)
+    if ext == "exr":
+        return write_exr(path, img, alpha)
+    if ext == "npy":
+        return np.save(path, np.asarray(img))
+    raise NotImplementedError(f"writing .{ext} images is not ported to "
+                              "core_tpu_torch (written: .png, .hdr, .tga, "
+                              ".exr, .npy)")

@@ -23,8 +23,8 @@ maps and the SSS map once per render_image, and precompute_attenuation the
 single-scatter attenuation grids; render_chunk hands them on as `aux` and
 `vol_aux`.  The bidirectional integrator's t=1 splats go to the film's
 light image (film.add_density_samples).  render_zbuffer is the primary
-hits' depth image.  Not ported: row blocks and progress bars
-(`progress=`), which raise NotImplementedError.
+hits' depth image.  A progress bar (`progress=`) ticks once per chunk.
+Not ported: row blocks (core_tpu's row sharding).
 
 Volumes (core_tpu render.py:260-286): with VolumeOptions(integrator="sky")
 every chunk traces its camera rays once more (scene.closest_hit_s) and the
@@ -311,11 +311,11 @@ def render_image(scene, opts: RenderOptions, verbose: bool = False,
     the resumed render equals an uninterrupted one.  on_flush(img, pass_idx,
     chunk_idx): called with the flushed film as a numpy [H,W,4] after every
     chunk (the reference's imageFilm_t::finishArea output hook).
-    progress (a utils.monitor progress bar) is not ported and raises."""
+    progress (a utils.monitor.ProgressBar): init(the request's chunks),
+    update(1) after every chunk, done() at the end, as core_tpu ticks it
+    (render.py:386-429); SPPM's pass loop does not tick it, as in
+    core_tpu."""
     _check_supported(opts, chunked=False)
-    if progress is not None:
-        raise NotImplementedError("progress bars (utils/monitor) are not "
-                                  "ported to core_tpu_torch yet")
     from core_tpu_torch import checkpoint as ck
     types_present = scene_material_types(scene)
     cam = scene.camera
@@ -338,6 +338,10 @@ def render_image(scene, opts: RenderOptions, verbose: bool = False,
                 film, start_pass, offs, _ = saved
                 if verbose:
                     print(f"resumed checkpoint at pass {start_pass}")
+        if progress is not None:
+            progress.init(sum(-(-n // opts.spp_chunk) for n in (
+                [opts.aa_samples]
+                + [opts.aa_inc_samples] * (opts.aa_passes - 1))))
 
         def run_pass(film, pass_offs, n_samples, resample_mask, pass_idx):
             done, chunk_idx = 0, 0
@@ -349,6 +353,8 @@ def render_image(scene, opts: RenderOptions, verbose: bool = False,
                                     vol_aux=vol_aux)
                 done += spp
                 chunk_idx += 1
+                if progress is not None:
+                    progress.update(1)
                 if on_flush is not None:
                     on_flush(film_mod.flush(
                         film, gamma=opts.gamma,
@@ -370,6 +376,8 @@ def render_image(scene, opts: RenderOptions, verbose: bool = False,
             offs += opts.aa_inc_samples
             if checkpoint_path:
                 ck.save_checkpoint(checkpoint_path, film, p + 1, offs)
+        if progress is not None:
+            progress.done()
         img = film_mod.flush(film, gamma=opts.gamma, clamp=opts.clamp_rgb,
                              premult=opts.premult)
         if opts.show_sam_pix and opts.aa_passes > 1:

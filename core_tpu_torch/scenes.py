@@ -69,6 +69,54 @@ def _box(a, m, corner, size_x, size_z, height, angle_deg, mat):
     _add_quad(a, m, p[3], p[2], p[1], p[0], mat)                  # bottom
 
 
+# the area light's corner, point1 and point2 on the ceiling, slightly below
+# it, facing down (-y): with the reference convention fnormal = toY x toX
+# must point +y
+CORNELL_LIGHT = ((343.0, 548.0, 227.0), (343.0, 548.0, 332.0),
+                 (213.0, 548.0, 227.0))
+CORNELL_MATS = {"white": 0, "red": 1, "green": 2, "light": 3}
+CORNELL_CAMERA = {"pos": (278, 273, -800), "look": (278, 273, 0),
+                  "up": (278, 274, -800), "focal": 1.4}
+
+
+def cornell_geometry(a, block_mats=(0, 0), show_light_geo=True):
+    """cornell_box's geometry calls on `a`, a MeshAssembler or anything
+    with its start_mesh / add_vertex / add_triangle: the room's walls in one
+    mesh with the two blocks (block_mats: the short and the tall block's
+    material indices, None for no blocks), then the light's quad in a mesh
+    of its own wearing material 3."""
+    WHITE, RED, GREEN = (CORNELL_MATS[k] for k in ("white", "red", "green"))
+    m = a.start_mesh()
+    # floor (y=0), normal +y
+    _add_quad(a, m, (552.8, 0, 0), (0, 0, 0), (0, 0, 559.2),
+              (549.6, 0, 559.2), WHITE)
+    # ceiling (y=548.8), normal -y
+    _add_quad(a, m, (556, 548.8, 0), (556, 548.8, 559.2),
+              (0, 548.8, 559.2), (0, 548.8, 0), WHITE)
+    # back wall (z=559.2), normal -z
+    _add_quad(a, m, (549.6, 0, 559.2), (0, 0, 559.2),
+              (0, 548.8, 559.2), (556, 548.8, 559.2), WHITE)
+    # right wall (x=0) GREEN, normal +x
+    _add_quad(a, m, (0, 0, 559.2), (0, 0, 0),
+              (0, 548.8, 0), (0, 548.8, 559.2), GREEN)
+    # left wall (x~552.8..556) RED, normal -x
+    _add_quad(a, m, (552.8, 0, 0), (549.6, 0, 559.2),
+              (556, 548.8, 559.2), (556, 548.8, 0), RED)
+    if block_mats is not None:
+        _box(a, m, (130.0, 0.0, 65.0), 160, 160, 165, -18.0, block_mats[0])
+        _box(a, m, (265.0, 0.0, 296.0), 160, 160, 330, 17.0, block_mats[1])
+    if show_light_geo:
+        # geometry for the light so camera rays see it (emissive material)
+        lc, lp1, lp2 = (np.array(p) for p in CORNELL_LIGHT)
+        lm = a.start_mesh()
+        i0 = a.add_vertex(lm, *lc)
+        i1 = a.add_vertex(lm, *lp1)
+        i2 = a.add_vertex(lm, *(lp1 + (lp2 - lc)))
+        i3 = a.add_vertex(lm, *lp2)
+        a.add_triangle(lm, i0, i1, i2, CORNELL_MATS["light"])
+        a.add_triangle(lm, i0, i2, i3, CORNELL_MATS["light"])
+
+
 def cornell_box(resx=256, resy=256, light_samples=16, light_power=30.0,
                 with_blocks=True, block_materials=("white", "white"),
                 show_light_geo=True, intersector="auto", *,
@@ -78,7 +126,7 @@ def cornell_box(resx=256, resy=256, light_samples=16, light_power=30.0,
     'blend_diff' or 'blend_cross' for the short and the tall block; the
     rows are core_tpu's, appended in the same order."""
     device = check_device(device)
-    WHITE, RED, GREEN, LIGHTMAT = 0, 1, 2, 3
+    WHITE, RED = CORNELL_MATS["white"], CORNELL_MATS["red"]
     mats = [
         MaterialDef(name="white", diffuse_color=(0.75, 0.75, 0.75)),
         MaterialDef(name="red", diffuse_color=(0.63, 0.065, 0.05)),
@@ -128,51 +176,15 @@ def cornell_box(resx=256, resy=256, light_samples=16, light_power=30.0,
         extra[bm] = len(mats) - 1
 
     a = MeshAssembler()
-    m = a.start_mesh()
-    # floor (y=0), normal +y
-    _add_quad(a, m, (552.8, 0, 0), (0, 0, 0), (0, 0, 559.2),
-              (549.6, 0, 559.2), WHITE)
-    # ceiling (y=548.8), normal -y
-    _add_quad(a, m, (556, 548.8, 0), (556, 548.8, 559.2),
-              (0, 548.8, 559.2), (0, 548.8, 0), WHITE)
-    # back wall (z=559.2), normal -z
-    _add_quad(a, m, (549.6, 0, 559.2), (0, 0, 559.2),
-              (0, 548.8, 559.2), (556, 548.8, 559.2), WHITE)
-    # right wall (x=0) GREEN, normal +x
-    _add_quad(a, m, (0, 0, 559.2), (0, 0, 0),
-              (0, 548.8, 0), (0, 548.8, 559.2), GREEN)
-    # left wall (x~552.8..556) RED, normal -x
-    _add_quad(a, m, (552.8, 0, 0), (549.6, 0, 559.2),
-              (556, 548.8, 559.2), (556, 548.8, 0), RED)
-
-    if with_blocks:
-        _box(a, m, (130.0, 0.0, 65.0), 160, 160, 165, -18.0,
-             extra[block_materials[0]])
-        _box(a, m, (265.0, 0.0, 296.0), 160, 160, 330, 17.0,
-             extra[block_materials[1]])
-
-    # area light quad on the ceiling, slightly below it, facing down (-y):
-    # with the reference convention fnormal = toY x toX must point +y.
-    lc = np.array([343.0, 548.0, 227.0])
-    lp1 = np.array([343.0, 548.0, 332.0])
-    lp2 = np.array([213.0, 548.0, 227.0])
+    cornell_geometry(a, (extra[block_materials[0]], extra[block_materials[1]])
+                     if with_blocks else None, show_light_geo)
+    lc, lp1, lp2 = (np.array(p) for p in CORNELL_LIGHT)
     light = make_area_light(lc, lp1, lp2, color=(1.0, 1.0, 1.0),
                             power=light_power, samples=light_samples,
                             device=device)
-    if show_light_geo:
-        lm = a.start_mesh()
-        # geometry for the light so camera rays see it (emissive material)
-        i0 = a.add_vertex(lm, *lc)
-        i1 = a.add_vertex(lm, *lp1)
-        i2 = a.add_vertex(lm, *(lp1 + (lp2 - lc)))
-        i3 = a.add_vertex(lm, *lp2)
-        a.add_triangle(lm, i0, i1, i2, LIGHTMAT)
-        a.add_triangle(lm, i0, i2, i3, LIGHTMAT)
-
     geom = a.build(device)
-    cam = make_perspective(pos=(278, 273, -800), look=(278, 273, 0),
-                           up=(278, 274, -800), resx=resx, resy=resy,
-                           focal=1.4, device=device)
+    cam = make_perspective(resx=resx, resy=resy, device=device,
+                           **CORNELL_CAMERA)
     has_spec = any(d.mirror_strength > 0 or d.transparency > 0
                    or d.mtype in (MatType.GLASS, MatType.COATED_GLOSSY)
                    for d in mats)
@@ -238,6 +250,35 @@ def _torus_mesh(a: MeshAssembler, m, nu, nv, R, r, center, mat):
     a.add_triangles(m, faces, mat, uv_ids=faces - base_v + base_uv)
 
 
+# mesh_scene's elements but its geometry, background and lights, as plain
+# data: (name, parameters) of its textures and materials, and its camera
+MESH_SCENE = {
+    "textures": (
+        ("rockmarble", {"type": "marble", "color1": (0.22, 0.18, 0.14),
+                        "color2": (0.75, 0.7, 0.62), "size": 2.3,
+                        "depth": 3, "turbulence": 4.0, "sharpness": 2.0,
+                        "noise_type": "newperlin"}),
+        ("cellvor", {"type": "voronoi", "color1": (0.05, 0.12, 0.3),
+                     "color2": (0.9, 0.85, 0.6), "size": 1.4,
+                     "pattern": "f2f1", "intensity": 1.6}),
+        ("skytex", {"type": "clouds", "color1": (0.25, 0.45, 0.9),
+                    "color2": (1.0, 0.98, 0.92), "size": 0.8, "depth": 3,
+                    "noise_type": "stdperlin"}),
+    ),
+    "materials": (
+        ("terrain", {"type": "shinydiffusemat", "color": (0.7, 0.7, 0.7),
+                     "diffuse_reflect": 0.9,
+                     "diffuse_shader": "rockmarble"}),
+        ("torus", {"type": "glossy", "diffuse_color": (0.4, 0.4, 0.45),
+                   "color": (0.7, 0.7, 0.75), "glossy_reflect": 0.35,
+                   "exponent": 80.0, "as_diffuse": False,
+                   "diffuse_shader": "cellvor"}),
+    ),
+    "camera": {"pos": (5.2, 3.4, -5.6), "look": (0.0, 1.2, 0.0),
+               "up": (5.2, 4.4, -5.6), "focal": 1.25},
+}
+
+
 def big_scene(resx=1024, resy=1024, ibl_samples=8, sun_samples=4, *,
               device="cuda") -> Scene:
     """core_tpu's BASELINE config #5 scale proof: 1,017,202 triangles
@@ -258,27 +299,10 @@ def mesh_builder(resx=256, resy=256, n_grid=160, torus_u=180, torus_v=64, *,
     from core_tpu_torch.environment import SceneBuilder
 
     b = SceneBuilder(check_device(device))
-    b.create("texture", "rockmarble", ParamMap({
-        "type": "marble", "color1": (0.22, 0.18, 0.14),
-        "color2": (0.75, 0.7, 0.62), "size": 2.3, "depth": 3,
-        "turbulence": 4.0, "sharpness": 2.0, "noise_type": "newperlin"}))
-    b.create("texture", "cellvor", ParamMap({
-        "type": "voronoi", "color1": (0.05, 0.12, 0.3),
-        "color2": (0.9, 0.85, 0.6), "size": 1.4, "pattern": "f2f1",
-        "intensity": 1.6}))
-    b.create("texture", "skytex", ParamMap({
-        "type": "clouds", "color1": (0.25, 0.45, 0.9),
-        "color2": (1.0, 0.98, 0.92), "size": 0.8, "depth": 3,
-        "noise_type": "stdperlin"}))
-
-    b.create("material", "terrain", ParamMap({
-        "type": "shinydiffusemat", "color": (0.7, 0.7, 0.7),
-        "diffuse_reflect": 0.9, "diffuse_shader": "rockmarble"}))
-    b.create("material", "torus", ParamMap({
-        "type": "glossy", "diffuse_color": (0.4, 0.4, 0.45),
-        "color": (0.7, 0.7, 0.75), "glossy_reflect": 0.35,
-        "exponent": 80.0, "as_diffuse": False,
-        "diffuse_shader": "cellvor"}))
+    for name, params in MESH_SCENE["textures"]:
+        b.create("texture", name, ParamMap(params))
+    for name, params in MESH_SCENE["materials"]:
+        b.create("material", name, ParamMap(params))
 
     m = b.assembler.start_mesh()
     _grid_mesh(b.assembler, m, n_grid, 6.0, b.material_index("terrain"))
@@ -288,9 +312,8 @@ def mesh_builder(resx=256, resy=256, n_grid=160, torus_u=180, torus_v=64, *,
                 (0.0, 1.6, 0.0), b.material_index("torus"))
     b.assembler.smooth_mesh(m2, 80.0)
 
-    b.camera = make_perspective(pos=(5.2, 3.4, -5.6), look=(0.0, 1.2, 0.0),
-                                up=(5.2, 4.4, -5.6), resx=resx, resy=resy,
-                                focal=1.25, device=b.device)
+    b.camera = make_perspective(resx=resx, resy=resy, device=b.device,
+                                **MESH_SCENE["camera"])
     return b
 
 
@@ -303,14 +326,21 @@ def mesh_scene(resx=256, resy=256, n_grid=160, torus_u=180, torus_v=64,
     decides; the defaults' 73,602 tris (512 clusters) take the flat cluster
     kernels 4-6."""
     b = mesh_builder(resx, resy, n_grid, torus_u, torus_v, device=device)
-    b.create("background", "world", ParamMap({
-        "type": "textureback", "texture": "skytex", "ibl": True,
-        "ibl_samples": ibl_samples, "power": 1.0}))
-    b.create("light", "sun", ParamMap({
-        "type": "sunlight", "direction": (0.45, 0.8, 0.3),
-        "color": (1.0, 0.95, 0.85), "power": 1.6, "angle": 0.5,
-        "samples": sun_samples}))
+    for kind, name, params in mesh_scene_lighting(ibl_samples, sun_samples):
+        b.create(kind, name, ParamMap(params))
     return b.compile_scene()
+
+
+def mesh_scene_lighting(ibl_samples=8, sun_samples=4):
+    """mesh_scene's clouds background with IBL and its sun, as (kind, name,
+    parameters) elements."""
+    return (("background", "world", {
+        "type": "textureback", "texture": "skytex", "ibl": True,
+        "ibl_samples": ibl_samples, "power": 1.0}),
+        ("light", "sun", {
+            "type": "sunlight", "direction": (0.45, 0.8, 0.3),
+            "color": (1.0, 0.95, 0.85), "power": 1.6, "angle": 0.5,
+            "samples": sun_samples}))
 
 
 # the dirac variant's lights: (name, parameters), one of each dirac type

@@ -42,9 +42,9 @@ primitives compile once for all of it.
   mean within 40% of the path tracer's at 32^2, the debug normals of a
   16^2 box in [0, 1]); the bidirectional integrator under a checkpoint
   and under aa_passes = 2 renders, a scene with a volume region crosses
-  convert.py and the volume factories record their elements, progress
-  bars and an unknown volume region type raise by name; a scene built
-  with no device given asks for CUDA.
+  convert.py and the volume factories record their elements, a progress
+  bar ticks once per chunk, and an unknown volume region type raises by
+  name; a scene built with no device given asks for CUDA.
 The card's twins (64^2 bidirectional and debug renders through the
 kernels against the plain versions, the bidirectional golden) are in
 tests/test_torch_kernels_cuda.py.
@@ -90,6 +90,7 @@ from core_tpu_torch.render import (RenderOptions, render_image,
                                    scene_material_types)
 from core_tpu_torch.sampling import qmc
 from core_tpu_torch.types import Rays
+from core_tpu_torch.utils.monitor import CallbackProgressBar
 from core_tpu_torch.vec import V3, v3
 
 from test_torch_diff import once_per_run
@@ -439,11 +440,14 @@ def test_bidir_debug_entry_points(cornell, tmp_path):
     ck = str(tmp_path / "bd.npz")
     img_ck, _ = render_image(cornell, bd, checkpoint_path=ck)
     assert os.path.isfile(ck) and bool(torch.isfinite(img_ck).all())
+    ticks = []
     img2, _ = render_image(cornell, RenderOptions(
-        aa_passes=2, integrator="debug", integrator_opts=DebugOptions()))
+        aa_passes=2, integrator="debug", integrator_opts=DebugOptions()),
+        progress=CallbackProgressBar(
+            lambda done, total, tag: ticks.append((done, total))))
     assert bool(torch.isfinite(img2).all())
-    with pytest.raises(NotImplementedError, match="progress"):
-        render_image(cornell, bd, progress=object())
+    # a progress bar ticks once per chunk (two passes of one), then done()
+    assert ticks == [(1, 2), (2, 2), (2, 2)]
     js = j_cornell_box(resx=RES, resy=RES, light_samples=1,
                        intersector="brute")
     from core_tpu.volumes import make_uniform_volume

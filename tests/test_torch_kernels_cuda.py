@@ -11,7 +11,8 @@ against renders through the plain versions (among them the 64x64 light
 zoo, dl and pt, on the brute kernels 1-3, and the 64x64 glass-and-glossy
 box under photonmapping, SPPM and photon caustics; the 64x64
 bidirectional, translucent-box SSS and debug renders; the five 64x64
-volume and adaptive-pass renders of chip_smoke's phase 22), the
+volume and adaptive-pass renders of chip_smoke's phase 22; a 64x64
+Cornell scene file through the CLI), the
 photonmapping, SPPM and bidirectional goldens at
 tests/test_golden_photon_family.py's bands, and the volume golden at
 tests/test_golden_volume.py's.  The 28 edge cases of kernels 1 and 3 run
@@ -64,18 +65,20 @@ def _inputs(device, n, seed=0):
     return scene, tri, rays, ex, g
 
 
-@pytest.mark.parametrize("n", [1, 1000, 70_000])
-def test_closest_hit_kernel_matches_plain(device, n):
-    _, tri, rays, ex, _ = _inputs(device, n)
-    launches = ck.closest_hit_cuda.launches
-    got = ck.closest_hit_cuda(tri, rays, exclude_prim=ex)
-    want = isect.closest_hit_torch(tri, rays, exclude_prim=ex)
-    torch.cuda.synchronize()
-    assert ck.closest_hit_cuda.launches == launches + 1
-    assert torch.equal(got.prim, want.prim)
-    for f in ("t", "u", "v"):
-        torch.testing.assert_close(getattr(got, f), getattr(want, f),
-                                   rtol=1e-6, atol=1e-6)
+def test_closest_hit_kernel_matches_plain(device):
+    """At 1, 1,000 and 70,000 rays, one item (each size named on failure)."""
+    for n in (1, 1000, 70_000):
+        _, tri, rays, ex, _ = _inputs(device, n)
+        launches = ck.closest_hit_cuda.launches
+        got = ck.closest_hit_cuda(tri, rays, exclude_prim=ex)
+        want = isect.closest_hit_torch(tri, rays, exclude_prim=ex)
+        torch.cuda.synchronize()
+        assert ck.closest_hit_cuda.launches == launches + 1, n
+        assert torch.equal(got.prim, want.prim), n
+        for f in ("t", "u", "v"):
+            torch.testing.assert_close(getattr(got, f), getattr(want, f),
+                                       rtol=1e-6, atol=1e-6,
+                                       msg=lambda m: f"n={n} {f}: {m}")
 
 
 @pytest.mark.parametrize("K", ck.NEE_K)
@@ -974,3 +977,31 @@ def test_volume_and_pass_renders_through_kernels_equal_plain_versions(
             for isec in ("cuda", "torch")]
     assert torch.isfinite(imgs[0]).all()
     assert torch.equal(*imgs)
+
+
+def test_cli_scene_file_through_kernels_equals_plain(device, tmp_path):
+    """chip_smoke's Cornell scene file at 64^2 (write_cornell_xml: phase
+    3's configuration) through cli.main on the card: its PNG is the bytes
+    write_png gives the same file rendered with the plain versions on the
+    card; --profile's trace holds the kernels."""
+    import dataclasses
+    from chip_smoke import write_cornell_xml
+    from core_tpu_torch import cli
+    from core_tpu_torch.io.image import write_png
+    from core_tpu_torch.io.xml_loader import parse_xml_scene
+    xml = str(write_cornell_xml(tmp_path / "cornell.xml", 64))
+    launches = ck.closest_hit_cuda.launches
+    assert cli.main([xml, str(tmp_path / "cli"), "-f", "png", "--device",
+                     "cuda", "-v", "0", "--profile",
+                     str(tmp_path / "prof")]) == 0
+    assert ck.closest_hit_cuda.launches > launches
+    # the trace holds the card's activity: the kernels by name
+    assert "closest_hit_kernel" in (tmp_path / "prof" /
+                                    "trace.json").read_text()
+    scene, opts = parse_xml_scene(xml, device=device)
+    img = render_image(dataclasses.replace(scene, intersector="torch"),
+                       opts)[0]
+    assert torch.isfinite(img).all()
+    write_png(str(tmp_path / "plain.png"), img.cpu().numpy())
+    assert (tmp_path / "cli.png").read_bytes() == \
+        (tmp_path / "plain.png").read_bytes()

@@ -177,16 +177,24 @@ def test_port_imports_without_jax():
     assert int(out.stdout.split()[-1]) > 20
 
 
-def test_entry_points_default_to_the_card():
-    """cornell_box, mesh_scene and scene_from_numpy build on the card unless
-    told otherwise; without a card that raises instead of falling back."""
+def test_entry_points_default_to_the_card(tmp_path):
+    """cornell_box, mesh_scene, scene_from_numpy, parse_xml_scene and the
+    embedding Interface build on the card unless told otherwise; without a
+    card that raises instead of falling back."""
+    from core_tpu_torch.interface import Interface
+    from core_tpu_torch.io.xml_loader import parse_xml_scene
     from core_tpu_torch.scenes import mesh_scene
+    from test_frontend import CORNELL_XML
+    xml = tmp_path / "cornell.xml"
+    xml.write_text(CORNELL_XML)
     builders = [lambda: t_cornell_box(resx=4, resy=4, light_samples=1),
                 lambda: mesh_scene(resx=4, resy=4, n_grid=4, torus_u=4,
                                    torus_v=3, ibl_samples=1, sun_samples=1),
                 lambda: convert.scene_from_numpy(*convert.scene_to_numpy(
                     t_cornell_box(resx=4, resy=4, light_samples=1,
-                                  device="cpu")))]
+                                  device="cpu"))),
+                lambda: parse_xml_scene(str(xml))[0],
+                lambda: Interface()]
     for build in builders:
         if torch.cuda.is_available():
             assert build().device.type == "cuda"
