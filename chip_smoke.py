@@ -320,6 +320,30 @@ Phases, with their seconds:
                utils.monitor.CallbackProgressBar: flushes, ticks and
                chunks equal, the image equal to (a)'s; (e) the phase within
                90 s
+  24. multi — several ranks on the one card and the BVH: (i)
+               cornell256_pt_rowsharded nccl1, phase 3's configuration
+               through render_image_rowsharded over a one-rank NCCL group on
+               cuda:0 (parallel/distributed.init_distributed): kernels 1
+               and 2 a chunk, the collectives (calls, bytes, ms a call),
+               ms a chunk, the image against phase 3's at
+               tests/test_sharding.py's tolerance; (ii) two gloo ranks on
+               cuda:0, started as subprocesses (python3 chip_smoke.py
+               --rank R PORT DIR, multi_rank): the same render on meshes
+               2x1 (gloo2_tiles) and 1x2 (gloo2_spp) against phase 3's
+               image, make_train_step_rowsharded on the fwd+bwd bench step
+               (2x1) against diff.value_and_grad of the bench loss (loss at
+               rtol 1e-3, lr * grad at rtol 1e-3 / atol 1e-4), and
+               cornellspec512_sppm_sharded (phase 20's configuration at 2
+               passes of 500,000 photons, 2x1) against render_sppm; each
+               rank's launches, collectives and ms per chunk (step, pass),
+               every call run twice and the second counted; gloo stages
+               CUDA tensors through host memory, so these measure
+               correctness and host staging, not NCCL scaling; (iii) the
+               launches in each row's multi_launches; (iv) mesh256_dl_bvh:
+               mesh_scene built with the port's native BVH builder (g++
+               and build seconds), one directlight chunk through the torch
+               traversal (no kernel launched) against phase 7's image
+               (kernels 4 and 6)
 A busy share, in every phase, is the summed duration of the device events
 (kernels, copies, memsets) of one profiled call under torch.profiler's
 CUDA activity, over that call's wall time under the same profiler
@@ -339,7 +363,8 @@ bidir_launches those per bd64_golden request, per chunk of cornell256_bd,
 lightzoo256_bd and cornell256_sss_dl / _pt, and per SSS map build, its
 volume_launches those per vol128_golden request and per chunk of each
 phase-22 configuration, its frontend_launches those per chunk of each
-phase-23 scene file.
+phase-23 scene file, its multi_launches those per chunk (step, pass) and
+rank of each phase-24 configuration.
 Any failure raises (non-zero exit).  Imports nothing of jax or core_tpu.
 """
 from __future__ import annotations
@@ -814,6 +839,9 @@ def image_digest(img):
                           .tobytes()).hexdigest()[:16]
 
 
+CORNELL_IMAGE = {}   # phase 3's image, for phase 24
+
+
 def phase_render():
     import torch
     from core_tpu_torch.geometry import cuda_intersect as ck
@@ -845,6 +873,7 @@ def phase_render():
         fail("two identical requests rendered different images")
     mean, r_mean, g_mean, l_mean = check_image(scene, img)
     write_png(BUILD / "chip_smoke_cornell.png", img.cpu().numpy())
+    CORNELL_IMAGE["render"] = img
     chunks = AA_SAMPLES
     print(f"render: {RES}x{RES} cornell, light_samples={LIGHT_SAMPLES}, "
           f"path_samples={PATH_SAMPLES}, bounces={BOUNCES}, "
@@ -4526,8 +4555,298 @@ def phase_frontend(cornell_counts, mesh_counts):
                            ("xml_mesh256_dl", mesh))}
 
 
+# --------------------------------------------------------------------------
+# phase 24: several ranks on the one card, and the BVH
+# --------------------------------------------------------------------------
+
+# cornellspec512_sppm_sharded: phase 20's cornellspec512_sppm at 2 passes
+MULTI_SPPM = dict(PH_SPPM, passes=2)
+MULTI_LR = 1.0
+MULTI_RANKS = 2
+MULTI_TIMEOUT = 600      # seconds for the two ranks together
+# the BVH's image against phase 7's: the share of pixels off by more than
+# BVH_TIE_ABS in a channel (coplanar and shared-edge ties between the BVH
+# walk and kernel 4's sweep), and the mean absolute difference
+BVH_TIE_SHARE = 0.005
+BVH_TIE_ABS = 1e-2
+BVH_MEAN_ABS = 1e-3
+
+
+def _sharded_match(img, ref, what):
+    """tests/test_sharding.py's tolerance (more than 99.5% of elements
+    within rel 1e-3, mean rel below 2e-3); returns how close."""
+    import torch
+    if img.shape != ref.shape:
+        fail(f"{what}: shape {tuple(img.shape)} != {tuple(ref.shape)}")
+    if torch.equal(img, ref):
+        return "identical"
+    rel = (img - ref).abs() / ref.abs().clamp_min(1.0)
+    share, mean = float((rel < 1e-3).float().mean()), float(rel.mean())
+    if not (share > 0.995 and mean < 2e-3):
+        fail(f"{what}: {share} of elements within rel 1e-3 (want > "
+             f"0.995), mean rel {mean} (want < 2e-3)")
+    return (f"{share:.6f} of elements within rel 1e-3, mean rel {mean:.3e},"
+            f" max abs {float((img - ref).abs().max()):.3e}")
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _collectives(stats):
+    """{name: [calls, bytes, ms a call]} from parallel.distributed.STATS."""
+    return {k: [c, b, round(sec * 1e3 / max(c, 1), 4)]
+            for k, (c, b, sec) in stats.items()}
+
+
+def _rank_run(name, fn, chunks, out):
+    """fn() twice, the counts and time of the second: out[name] = the
+    launches per chunk of every kernel, the collectives and ms a chunk;
+    returns fn's result."""
+    from core_tpu_torch.parallel import distributed as pd
+    fn()
+    reset_counts()
+    pd.reset_stats()
+    sync()
+    t0 = time.perf_counter()
+    res = fn()
+    sync()
+    dt = time.perf_counter() - t0
+    out[name] = {"launches": {k: v // chunks if v % chunks == 0
+                              else v / chunks
+                              for k, v in all_launches().items()},
+                 "collectives": _collectives(pd.STATS),
+                 "ms": dt * 1e3 / chunks, "plain": plain_calls()}
+    return res
+
+
+def multi_rank(rank: int, port: int, out_dir: str):
+    """One of phase 24's two gloo ranks on cuda:0 (run as python3
+    chip_smoke.py --rank RANK PORT DIR): the Cornell bench configuration
+    row-sharded on meshes 2x1 and 1x2, the fwd+bwd bench step on 2x1,
+    cornellspec512_sppm_sharded on 2x1; writes rank{rank}.json (launches
+    per chunk, step or pass, collectives, ms) and, on rank 0, the
+    results."""
+    import numpy as np
+    import torch
+    import bench_cuda as bc
+    from core_tpu_torch import diff
+    from core_tpu_torch.integrators.sppm import SPPMOptions
+    from core_tpu_torch.parallel import distributed as pd
+    from core_tpu_torch.parallel import sharding as sh
+    from core_tpu_torch.scenes import cornell_box
+    pd.init_distributed(f"127.0.0.1:{port}", MULTI_RANKS, rank,
+                        backend="gloo", device="cuda:0")
+    pd.TIMING = True
+    m21 = sh.make_mesh(MULTI_RANKS)
+    m12 = sh.make_mesh(MULTI_RANKS, spp_parallel=MULTI_RANKS)
+    scene = cornell_box(resx=RES, resy=RES, light_samples=LIGHT_SAMPLES,
+                        device="cuda")
+    opts = _cornell_opts(AA_SAMPLES)
+    out, res = {}, {}
+    for name, mesh in (("gloo2_tiles", m21), ("gloo2_spp", m12)):
+        chunks = AA_SAMPLES // mesh.shape["spp"]
+        res[name] = _rank_run(name, lambda: sh.render_image_rowsharded(
+            scene, opts, mesh), chunks, out)
+    step = sh.make_train_step_rowsharded(scene, bc.cornell_opts(), m21,
+                                         bc.SPP_PER_STEP, lr=MULTI_LR)
+    params = diff.extract_params(scene, geometry=False)
+    target = torch.zeros((RES, RES, 4), device="cuda")
+    loss, moved = _rank_run("gloo2_train", lambda: step(params, target), 1,
+                            out)
+    for k in ("mat.diffuse_color", "light0.color"):
+        res[f"train.{k}"] = params[k] - moved[k]
+    res["train.loss"] = loss
+    spec = cornell_box(resx=PH_RES, resy=PH_RES, light_samples=16,
+                       block_materials=PH_BLOCKS, device="cuda")
+    so = SPPMOptions(**MULTI_SPPM)
+    res["gloo2_sppm"] = _rank_run(
+        "gloo2_sppm", lambda: sh.render_sppm_rowsharded(spec, so, m21),
+        so.passes, out)
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(out))
+    if rank == 0:
+        np.savez(Path(out_dir, "results.npz"),
+                 **{k: v.cpu().numpy() for k, v in res.items()})
+    pd.shutdown()
+
+
+def _multi_nccl1(scene, opts):
+    """(i): render_image_rowsharded over a one-rank NCCL group on cuda:0
+    against phase 3's render_image."""
+    from core_tpu_torch.parallel import distributed as pd
+    from core_tpu_torch.parallel import sharding as sh
+    pd.init_distributed(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda:0")
+    try:
+        if pd.dist.get_backend() != "nccl":
+            fail(f"a CUDA rank's default backend is {pd.dist.get_backend()}")
+        pd.TIMING = True
+        mesh = sh.make_mesh(1)
+        row = {}
+        img = _rank_run("nccl1", lambda: sh.render_image_rowsharded(
+            scene, opts, mesh), AA_SAMPLES, row)
+        pd.TIMING = False
+    finally:
+        pd.shutdown()
+    return img, row["nccl1"]
+
+
+def _multi_bvh():
+    """(iv): mesh_scene through the port's native BVH build, one
+    directlight chunk through the torch traversal against phase 7's image
+    (kernels 4 and 6); returns the chunk's launches of every kernel (none
+    may launch)."""
+    import torch
+    from core_tpu_torch import film as film_mod
+    from core_tpu_torch import native
+    from core_tpu_torch.geometry import bvh
+    from core_tpu_torch.render import render_chunk, scene_material_types
+    from core_tpu_torch.scenes import mesh_scene
+    scene = mesh_scene(resx=MESH_RES, resy=MESH_RES, device="cuda")
+    t0 = time.perf_counter()
+    native.build()
+    t_gxx = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sb = bvh.with_bvh_accel(scene)
+    sync()
+    t_build = time.perf_counter() - t0
+    nodes = sb.accel.left.shape[0]
+    reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        film = render_chunk(sb, scene_material_types(sb), _big_opts(),
+                            film_mod.make_film(MESH_RES, MESH_RES,
+                                               device="cuda"), 0, 1, 0)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = all_launches()
+    if sum(launches.values()) or plain_calls():
+        fail(f"the BVH chunk launched kernels {launches} or plain versions")
+    img = film_mod.flush(film)
+    ref = MESH_IMAGES["mesh"]
+    d = (img - ref)[..., :3].abs()
+    share = float((d.amax(dim=-1) > BVH_TIE_ABS).float().mean())
+    mean = float(d.mean())
+    print(f"multi: mesh256_dl_bvh: {scene.geom.n_tris} triangles, g++ "
+          f"{t_gxx:.3f} s (0 = built), native build {t_build:.3f} s, "
+          f"{nodes} nodes; one directlight chunk through the traversal "
+          f"{ms:.3f} ms (no kernel); against phase 7's image: "
+          f"{share:.6f} of pixels off by > {BVH_TIE_ABS}, mean abs {mean:.3e}")
+    if share > BVH_TIE_SHARE or mean > BVH_MEAN_ABS \
+            or not bool(torch.isfinite(img).all()):
+        fail(f"mesh256_dl_bvh: {share} of pixels off by > {BVH_TIE_ABS} "
+             f"(at most {BVH_TIE_SHARE}), mean abs {mean} (at most "
+             f"{BVH_MEAN_ABS})")
+    return launches
+
+
+def phase_multi():
+    """Phase 24; returns each configuration's launches of every kernel per
+    chunk (per step, per pass) and rank."""
+    import numpy as np
+    import torch
+    import bench_cuda as bc
+    from core_tpu_torch import diff
+    from core_tpu_torch.integrators import sppm as sppm_mod
+    from core_tpu_torch.scenes import cornell_box
+    multi = {}
+    ref = CORNELL_IMAGE["render"]
+    scene = cornell_box(resx=RES, resy=RES, light_samples=LIGHT_SAMPLES,
+                        device="cuda")
+    opts = _cornell_opts(AA_SAMPLES)
+    img, row = _multi_nccl1(scene, opts)
+    brute_only(row["launches"], "cornell256_pt_rowsharded nccl1")
+    if row["plain"]:
+        fail("nccl1: the plain versions ran")
+    print(f"multi: cornell256_pt_rowsharded nccl1 (one NCCL rank, cuda:0): "
+          f"{row['ms']:.3f} ms a chunk, launches a chunk "
+          f"{row['launches']}, collectives [calls, bytes, ms a call] "
+          f"{row['collectives']}; against phase 3's image: "
+          f"{_sharded_match(img, ref, 'nccl1')}")
+    multi["nccl1"] = row["launches"]
+
+    # (ii) two gloo ranks on cuda:0
+    torch.cuda.empty_cache()
+    out = BUILD / "multi"
+    out.mkdir(parents=True, exist_ok=True)
+    port = _free_port()
+    procs = []
+    t0 = time.perf_counter()
+    for rank in range(MULTI_RANKS):
+        log = open(out / f"rank{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--rank",
+             str(rank), str(port), str(out)], cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT), log))
+    try:
+        for p, _ in procs:
+            p.wait(timeout=MULTI_TIMEOUT)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    wall = time.perf_counter() - t0
+    for rank, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            fail(f"gloo rank {rank} exited {p.returncode}:\n"
+                 + (out / f"rank{rank}.log").read_text()[-3000:])
+    rows = [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(MULTI_RANKS)]
+    with np.load(out / "results.npz") as f:
+        res = {k: torch.from_numpy(f[k]).cuda() for k in f.files}
+    for name in ("gloo2_tiles", "gloo2_spp"):
+        msg = _sharded_match(res[name], ref, name)
+        print(f"multi: cornell256_pt_rowsharded {name}: against phase 3's "
+              f"image: {msg}")
+    # the single-process references of the step and of SPPM
+    params = diff.extract_params(scene, geometry=False)
+    loss, grads = diff.value_and_grad(bc.cornell_loss(scene))(params)
+    if abs(float(res["train.loss"]) - float(loss)) > 1e-3 * float(loss):
+        fail(f"gloo2_train: loss {float(res['train.loss'])} against the "
+             f"single process's {float(loss)}")
+    worst = 0.0
+    for k in ("mat.diffuse_color", "light0.color"):
+        want = MULTI_LR * grads[k]
+        err = (res[f"train.{k}"] - want).abs()
+        if bool((err > 1e-4 + 1e-3 * want.abs()).any()):
+            fail(f"gloo2_train: lr * grad of {k} off by {float(err.max())}")
+        worst = max(worst, float(err.max()))
+    spec = cornell_box(resx=PH_RES, resy=PH_RES, light_samples=16,
+                       block_materials=PH_BLOCKS, device="cuda")
+    with torch.no_grad():
+        sref = sppm_mod.render_sppm(spec, sppm_mod.SPPMOptions(**MULTI_SPPM))
+    smsg = _sharded_match(res["gloo2_sppm"], sref, "gloo2_sppm")
+    print(f"multi: two gloo ranks on cuda:0, {wall:.3f} s of wall for both "
+          f"processes (start, CUDA context, scenes, every call twice); "
+          f"gloo2_train: loss {float(res['train.loss']):.6f} (single "
+          f"{float(loss):.6f}), lr * grad within {worst:.3e} of the single "
+          f"process's; cornellspec512_sppm_sharded ({MULTI_SPPM['passes']} "
+          f"passes of {MULTI_SPPM['photons']} photons at {PH_RES}^2): {smsg}")
+    units = {"gloo2_tiles": "chunk", "gloo2_spp": "chunk",
+             "gloo2_train": "step", "gloo2_sppm": "pass"}
+    for rank, r in enumerate(rows):
+        for name, unit in units.items():
+            c = r[name]
+            if c["plain"]:
+                fail(f"{name} rank {rank}: the plain versions ran")
+            brute_only(c["launches"], f"{name} rank {rank}")
+            print(f"multi: {name} rank {rank}: {c['ms']:.3f} ms a {unit}, "
+                  f"launches a {unit} {c['launches']}, collectives [calls, "
+                  f"bytes, ms a call] {c['collectives']}")
+            multi[f"{name}_rank{rank}"] = c["launches"]
+    multi["mesh256_dl_bvh"] = _multi_bvh()
+    return multi
+
+
 def main():
     import torch
+    if len(sys.argv) == 5 and sys.argv[1] == "--rank":
+        return multi_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this run needs a CUDA GPU")
     # the port must come from this checkout, not from anywhere on sys.path
@@ -4621,6 +4940,7 @@ def main():
     for name, row in rows.items():
         _merge(kt[name], row)
     frontend = timed("frontend", phase_frontend, cornell_counts, mesh_counts)
+    multi = timed("multi", phase_multi)
 
     replaces = {     # kernels 1 to 8
         "closest_hit": ("core_tpu/geometry/pallas_intersect.py:55",
@@ -4649,7 +4969,9 @@ def main():
     # and cornell256_sss_dl / _pt, per SSS map build; volume_launches:
     # per vol128_golden request and per chunk of each phase-22
     # configuration; frontend_launches: per chunk of each phase-23 scene
-    # file;
+    # file; multi_launches: per chunk of phase 24's one-rank NCCL render,
+    # per rank and chunk (step, pass) of each two-rank gloo configuration,
+    # and per chunk of the BVH (none: its traversal is plain PyTorch);
     # fold_launches: per step of each fold table row
     table = [{"name": name, "route": "cuda", "source": src,
               "replaces": rep, "launches": counts[name], **kt[name],
@@ -4663,7 +4985,8 @@ def main():
               "photon_launches": {c: photons[c][name] for c in photons},
               "bidir_launches": {c: bidir[c][name] for c in bidir},
               "volume_launches": {c: volume[c][name] for c in volume},
-              "frontend_launches": {c: frontend[c][name] for c in frontend}}
+              "frontend_launches": {c: frontend[c][name] for c in frontend},
+              "multi_launches": {c: multi[c][name] for c in multi}}
              for name, (rep, src) in replaces.items()]
     print(json.dumps({"kernels": table}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

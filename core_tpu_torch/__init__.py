@@ -14,11 +14,12 @@ outputs) and differentiated through diff.py; and the front ends: scene
 files through io.xml_loader.parse_xml_scene and io.xml_writer.XmlInterface,
 the command line (python -m core_tpu_torch scene.xml out -f png
 [--device cpu], cli.py), the embedding API (interface.Interface), the
-outputs and live view of gui.py, and the image writers of io/image.py.
-Not ported: rendering over several devices (core_tpu's parallel/: the
-CLI's --devices, -t and --multihost, SPPM's photon_shard) and the BVH
-(geometry/bvh.py, native/), which core_tpu takes only when asked; these
-raise NotImplementedError by name where they can be asked for.
+outputs and live view of gui.py, and the image writers of io/image.py;
+rendering and training over several devices, one rank each
+(parallel/distributed.py, parallel/sharding.py: the row-sharded film,
+photon-sharded SPPM, sharded train steps, the CLI's --devices, -t and
+--multihost); and the BVH (geometry/bvh.py with its native builder,
+native.py), which a scene takes only when asked.
 Entry points run on the card (device="cuda") unless the caller asks for
 the CPU.
 """

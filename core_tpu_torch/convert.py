@@ -16,7 +16,8 @@ device from the two, so both packages compute on identical inputs.
 The flat cluster accel crosses as core_tpu's ClusterData (aabb, and the
 triangle block [C, L, 10]: v0, e1, e2, id), the grouped one as its
 GroupedData with the same triangle block (core_tpu's field-major
-[C, 16, L] block is transposed on the way).  A scene without an accel gets
+[C, 16, L] block is transposed on the way), a BVH as its five node and
+order arrays (geometry/bvh.py BVHData).  A scene without an accel gets
 one by environment.accel_for's triangle-count rule.
 photon_map_from_numpy grids a numpy photon deposit set into this package's
 PhotonMap, so both packages can gather from the same photons.  This module
@@ -31,6 +32,7 @@ import torch
 
 from core_tpu_torch import backgrounds as bgs
 from core_tpu_torch.cameras import STATIC_FIELDS, Camera, check_supported
+from core_tpu_torch.geometry import bvh as bvh_mod
 from core_tpu_torch.geometry import cluster_intersect as ci
 from core_tpu_torch.geometry.mesh import GeomData
 from core_tpu_torch.lights.area import AreaLight
@@ -139,7 +141,10 @@ def _node_programs_static(programs) -> tuple:
 def _accel_numpy(acc):
     """("flat", ClusterData) or ("grouped", GroupedData), with the triangle
     block [C, L, 10], of this package's accel or of core_tpu's
-    ClusterData."""
+    ClusterData; ("bvh", BVHData of numpy arrays) of either package's
+    BVH."""
+    if hasattr(acc, "node_min"):
+        return "bvh", bvh_mod.BVHData(*[_np(a) for a in acc])
     if isinstance(acc, (ci.ClusterAccel, ci.GroupedAccel)):
         tris = _np(torch.cat([acc.tris, acc.tri_id[..., None].float()],
                              dim=-1))
@@ -272,7 +277,10 @@ def scene_from_numpy(leaves: dict, static: dict, *, device="cuda",
                     **{f: type(getattr(Camera, f))(cs[f])
                        for f in STATIC_FIELDS})
     check_supported(camera)
-    if static["accel"]:
+    if static["accel"] == "bvh":
+        accel = bvh_mod.to_device([leaves[f"accel.{f}"]
+                                   for f in bvh_mod.BVHData._fields], device)
+    elif static["accel"]:
         cls = ci.ClusterData if static["accel"] == "flat" else ci.GroupedData
         accel = ci.to_device(cls(*[np.asarray(leaves[f"accel.{f}"])
                                    for f in cls._fields]), device)

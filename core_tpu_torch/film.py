@@ -13,7 +13,9 @@ splats a 3x3 stencil, Gauss (filterw 1.5) 4x4 and Mitchell (1.95) 5x5.
 
 Scope: the dense full-raster splat (add_samples_grid), a stencil of shifted
 adds per footprint offset whose sample_mask also carries an adaptive pass's
-resample flags, the light image of the bidirectional integrator
+resample flags, into the whole image or into a row block's offset frame;
+the scatter splat of samples anywhere in the film (add_samples); the light
+image of the bidirectional integrator
 (add_density_samples, merged at flush), and the adaptive-AA flags of the
 next pass (next_pass_flags, imagefilm.cc:213-286).
 
@@ -95,30 +97,101 @@ def _round2int(x):
     return torch.floor(x + 0.5).to(torch.int32)
 
 
-def _shift(img, j: int, i: int, h: int, w: int):
-    """Move content by (+j, +i) with zero fill (out-of-image drops)."""
-    if j or i:
-        img = F.pad(img, (max(i, 0), max(-i, 0), max(j, 0), max(-j, 0)))
-        img = img[max(-j, 0):max(-j, 0) + h, max(-i, 0):max(-i, 0) + w]
-    return img
+def _shift(img, j: int, i: int, h: int):
+    """img [R, W] moved down j rows and right i columns into an [h, W]
+    frame (row r of img lands on frame row r + j); what falls outside the
+    frame drops, the rest is zero."""
+    r, w = img.shape
+    if j == 0 and i == 0 and r == h:
+        return img
+    y0, y1 = max(j, 0), min(j + r, h)
+    x0, x1 = max(i, 0), min(i + w, w)
+    if y0 >= y1 or x0 >= x1:
+        return img.new_zeros((h, w))
+    return F.pad(img[y0 - j:y1 - j, x0 - i:x1 - i],
+                 (x0, w - x1, y0, h - y1))
+
+
+def add_samples(film: Film, x, y, dx, dy, col_rgba, filterw: float,
+                ftype: FilterType, sample_mask=None,
+                clamp_rgb: bool = False) -> Film:
+    """Splat a wavefront of samples anywhere in the film (core_tpu
+    film.py:87-140).  x, y: [N] integer pixel coordinates in the film's
+    frame; dx, dy: [N] in-pixel offsets in [0, 1); col_rgba: [N, 4].
+    sample_mask: [N] bool, masked-out samples add nothing.
+
+    core_tpu scatter-adds the footprints; here the contributions are
+    stably sorted by pixel and each pixel's run is summed by
+    torch.segment_reduce, an order that does not change from run to run
+    (index_add_ is atomic on the card).  render_chunk does not call it: a
+    row block is a full grid of samples, which add_samples_grid splats
+    into an offset frame."""
+    h, w = film.weight.shape
+    if clamp_rgb:
+        col_rgba = torch.cat([col_rgba[..., :3].clamp(0.0, 1.0),
+                              col_rgba[..., 3:]], dim=-1)
+    k = int(np.floor(2 * filterw)) + 1
+    dx0 = _round2int(dx - filterw)
+    dx1 = _round2int(dx + filterw - 1.0)
+    dy0 = _round2int(dy - filterw)
+    dy1 = _round2int(dy + filterw - 1.0)
+    x_offs = dx - 0.5
+    y_offs = dy - 0.5
+    inv_fw = 1.0 / filterw
+    keys, vals = [], []
+    for oy in range(k):
+        j = dy0 + oy
+        for ox in range(k):
+            i = dx0 + ox
+            px = x + i
+            py = y + j
+            ndx = (i.to(torch.float32) - x_offs).abs() * inv_fw
+            ndy = (j.to(torch.float32) - y_offs).abs() * inv_fw
+            fw_val = _filter_weight(ftype, ndx.clamp_max(1.0),
+                                    ndy.clamp_max(1.0))
+            ok = (i <= dx1) & (j <= dy1) & (px >= 0) & (px < w) \
+                & (py >= 0) & (py < h)
+            if sample_mask is not None:
+                ok = ok & sample_mask
+            fw_val = torch.where(ok, fw_val, 0.0)
+            keys.append(torch.where(ok, py * w + px, h * w).to(torch.int64))
+            vals.append(torch.cat([col_rgba * fw_val[..., None],
+                                   fw_val[..., None]], dim=-1))
+    key, order = torch.sort(torch.cat(keys), stable=True)
+    vals = torch.cat(vals).index_select(0, order)
+    cells, lengths = torch.unique_consecutive(key, return_counts=True)
+    sums = torch.segment_reduce(vals, "sum", lengths=lengths, axis=0)
+    keep = cells < h * w
+    cells, sums = cells[keep], sums[keep]
+    acc = torch.cat([film.rgba.reshape(-1, 4), film.weight.reshape(-1, 1)],
+                    dim=-1)
+    acc = acc.index_put((cells,), acc.index_select(0, cells) + sums)
+    return film._replace(rgba=acc[:, :4].reshape(h, w, 4),
+                         weight=acc[:, 4].reshape(h, w))
 
 
 def add_samples_grid(film: Film, dx, dy, col_rgba, spp: int,
                      filterw: float, ftype: FilterType,
-                     sample_mask=None, clamp_rgb: bool = False) -> Film:
+                     sample_mask=None, clamp_rgb: bool = False,
+                     row0: int = 0) -> Film:
     """Full-raster splat: samples are one per pixel in (s, y, x) order
-    ([spp*H*W] wavefront); the filter footprint is a small stencil of dense
-    shifted adds instead of a scatter."""
+    ([spp*R*W] wavefront of R image rows); the filter footprint is a small
+    stencil of dense shifted adds instead of a scatter.  The sample rows
+    land on the film's rows [row0, row0 + R) (a row block splatting into
+    its halo'd frame; R = the film's height and row0 = 0 for a whole
+    image); footprints that leave the film drop."""
     h, w = film.weight.shape
-    r = col_rgba[..., 0].reshape(spp, h, w)
-    g = col_rgba[..., 1].reshape(spp, h, w)
-    b = col_rgba[..., 2].reshape(spp, h, w)
-    a = col_rgba[..., 3].reshape(spp, h, w)
+    rows = dx.numel() // (spp * w)
+    r = col_rgba[..., 0].reshape(spp, rows, w)
+    g = col_rgba[..., 1].reshape(spp, rows, w)
+    b = col_rgba[..., 2].reshape(spp, rows, w)
+    a = col_rgba[..., 3].reshape(spp, rows, w)
     if clamp_rgb:
         r, g, b = (c.clamp(0.0, 1.0) for c in (r, g, b))
-    dx = dx.reshape(spp, h, w)
-    dy = dy.reshape(spp, h, w)
-    mask = None if sample_mask is None else sample_mask.reshape(spp, h, w)
+    dx = dx.reshape(spp, rows, w)
+    dy = dy.reshape(spp, rows, w)
+    mask = None if sample_mask is None else sample_mask.reshape(spp, rows,
+                                                                w)
 
     dx0 = _round2int(dx - filterw)
     dx1 = _round2int(dx + filterw - 1.0)
@@ -148,7 +221,7 @@ def add_samples_grid(film: Film, dx, dy, col_rgba, spp: int,
                 for k, c in enumerate((r[s] * fw_val, g[s] * fw_val,
                                        b[s] * fw_val, a[s] * fw_val,
                                        fw_val)):
-                    acc[k] = acc[k] + _shift(c, j, i, h, w)
+                    acc[k] = acc[k] + _shift(c, j + row0, i, h)
 
     rgba = film.rgba + torch.stack(acc[:4], dim=-1)
     return film._replace(rgba=rgba, weight=film.weight + acc[4])

@@ -13,9 +13,10 @@ wide, and a 27-cell flat gather at each pixel's shrinking radius.
 
 Eye rays, photons and the direct light trace through scene.closest_hit_s
 and common's NEE (kernels 1 and 2 on a brute scene).  render_sppm's
-checkpoint_path saves and resumes the hit points (checkpoint.py).  Not
-ported: device-sharded photon work (one_pass_block's photon_shard), which
-raises NotImplementedError.
+checkpoint_path saves and resumes the hit points (checkpoint.py).
+one_pass_block's photon_shard splits a pass's photons over the ranks of a
+row-sharded render (parallel/sharding.py render_sppm_rowsharded):
+shoot_sharded.
 """
 from __future__ import annotations
 
@@ -189,17 +190,40 @@ def _pixel_grid(rows: int, w: int, y0: int, device):
     return xs.reshape(-1), (ys + y0).reshape(-1)
 
 
+def shoot_sharded(scene, types_present, opts: SPPMOptions, seed: int,
+                  center, world_r: float, photon_shard, gather):
+    """Shard k of n's part of one pass's photons, merged with the others'
+    (core_tpu sppm.py:254-279): it traces m = photons // n photons from
+    start_index k*m of the pass's global QMC stream, with power_norm m*n,
+    and gather(t) -> [n, *t.shape] (the shards' tensors in shard order)
+    merges the per-bounce deposit blocks, so the merged deposits are
+    element for element the population of a single shoot of m*n photons:
+    the grid build's stable sort and the first-MAX_PER_CELL gather see the
+    same photons.  As in core_tpu, photons % n photons are not shot."""
+    k, n = photon_shard
+    m = opts.photons // n
+    pos, power, dirn, valid = pmap_mod.shoot_photons(
+        scene, types_present, m, opts.bounces, seed=seed, mode="sppm",
+        scene_center=center, scene_radius=world_r, start_index=k * m,
+        power_norm=m * n)
+    # one gather a pass: the four deposit arrays ride as one [B+1, m, 10]
+    # block (valid as 0.0 / 1.0)
+    packed = torch.cat([pos, power, dirn, valid[:, None].to(pos.dtype)],
+                       dim=1).reshape(opts.bounces + 1, m, 10)
+    merged = gather(packed).transpose(0, 1).reshape(-1, 10)
+    return (merged[:, 0:3], merged[:, 3:6], merged[:, 6:9],
+            merged[:, 9] > 0.5)
+
+
 def one_pass_block(scene, types_present, state: HitPoints, pass_idx: int,
                    y0: int, rows: int, w: int, opts: SPPMOptions, cam,
                    center, world_r: float, bmin, bmax, r0: float,
                    photon_shard=None, photon_axis=None) -> HitPoints:
     """One SPPM pass over the pixel rows [y0, y0 + rows): the eye pass, a
     fresh photon population, the flat gather and the radius / flux
-    refinement.  QMC streams key off global pixel coordinates."""
-    if photon_shard is not None or photon_axis is not None:
-        raise NotImplementedError("device-sharded SPPM photon work "
-                                  "(photon_shard) is not ported to "
-                                  "core_tpu_torch yet")
+    refinement.  QMC streams key off global pixel coordinates.
+    photon_shard=(k, n) with photon_axis, a gather over the n shards
+    (shoot_sharded): this shard traces its n-th of the photons."""
     x, y = _pixel_grid(rows, w, y0, scene.device)
     sampling_offs = qmc.fnv32a((y * qmc.fnv32a(x)) & qmc.MASK32)
     pixel_sample = torch.full_like(x, pass_idx & qmc.MASK32)
@@ -214,9 +238,13 @@ def one_pass_block(scene, types_present, state: HitPoints, pass_idx: int,
     # a fresh photon population every pass (sppm.cc prePass): the pass
     # index shifts the photon QMC stream
     seed = (7 + pass_idx * 9176) & qmc.MASK32
-    photons = pmap_mod.shoot_photons(
-        scene, types_present, opts.photons, opts.bounces, seed=seed,
-        mode="sppm", scene_center=center, scene_radius=world_r)
+    if photon_shard is None:
+        photons = pmap_mod.shoot_photons(
+            scene, types_present, opts.photons, opts.bounces, seed=seed,
+            mode="sppm", scene_center=center, scene_radius=world_r)
+    else:
+        photons = shoot_sharded(scene, types_present, opts, seed, center,
+                                world_r, photon_shard, photon_axis)
     grid = pmap_mod.build_photon_grid(*photons, r0, bmin, bmax)
 
     if opts.pm_ire and pass_idx == 0:

@@ -24,7 +24,8 @@ single-scatter attenuation grids; render_chunk hands them on as `aux` and
 `vol_aux`.  The bidirectional integrator's t=1 splats go to the film's
 light image (film.add_density_samples).  render_zbuffer is the primary
 hits' depth image.  A progress bar (`progress=`) ticks once per chunk.
-Not ported: row blocks (core_tpu's row sharding).
+render_chunk also renders a row block into an offset film (y0, rows,
+splat_y0), which parallel/sharding.py's row-sharded films use.
 
 Volumes (core_tpu render.py:260-286): with VolumeOptions(integrator="sky")
 every chunk traces its camera rays once more (scene.closest_hit_s) and the
@@ -181,22 +182,33 @@ def integrator_preprocess(scene, types_present, opts: RenderOptions):
 
 def render_chunk(scene, types_present, opts: RenderOptions, film: Film,
                  pass_offs: int, spp: int, sample0: int, aux=None,
-                 density_y0: int = 0, resample_mask=None,
-                 vol_aux=None) -> Film:
+                 density_y0: int | None = None, resample_mask=None,
+                 vol_aux=None, y0: int = 0, rows: int | None = None,
+                 splat_y0: int = 0) -> Film:
     """Trace spp samples for every pixel and splat them into film.  aux:
     integrator_preprocess's photon or SSS maps, when the integrator takes
     them; vol_aux: volume.precompute_attenuation's grids.  resample_mask:
-    [H, W] bool, the pixels an adaptive pass resamples (None: all).  The
-    bidirectional integrator's light-image splats land in the film's
-    density plane shifted up by density_y0 rows (core_tpu
-    render.py:285-301; 0 for a full-image film)."""
+    [H, W] bool over the whole image, the pixels an adaptive pass
+    resamples (None: all).
+
+    Row blocks (core_tpu render.py:182-200, for parallel/sharding.py): y0
+    and rows restrict the camera rays to the image rows [y0, y0 + rows)
+    (rows=None: to the bottom of the image), and the film covers the image
+    rows [splat_y0, splat_y0 + film height); 0 = the whole image.  QMC
+    streams key off global pixel coordinates, so a block's samples are
+    exactly the single-image samples of its pixels.  The bidirectional
+    integrator's light-image splats land in the film's density plane,
+    whose first row is image row density_y0 (None: splat_y0)."""
     _check_supported(opts)
     cam = scene.camera
     h, w = cam.resy, cam.resx
-    blocked = scene.accel is not None and h % _BLOCK == 0 \
-        and w % _BLOCK == 0
+    rows = h - y0 if rows is None else rows
+    blocked = scene_mod.accel_kind(scene.accel) in ("flat", "grouped") \
+        and rows % _BLOCK == 0 and w % _BLOCK == 0
     grid = _pixel_grid_blocked if blocked else _pixel_grid_raster
-    x, y, s = grid(h, w, spp, scene.device)
+    x, y, s = grid(rows, w, spp, scene.device)
+    if y0:
+        y = y + y0
     s = s + sample0
     sampling_offs = qmc.fnv32a((y * qmc.fnv32a(x)) & qmc.MASK32)
     pixel_sample = (pass_offs + s) & qmc.MASK32
@@ -240,24 +252,26 @@ def render_chunk(scene, types_present, opts: RenderOptions, film: Film,
             # t=1 splats land anywhere in the image (core_tpu
             # render.py:285-301)
             sx, sy, scol, smask, n_paths = splat
-            film = film_mod.add_density_samples(film, sx, sy - density_y0,
+            d_y0 = splat_y0 if density_y0 is None else density_y0
+            film = film_mod.add_density_samples(film, sx, sy - d_y0,
                                                 scol, n_paths,
                                                 sample_mask=smask)
     rgba = _apply_volumes(scene, opts.volume_opts, rays, rgba, pixel_sample,
                           sampling_offs, vol_aux)
     rgba = rgba * wt[..., None]
     if blocked:
-        dx, dy, rgba, wt = (_unblock_to_raster(a, spp, h, w)
+        dx, dy, rgba, wt = (_unblock_to_raster(a, spp, rows, w)
                             for a in (dx, dy, rgba, wt))
     mask = wt > 0.0
     if resample_mask is not None:
-        mask = mask & resample_mask.reshape(1, h * w).expand(spp, -1) \
-            .reshape(-1)
+        mask = mask & resample_mask[y0:y0 + rows].reshape(1, rows * w) \
+            .expand(spp, -1).reshape(-1)
     filterw = film_mod.effective_filterw(opts.filter_size, opts.filter_type)
     return film_mod.add_samples_grid(film, dx, dy, rgba, spp,
                                      filterw=filterw, ftype=opts.filter_type,
                                      sample_mask=mask,
-                                     clamp_rgb=opts.clamp_rgb)
+                                     clamp_rgb=opts.clamp_rgb,
+                                     row0=y0 - splat_y0)
 
 
 def _apply_volumes(scene, vopts: VolumeOptions, rays, rgba, pixel_sample,

@@ -8,7 +8,9 @@ material_params_s), so a caller can count or wrap them in one place.
 Intersection: `_backend` is the one dispatch point.  It picks by the
 scene's accel (None = the brute kernels 1-3 over the packed triangle
 table; a cluster_intersect.ClusterAccel = the flat cluster kernels 4-6; a
-cluster_intersect.GroupedAccel = the grouped kernels 7 and 8) and by its
+cluster_intersect.GroupedAccel = the grouped kernels 7 and 8; a
+bvh.BVHData, only when a caller asks for it = the BVH traversal, plain
+PyTorch under either intersector, as core_tpu's is plain JAX) and by its
 intersector ("cuda" = the hand-written kernels, "torch" = their plain
 PyTorch versions).  resolve_intersector picks "cuda" for a scene on a CUDA
 device and "torch" for one on the CPU; nothing else changes the path, and a
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from core_tpu_torch.cameras import Camera
+from core_tpu_torch.geometry import bvh as bvh_mod
 from core_tpu_torch.geometry import cluster_intersect as ci
 from core_tpu_torch.geometry import cuda_cluster, cuda_intersect
 from core_tpu_torch.geometry import intersect as isect
@@ -129,8 +132,21 @@ def _nee_rebucketed(any_hit):
     return nee
 
 
+def _bvh(query):
+    """A BVH query taking data = (Scene.tri, BVHData)."""
+    def fn(data, *args, **kw):
+        return query(*data, *args, **kw)
+    return fn
+
+
+_BVH_ROUTE = {"closest": _bvh(bvh_mod.closest_hit_bvh),
+              "any": _bvh(bvh_mod.any_hit_bvh),
+              "nee": _bvh(bvh_mod.any_hit_nee_bvh)}
+
 # (accel kind, intersector) -> query -> function(data, ...)
 _ROUTES = {
+    ("bvh", "cuda"): dict(_BVH_ROUTE),
+    ("bvh", "torch"): dict(_BVH_ROUTE),
     ("brute", "cuda"): {"closest": cuda_intersect.closest_hit_cuda,
                         "any": cuda_intersect.any_hit_cuda,
                         "nee": cuda_intersect.any_hit_nee_cuda},
@@ -155,17 +171,22 @@ _ROUTES = {
 
 
 def accel_kind(accel) -> str:
-    """'brute' (no accel), 'flat' or 'grouped'."""
+    """'brute' (no accel), 'flat', 'grouped' or 'bvh'."""
     if accel is None:
         return "brute"
+    if isinstance(accel, bvh_mod.BVHData):
+        return "bvh"
     return "flat" if isinstance(accel, ci.ClusterAccel) else "grouped"
 
 
 def _backend(scene: Scene, query: str):
     """(data, function) answering `query` ("closest", "any" or "nee") for
     the scene's accel and intersector."""
-    fn = _ROUTES[accel_kind(scene.accel), scene.intersector][query]
-    return (scene.tri if scene.accel is None else scene.accel), fn
+    kind = accel_kind(scene.accel)
+    fn = _ROUTES[kind, scene.intersector][query]
+    if kind == "brute":
+        return scene.tri, fn
+    return ((scene.tri, scene.accel) if kind == "bvh" else scene.accel), fn
 
 
 def closest_hit_s(scene: Scene, rays_s: RaysS, exclude_prim=None) -> Hits:

@@ -424,9 +424,11 @@ def test_liveview_serves_png_and_abort():
         view.stop()
 
 
-def test_default_camera_and_refusals(tmp_path):
+def test_default_camera_and_refusals(tmp_path, monkeypatch):
     """Without a camera compile_scene gives core_tpu's default one; the
-    CLI refuses the multi-device flags by name before reading the file."""
+    CLI refuses, by name and before reading the file, more devices than
+    there are cards (--devices / -t N on cuda; this CPU has none) and
+    --multihost without a process group in the env."""
     scenes = []
     for b, pm in ((SceneBuilder("cpu"), ParamMap),
                   (JSceneBuilder(), JParamMap)):
@@ -441,7 +443,14 @@ def test_default_camera_and_refusals(tmp_path):
     _assert_same_leaves(*scenes)
     cam = scenes[0].camera
     assert (cam.resx, cam.resy) == (320, 240)
-    for flags in (["--devices", "2"], ["-t", "2"], ["--multihost"]):
-        with pytest.raises(NotImplementedError, match="parallel/"):
+    for k in ("CORE_TPU_COORDINATOR", "CORE_TPU_NUM_PROCESSES",
+              "CORE_TPU_PROCESS_ID", "MASTER_ADDR", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(k, raising=False)
+    more = str(max(2, torch.cuda.device_count() + 1))
+    for flags, match in (
+            (["--devices", more], "CUDA devices"),
+            (["-t", more], "CUDA devices"),
+            (["--multihost", "--device", "cpu"], "CORE_TPU_COORDINATOR")):
+        with pytest.raises(RuntimeError, match=match):
             cli.main([str(tmp_path / "none.xml"), str(tmp_path / "o"),
-                      "--device", "cpu", *flags])
+                      *flags])

@@ -12,11 +12,13 @@ zoo, dl and pt, on the brute kernels 1-3, and the 64x64 glass-and-glossy
 box under photonmapping, SPPM and photon caustics; the 64x64
 bidirectional, translucent-box SSS and debug renders; the five 64x64
 volume and adaptive-pass renders of chip_smoke's phase 22; a 64x64
-Cornell scene file through the CLI), the
+Cornell scene file through the CLI; a 64x64 render_image_rowsharded
+over a one-rank NCCL group, and the BVH's torch traversal on the card), the
 photonmapping, SPPM and bidirectional goldens at
 tests/test_golden_photon_family.py's bands, and the volume golden at
 tests/test_golden_volume.py's.  The 28 edge cases of kernels 1 and 3 run
-as one item each, which names every failing case.
+as one item each, which names every failing case, and so do kernel 2's
+bundle widths and its dead-lane cases.
 
 Marked `cuda`: each test asks its fixture for a CUDA device and skips
 without one.  Run on a GPU host with
@@ -81,8 +83,19 @@ def test_closest_hit_kernel_matches_plain(device):
                                        msg=lambda m: f"n={n} {f}: {m}")
 
 
-@pytest.mark.parametrize("K", ck.NEE_K)
-def test_any_hit_nee_kernel_matches_plain(device, K):
+def test_any_hit_nee_kernel_matches_plain(device):
+    """Kernel 2 against the plain version at each bundle width K (one
+    item; a failing K is reported by name)."""
+    failed = []
+    for K in ck.NEE_K:
+        try:
+            _nee_matches_plain(device, K)
+        except AssertionError as e:
+            failed.append(f"K={K}: {e!r}")
+    assert not failed, "\n".join(failed)
+
+
+def _nee_matches_plain(device, K):
     n = 4000
     _, tri, rays, ex, g = _inputs(device, n, seed=K)
     dirs = [vec.v3(_unit(torch.randn((n, 3), generator=g, device=device)))
@@ -627,13 +640,24 @@ def _tri_table(device, T, g):
     return torch.cat([tri, torch.cat([v0, e], dim=1)]).contiguous()
 
 
-@pytest.mark.parametrize("T", [36, 257, 4096])
-@pytest.mark.parametrize("K", ck.NEE_K)
-def test_any_hit_nee_kernel_dead_lanes(device, K, T):
+def test_any_hit_nee_kernel_dead_lanes(device):
     """Kernel 2 on lanes in four runs: whole blocks of all-dead lanes,
     all-dead lanes mixed one by one with live ones, lanes with some dead
     rays, and all-live lanes; both exclusions; 1,000 lanes (not a
-    multiple of the block of 128); bits identical to the plain version."""
+    multiple of the block of 128); bits identical to the plain version;
+    at T = 36, 257 and 4,096 triangles and each K (one item; a failing
+    (T, K) is reported by name)."""
+    failed = []
+    for T in (36, 257, 4096):
+        for K in ck.NEE_K:
+            try:
+                _nee_dead_lanes(device, K, T)
+            except AssertionError as e:
+                failed.append(f"T={T} K={K}: {e!r}")
+    assert not failed, "\n".join(failed)
+
+
+def _nee_dead_lanes(device, K, T):
     n = 1000
     _, _, rays, ex, g = _inputs(device, n, seed=100 + K + T)
     tri = _tri_table(device, T, g)
@@ -1005,3 +1029,42 @@ def test_cli_scene_file_through_kernels_equals_plain(device, tmp_path):
     write_png(str(tmp_path / "plain.png"), img.cpu().numpy())
     assert (tmp_path / "cli.png").read_bytes() == \
         (tmp_path / "plain.png").read_bytes()
+
+
+def test_rowsharded_nccl_and_bvh_on_the_card(device):
+    """render_image_rowsharded over a one-rank NCCL group on the card
+    through kernels 1 and 2 is render_image's image (one tile splats the
+    same samples in the same order); the 64^2 Cornell box with the BVH as
+    its accel (the torch traversal, no kernel) renders within 0.5% of
+    pixels of the brute kernels' image."""
+    import socket
+    from core_tpu_torch.geometry import bvh
+    from core_tpu_torch.integrators.direct import DirectOptions
+    from core_tpu_torch.parallel import distributed as pd
+    from core_tpu_torch.parallel import sharding
+    scene = cornell_box(resx=64, resy=64, light_samples=2, device=device)
+    opts = RenderOptions(aa_samples=2, spp_chunk=1, integrator="pathtracing",
+                         integrator_opts=PathOptions(path_samples=2,
+                                                     bounces=2))
+    ref = render_image(scene, opts)[0]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    pd.init_distributed(f"127.0.0.1:{port}", 1, 0, device=str(device))
+    try:
+        assert pd.dist.get_backend() == "nccl"
+        launches = ck.closest_hit_cuda.launches
+        img = sharding.render_image_rowsharded(scene, opts,
+                                               sharding.make_mesh(1))
+        assert ck.closest_hit_cuda.launches > launches
+    finally:
+        pd.shutdown()
+    assert torch.equal(img, ref)
+
+    dl = RenderOptions(integrator_opts=DirectOptions(raydepth=1))
+    sb = bvh.with_bvh_accel(scene)
+    launches = ck.closest_hit_cuda.launches
+    got = render_image(sb, dl)[0]
+    assert ck.closest_hit_cuda.launches == launches
+    d = (got - render_image(scene, dl)[0])[..., :3].abs()
+    assert float((d.amax(dim=-1) > 1e-2).float().mean()) <= 0.005

@@ -632,11 +632,24 @@ def test_photon_entry_points(box, tmp_path):
     assert os.path.isfile(ck)
     img_again, _ = render_image(ts, sppm, checkpoint_path=ck)
     assert torch.equal(img_ck, img_again)
-    with pytest.raises(NotImplementedError, match="photon_shard"):
-        tsppm.one_pass_block(ts, scene_material_types(ts), None, 0, 0, RES,
-                             RES, sppm.integrator_opts, ts.camera, None,
-                             1.0, None, None, 15.0,
-                             photon_shard=(0, 2))
+    # device-sharded photons: one shard of one (photon_shard=(0, 1), its
+    # gather a stack of one) is the single-device pass, bit for bit
+    from core_tpu_torch.integrators.photonmap import scene_bound, world_sphere
+    so = sppm.integrator_opts
+    bmin, bmax = scene_bound(ts)
+    center, world_r = world_sphere(ts, bmin, bmax)
+    zero = torch.zeros(RES * RES)
+    r0 = float(so.search_radius)
+    state = tsppm.HitPoints(r2=torch.full_like(zero, r0 * r0), acc_n=zero,
+                            tau=tsppm.zeros3(zero), direct=tsppm.zeros3(zero))
+    args = (ts, scene_material_types(ts), state, 0, 0, RES, RES, so,
+            ts.camera, center, world_r, bmin, bmax, r0)
+    one = tsppm.one_pass_block(*args)
+    shard = tsppm.one_pass_block(*args, photon_shard=(0, 1),
+                                 photon_axis=lambda t: t[None])
+    for a, b in zip([one.r2, one.acc_n, *one.tau, *one.direct],
+                    [shard.r2, shard.acc_n, *shard.tau, *shard.direct]):
+        assert torch.equal(a, b)
     with pytest.raises(ValueError, match="caustic_type"):
         render_image(ts, RenderOptions(
             integrator="pathtracing",
