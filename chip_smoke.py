@@ -344,6 +344,21 @@ Phases, with their seconds:
                and build seconds), one directlight chunk through the torch
                traversal (no kernel launched) against phase 7's image
                (kernels 4 and 6)
+  25. grad families — one fwd+bwd step of each later family through its
+               kernels (grad_loss: the mean squared RGB of grad_image, the
+               integrator's maps built inside the loss, over the leaves of
+               extract_params(geometry=True)): lightzoo256_dl (kernels 4,
+               5, 6), cornellspec256_pm and cornellspec256_sppm (1, 2),
+               cornell256_bd (1, 3), cornell256_sss_dl (1, 2),
+               cornell256_fog_pt (1, 2, 3), cut where GRAD_CFGS says to
+               fit the card.  A counted step (the loss equal to its no-grad
+               twin's, finite gradients, the live leaves nonzero, no other
+               kernel or plain version launched), then a timed one (ms of
+               the forward and of the backward, peak memory); each
+               configuration at 64^2 through the kernels and through the
+               plain versions under torch.use_deterministic_algorithms:
+               loss and every gradient identical; the launches of one step
+               in each row's grad_launches
 A busy share, in every phase, is the summed duration of the device events
 (kernels, copies, memsets) of one profiled call under torch.profiler's
 CUDA activity, over that call's wall time under the same profiler
@@ -364,7 +379,8 @@ lightzoo256_bd and cornell256_sss_dl / _pt, and per SSS map build, its
 volume_launches those per vol128_golden request and per chunk of each
 phase-22 configuration, its frontend_launches those per chunk of each
 phase-23 scene file, its multi_launches those per chunk (step, pass) and
-rank of each phase-24 configuration.
+rank of each phase-24 configuration, its grad_launches those per fwd+bwd
+step of each phase-25 configuration.
 Any failure raises (non-zero exit).  Imports nothing of jax or core_tpu.
 """
 from __future__ import annotations
@@ -4843,6 +4859,217 @@ def phase_multi():
     return multi
 
 
+# --------------------------------------------------------------------------
+# phase 25: the later families' forward + backward steps
+# --------------------------------------------------------------------------
+
+# Cut to fit the card's 80 GB: under autograd every photon gather keeps
+# its [queries, 27 x 32, 10] float candidate rows for the backward (35 KB a
+# query, and the radiance cache queries every valid deposit of the map),
+# and every NoiseVolume march step the inputs of its ~2,200 operations,
+# for each of the 8 x 5 path vertices' light samples.  The cut steps'
+# peaks are in PERF.md.
+GRAD_PM = dict(PH_PM, photons=100_000, c_photons=100_000)
+GRAD_SPPM = dict(PH_SPPM, passes=2, photons=250_000)
+GRAD_FOG = dict(path_samples=2, bounces=2)
+GRAD_SLICE = 64
+# name: (resolution on the card, the kernels it launches, a map built
+# inside the loss, the leaves whose gradient must be nonzero)
+GRAD_CFGS = {
+    "lightzoo256_dl": (256, ("cluster_closest_hit", "cluster_any_hit",
+                             "cluster_any_hit_nee"), False,
+                       ("light1.color", "light1.center", "light2.color",
+                        "light4.color", "mat.diffuse_color",
+                        "mat.glossy_color", "geom.obj_offset")),
+    "cornellspec256_pm": (256, ("closest_hit", "any_hit_nee"), True,
+                          ("light0.color", "mat.diffuse_color",
+                           "mat.glossy_color")),
+    "cornellspec256_sppm": (256, ("closest_hit", "any_hit_nee"), True,
+                            ("light0.color", "mat.diffuse_color",
+                             "mat.glossy_color")),
+    "cornell256_bd": (256, ("closest_hit", "any_hit"), False,
+                      ("light0.color", "light0.corner", "light0.to_x",
+                       "light0.to_y", "mat.diffuse_color")),
+    "cornell256_sss_dl": (256, ("closest_hit", "any_hit_nee"), True,
+                          ("light0.color", "light0.corner",
+                           "mat.diffuse_color", "mat.glossy_color")),
+    "cornell256_fog_pt": (256, ("closest_hit", "any_hit_nee", "any_hit"),
+                          False, ("light0.color", "light0.corner",
+                                  "mat.diffuse_color")),
+}
+
+
+def grad_image(scene, opts):
+    """The image [H, W, 4] of one differentiable request: the integrator's
+    maps built from `scene` (render.integrator_preprocess: photon maps, the
+    caustic map, the SSS map), one 1-spp render_chunk, and film.flush at
+    gamma 1 (film.normalized plus the light image, which only the
+    bidirectional integrator fills); SPPM renders its passes
+    (render_sppm)."""
+    from core_tpu_torch import film as film_mod
+    from core_tpu_torch.integrators import sppm as sppm_mod
+    from core_tpu_torch.integrators import volume as vol_mod
+    from core_tpu_torch.render import (integrator_preprocess, render_chunk,
+                                       scene_material_types)
+    if opts.integrator == "SPPM":
+        return sppm_mod.render_sppm(scene, opts.integrator_opts)
+    types = scene_material_types(scene)
+    aux = integrator_preprocess(scene, types, opts)
+    vol_aux = vol_mod.precompute_attenuation(scene, opts.volume_opts)
+    cam = scene.camera
+    film = film_mod.make_film(cam.resy, cam.resx, device=scene.device)
+    film = render_chunk(scene, types, opts, film, 0, 1, 0, aux=aux,
+                        vol_aux=vol_aux)
+    return film_mod.flush(film)
+
+
+def grad_loss(scene, opts, map_in_loss):
+    """(loss(params), params): the mean squared RGB of grad_image of the
+    scene with params applied, against a zero target (the bench loss), and
+    the leaves of extract_params(geometry=True); where the loss builds a
+    map, without geom.obj_offset."""
+    import torch
+    from core_tpu_torch import diff
+    params = diff.extract_params(scene, geometry=True)
+    if map_in_loss:
+        del params["geom.obj_offset"]
+
+    def loss_fn(p):
+        img = grad_image(diff.apply_params(scene, p), opts)
+        return torch.mean(img[..., :3] ** 2)
+
+    return loss_fn, params
+
+
+def grad_config(name, res, intersector="auto"):
+    """(scene, RenderOptions) of a phase-25 configuration at res^2, 1 spp."""
+    import dataclasses
+    from core_tpu_torch.scenes import cornell_box
+    if name == "lightzoo256_dl":
+        scene, opts = light_zoo_scene(res), light_zoo_opts("dl")
+    elif name in ("cornellspec256_pm", "cornellspec256_sppm"):
+        scene = cornell_box(resx=res, resy=res, light_samples=16,
+                            block_materials=PH_BLOCKS, device="cuda")
+        opts = photon_opts("pm", GRAD_PM, 1, 1) if name.endswith("_pm") \
+            else photon_opts("sppm", GRAD_SPPM, 1, 1)
+    elif name == "cornell256_bd":
+        scene = cornell_box(resx=res, resy=res, light_samples=16,
+                            device="cuda")
+        opts = bidir_opts(1, 1)
+    elif name == "cornell256_sss_dl":
+        scene, opts = translucent_box(res, 16), sss_opts("dl", True)
+    elif name == "cornell256_fog_pt":
+        scene, opts = volume_config(name, res)
+        opts = dataclasses.replace(opts, integrator_opts=dataclasses.replace(
+            opts.integrator_opts, **GRAD_FOG))
+    else:
+        raise ValueError(name)
+    if intersector != "auto":
+        scene = dataclasses.replace(scene, intersector=intersector)
+    return scene, opts
+
+
+def _grad_step(name, res):
+    """Two fwd+bwd steps of a configuration at res^2 through the kernels.
+    The first is counted and checked: its loss equals its no-grad twin's,
+    its gradients are finite and the live leaves' nonzero, and only the
+    configuration's kernels launched.  The second is timed (forward and
+    backward apart) with its peak device memory.  Returns the launches of
+    one step."""
+    import torch
+    _, want, in_loss, live = GRAD_CFGS[name]
+    scene, opts = grad_config(name, res)
+    loss_fn, params = grad_loss(scene, opts, in_loss)
+    with torch.no_grad():
+        ref = loss_fn(params)
+
+    def step():
+        leaves = {k: v.detach().clone().requires_grad_()
+                  for k, v in params.items()}
+        sync()
+        t0 = time.perf_counter()
+        loss = loss_fn(leaves)
+        sync()
+        t1 = time.perf_counter()
+        gs = torch.autograd.grad(loss, list(leaves.values()),
+                                 allow_unused=True)
+        sync()
+        grads = {k: torch.zeros_like(v) if g is None else g
+                 for (k, v), g in zip(leaves.items(), gs)}
+        return loss.detach(), grads, (t1 - t0) * 1e3, \
+            (time.perf_counter() - t1) * 1e3
+
+    torch.cuda.empty_cache()
+    reset_counts()
+    loss, grads, _, _ = step()
+    launches = all_launches()
+    _only_kernels(launches, want, f"{name} fwd+bwd")
+    _grads_ok(loss, grads, name)
+    if not torch.equal(loss, ref):
+        fail(f"{name}: the loss {float(loss)!r} differs from its no-grad "
+             f"twin's {float(ref)!r}")
+    zero = [k for k in live if float(grads[k].abs().max()) <= 0.0]
+    if zero:
+        fail(f"{name}: zero gradient of the live leaves {zero}")
+    top = {k: float(g.abs().max()) for k, g in grads.items()}
+    del grads
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, fwd, bwd = step()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"grad families: {name} at {res}^2, 1 spp: loss "
+          f"{float(loss):.6f} (== no-grad), fwd+bwd {fwd + bwd:.3f} ms "
+          f"(forward {fwd:.3f}, backward {bwd:.3f}: share "
+          f"{bwd / (fwd + bwd):.3f}), peak device memory {peak:.3f} GiB, "
+          f"launches in a step {launches}, plain calls 0; max |grad| {top}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _grad_slice(name):
+    """The configuration at 64^2 through the kernels and through the plain
+    versions, under torch's deterministic algorithms (the backward's
+    index sums in a fixed order): loss and every gradient identical."""
+    import torch
+    from core_tpu_torch import diff
+    in_loss = GRAD_CFGS[name][2]
+    out = {}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for isec in ("cuda", "torch"):
+            loss_fn, params = grad_loss(*grad_config(name, GRAD_SLICE,
+                                                     isec), in_loss)
+            out[isec] = diff.value_and_grad(loss_fn)(params)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (lk, gk), (lp, gp) = out["cuda"], out["torch"]
+    _grads_ok(lk, gk, f"{name} {GRAD_SLICE}^2")
+    if not torch.equal(lk, lp):
+        fail(f"{name} {GRAD_SLICE}^2: loss through the kernels {float(lk)!r}"
+             f", through the plain versions {float(lp)!r}")
+    diff_leaves = {k: float((gk[k] - gp[k]).abs().max()) for k in gp
+                   if not torch.equal(gk[k], gp[k])}
+    if diff_leaves:
+        fail(f"{name} {GRAD_SLICE}^2: gradients through the kernels differ "
+             f"from those through the plain versions: max abs "
+             f"{diff_leaves}")
+    print(f"grad families: {name} at {GRAD_SLICE}^2: loss and "
+          f"{len(gp)} gradients through the kernels == through the plain "
+          f"versions (bit-identical), loss {float(lk):.6f}")
+
+
+def phase_grad_families():
+    """Phase 25; returns each configuration's launches of every kernel in
+    one fwd+bwd step."""
+    import torch
+    launches = {}
+    for name, (res, *_) in GRAD_CFGS.items():
+        launches[name] = _grad_step(name, res)
+        _grad_slice(name)
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
     if len(sys.argv) == 5 and sys.argv[1] == "--rank":
@@ -4941,6 +5168,7 @@ def main():
         _merge(kt[name], row)
     frontend = timed("frontend", phase_frontend, cornell_counts, mesh_counts)
     multi = timed("multi", phase_multi)
+    grad = timed("grad families", phase_grad_families)
 
     replaces = {     # kernels 1 to 8
         "closest_hit": ("core_tpu/geometry/pallas_intersect.py:55",
@@ -4972,7 +5200,8 @@ def main():
     # file; multi_launches: per chunk of phase 24's one-rank NCCL render,
     # per rank and chunk (step, pass) of each two-rank gloo configuration,
     # and per chunk of the BVH (none: its traversal is plain PyTorch);
-    # fold_launches: per step of each fold table row
+    # fold_launches: per step of each fold table row; grad_launches: per
+    # fwd+bwd step of each phase-25 configuration
     table = [{"name": name, "route": "cuda", "source": src,
               "replaces": rep, "launches": counts[name], **kt[name],
               "fwdbwd_launches": fwdbwd[name],
@@ -4986,7 +5215,8 @@ def main():
               "bidir_launches": {c: bidir[c][name] for c in bidir},
               "volume_launches": {c: volume[c][name] for c in volume},
               "frontend_launches": {c: frontend[c][name] for c in frontend},
-              "multi_launches": {c: multi[c][name] for c in multi}}
+              "multi_launches": {c: multi[c][name] for c in multi},
+              "grad_launches": {c: grad[c][name] for c in grad}}
              for name, (rep, src) in replaces.items()]
     print(json.dumps({"kernels": table}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

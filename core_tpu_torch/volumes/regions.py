@@ -281,17 +281,19 @@ def cross_bb(vol, rays: RaysS):
     """The rays' interval in the box, clipped to [0, tmax] (tmax <= 0 =
     unbounded, 3e38); (hit, t0, t1), hit = t1 > t0."""
     tmax_cap = torch.where(rays.tmax > 0, rays.tmax, 3.0e38)
-    t0 = t1 = None
+    tn, tf = [], []
     for k, (o, d) in enumerate(zip(rays.o, rays.d)):
         inv_d = 1.0 / torch.where(d.abs() < 1e-20,
                                   torch.where(d < 0, -1e-20, 1e-20), d)
         a = (vol.bmin[k] - o) * inv_d
         b = (vol.bmax[k] - o) * inv_d
-        tn, tf = torch.minimum(a, b), torch.maximum(a, b)
-        t0 = tn if t0 is None else torch.maximum(t0, tn)
-        t1 = tf if t1 is None else torch.minimum(t1, tf)
-    t0 = t0.clamp_min(0.0)
-    t1 = torch.minimum(t1, tmax_cap)
+        tn.append(torch.minimum(a, b))
+        tf.append(torch.maximum(a, b))
+    # one reduction over the axes and a maximum with 0, as core_tpu's
+    # (regions.py:276-279): their gradients split evenly between equal
+    # values (a shading point on the box's face starts its rays at t = 0)
+    t0 = torch.maximum(torch.stack(tn).amax(0), torch.zeros_like(tn[0]))
+    t1 = torch.minimum(torch.stack(tf).amin(0), tmax_cap)
     return t1 > t0, t0, t1
 
 
