@@ -359,6 +359,23 @@ Phases, with their seconds:
                plain versions under torch.use_deterministic_algorithms:
                loss and every gradient identical; the launches of one step
                in each row's grad_launches
+  26. image codecs — the port's JPEG / TIFF / TGA codecs
+               (csrc/image_codecs.cpp, built by g++ at first use): (a)
+               every file of tests/data/torch_codecs/ decodes to the .npy
+               beside it (core_tpu's PIL decode, made on the CPU)
+               exactly; (b) xml_cornell256_tex_pt: phase 23's Cornell
+               file with the red wall's diffuse colour through a
+               texture_mapper over a 1024^2 4:2:0 JPEG and the green
+               wall's over a 1024^2 LZW TIFF, both written by the port's
+               writers from a seeded pattern, rendered by cli.main
+               (--device cuda) in turns with the untextured file: kernels
+               1 and 2 at phase 3's launches a chunk, no other kernel and
+               no plain version, the image equal to render_image of the
+               parsed scene, ms a chunk of both; (c) the file at 64^2
+               through the kernels and the plain versions, identical; (d)
+               the host's encode and decode ms (and MP/s) of a 4096^2
+               4:2:0 JPEG and LZW TIFF written by the port, beside the
+               card's name and power limit; (e) the phase within 60 s
 A busy share, in every phase, is the summed duration of the device events
 (kernels, copies, memsets) of one profiled call under torch.profiler's
 CUDA activity, over that call's wall time under the same profiler
@@ -380,7 +397,8 @@ volume_launches those per vol128_golden request and per chunk of each
 phase-22 configuration, its frontend_launches those per chunk of each
 phase-23 scene file, its multi_launches those per chunk (step, pass) and
 rank of each phase-24 configuration, its grad_launches those per fwd+bwd
-step of each phase-25 configuration.
+step of each phase-25 configuration, its codec_launches those per chunk of
+phase 26's textured scene file.
 Any failure raises (non-zero exit).  Imports nothing of jax or core_tpu.
 """
 from __future__ import annotations
@@ -5070,6 +5088,220 @@ def phase_grad_families():
     return launches
 
 
+# --------------------------------------------------------------------------
+# phase 26: the image codecs
+# --------------------------------------------------------------------------
+
+CODECS_LIMIT_S = 60
+CODEC_TEX_RES = 1024      # the walls' JPEG and TIFF, pixels a side
+CODEC_BIG = 4096          # the host codecs' timed image, pixels a side
+CODEC_REPS = 3
+CODEC_JPEG_MAE = 8.0      # mean |decode(encode(x)) - x| in 8-bit levels
+FIXTURES = ROOT / "tests" / "data" / "torch_codecs"
+
+
+def wall_pattern(res, seed):
+    """A smooth seeded colour pattern with fine noise: float32 [res, res,
+    3] in [0, 1]."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:res, 0:res] / res
+    freq, phase = rng.uniform(2.0, 9.0, 3), rng.uniform(0.0, 6.28, 3)
+    img = np.stack([0.5 + 0.4 * np.sin(2 * np.pi * freq[c] * (x + 0.5 * y)
+                                       + phase[c]) for c in range(3)], -1)
+    img += rng.normal(0.0, 0.03, img.shape)
+    return np.clip(img, 0.0, 1.0).astype(np.float32)
+
+
+def textured_cornell_xml(path, res, jpg, tif):
+    """write_cornell_xml's file with the red wall's diffuse colour through
+    a texture_mapper over the image `jpg` and the green wall's over `tif`
+    (global coordinates: the wall's z and y onto the image's u and v)."""
+    text = write_cornell_xml(path, res).read_text()
+    tex = "".join(f'<texture name="{n}">\n\t<type sval="image"/>\n'
+                  f'\t<filename sval="{f}"/>\n</texture>\n'
+                  for n, f in (("wall_jpg", jpg), ("wall_tif", tif)))
+    for mat, texture in (("red", "wall_jpg"), ("green", "wall_tif")):
+        end = text.index("</material>", text.index(f'<material name="{mat}">'))
+        text = text[:end] + (
+            '\t<diffuse_shader sval="map"/>\n\t<list_element>\n'
+            '\t\t<element sval="shader_node"/>\n\t\t<name sval="map"/>\n'
+            '\t\t<type sval="texture_mapper"/>\n'
+            f'\t\t<texture sval="{texture}"/>\n'
+            '\t\t<texco sval="global"/>\n\t\t<proj_x ival="3"/>\n'
+            '\t\t<proj_y ival="2"/>\n'
+            '\t\t<scale x="0.0035765" y="0.0036443" z="1"/>\n'
+            '\t\t<offset x="-1" y="-1" z="0"/>\n\t</list_element>\n') \
+            + text[end:]
+    text = text.replace('<material name="white">',
+                        tex + '<material name="white">', 1)
+    Path(path).write_text(text)
+    return Path(path)
+
+
+def _codec_fixtures():
+    """Part (a): every fixture decoded to its .npy exactly."""
+    import numpy as np
+    from core_tpu_torch import native
+    from core_tpu_torch.io.image import read_image
+    built = native.library_path(native.CODECS_SRC).exists()
+    t0 = time.perf_counter()
+    native.load_codecs()
+    t_gxx = time.perf_counter() - t0
+    files = sorted(p for p in FIXTURES.iterdir() if p.suffix != ".npy")
+    if len(files) < 11:
+        fail(f"codecs: {len(files)} fixtures under {FIXTURES}, expected 11")
+    for p in files:
+        got, want = read_image(str(p)), np.load(str(p) + ".npy")
+        if got.shape != want.shape or not np.array_equal(
+                got.view(np.uint32), want.view(np.uint32)):
+            fail(f"codecs: {p.name} decodes differently from its .npy")
+    how = "loaded (built before) in" if built else "built by g++ in"
+    print(f"codecs: (a) csrc/image_codecs.cpp {how} {t_gxx:.3f} s; "
+          f"{len(files)} fixtures decode to their .npy "
+          f"exactly: {', '.join(p.name for p in files)}")
+
+
+def _codec_cornell(per_chunk):
+    """Parts (b) and (c); returns the launches a chunk."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from core_tpu_torch.io import tiff
+    from core_tpu_torch.io.image import write_image
+    from core_tpu_torch.io.xml_loader import parse_xml_scene
+    from core_tpu_torch.render import render_image
+    jpg, tif = BUILD / "codec_wall.jpg", BUILD / "codec_wall.tif"
+    t0 = time.perf_counter()
+    write_image(str(jpg), wall_pattern(CODEC_TEX_RES, 1))
+    tiff.write_tiff(str(tif), (wall_pattern(CODEC_TEX_RES, 2) * 255.0
+                               + 0.5).astype(np.uint8), "tiff_lzw")
+    t_write = time.perf_counter() - t0
+    head = jpg.read_bytes()
+    sof = head.index(b"\xff\xc0")
+    if head[sof + 11] != 0x22 or head[sof + 14] != 0x11:
+        fail("codecs: the wall's JPEG is not 4:2:0")
+    if tiff._ifd(tif.read_bytes(), str(tif))[0][259] != (5,):
+        fail("codecs: the wall's TIFF is not LZW")
+    files = {"xml_cornell256_pt": write_cornell_xml(
+                 BUILD / "codec_cornell_plain.xml", RES),
+             "xml_cornell256_tex_pt": textured_cornell_xml(
+                 BUILD / "codec_cornell.xml", RES, jpg, tif)}
+    want = {k: AA_SAMPLES * n for k, n in per_chunk.items()}
+    ms, imgs = {k: [] for k in files}, {}
+    for _ in range(2):                    # in turns: plain, textured
+        for name, xml in files.items():
+            reset_counts()
+            imgs[name], ev = _cli([str(xml), str(BUILD / name), "-f", "png",
+                                   "--device", "cuda", "-v", "0"])
+            launches = all_launches()
+            if {k: launches[k] for k in want} != want or \
+                    sum(launches.values()) != sum(want.values()):
+                fail(f"{name}: launches {launches}, expected {want}")
+            if plain_calls():
+                fail(f"{name}: the plain versions ran {plain_calls()} times")
+            ms[name].append(ev["render"] * 1e3 / AA_SAMPLES)
+    tex = imgs["xml_cornell256_tex_pt"]
+    scene, opts = parse_xml_scene(str(files["xml_cornell256_tex_pt"]),
+                                  device="cuda")
+    if scene.textures is None or len(scene.node_programs) != 2:
+        fail("xml_cornell256_tex_pt: the walls' textures were not parsed")
+    ref = render_image(scene, opts)[0]
+    if not torch.equal(tex, ref):
+        fail("xml_cornell256_tex_pt: the CLI's image differs from "
+             "render_image of the parsed scene")
+    if tex.shape[:2] != (RES, RES) or not bool(torch.isfinite(tex).all()):
+        fail(f"xml_cornell256_tex_pt: image {tuple(tex.shape)}, finite "
+             f"{bool(torch.isfinite(tex).all())}")
+    moved = float((tex - imgs["xml_cornell256_pt"]).abs().mean())
+    if moved == 0.0:
+        fail("xml_cornell256_tex_pt: the textures changed no pixel")
+    print(f"codecs: (b) the walls' {CODEC_TEX_RES}^2 4:2:0 JPEG "
+          f"({jpg.stat().st_size} bytes) and LZW TIFF "
+          f"({tif.stat().st_size} bytes) written by the port in "
+          f"{t_write:.3f} s; xml_cornell256_tex_pt through cli.main: "
+          f"launches a chunk {per_chunk} (phase 3's), plain calls 0, image "
+          f"== render_image of the parsed scene, mean "
+          f"{float(tex[..., :3].mean()):.6f} (mean |textured - plain| "
+          f"{moved:.6f}), sha256 {image_digest(tex)}; ms a chunk in turns: "
+          + ", ".join(f"{k} {[round(v, 3) for v in t]}"
+                      for k, t in ms.items()))
+    xml64 = textured_cornell_xml(BUILD / "codec_cornell64.xml", 64, jpg, tif)
+    s64, o64 = parse_xml_scene(str(xml64), device="cuda")
+    a = render_image(s64, o64)[0]
+    b = render_image(dataclasses.replace(s64, intersector="torch"), o64)[0]
+    if not torch.equal(a, b):
+        fail(f"codecs: the 64^2 textured file through the kernels and "
+             f"the plain versions differ by {float((a - b).abs().max())}")
+    print(f"codecs: (c) 64^2 xml_cornell_tex_pt through the kernels == "
+          f"through the plain versions (bit-identical), sha256 "
+          f"{image_digest(a)}")
+    return per_chunk
+
+
+def _codec_times():
+    """Part (d): the host codecs on a CODEC_BIG^2 image, CODEC_REPS times
+    each.  The image is wall_pattern's synthetic field, whose noise LZW
+    cannot compress (the file comes out larger than the pixels): no
+    texture from a named source, so its LZW times are no typical ones."""
+    import numpy as np
+    from core_tpu_torch.io import jpeg, tiff
+    rgb = (wall_pattern(CODEC_BIG, 3) * 255.0 + 0.5).astype(np.uint8)
+    mp = CODEC_BIG * CODEC_BIG / 1e6
+    rows = {}
+    for name, enc, dec in (
+            ("jpeg_420_q75", jpeg.encode_jpeg, jpeg.decode_jpeg),
+            ("tiff_lzw", lambda x: tiff.encode_tiff(x, "tiff_lzw"),
+             tiff.decode_tiff)):
+        t_enc, t_dec = [], []
+        for _ in range(CODEC_REPS):
+            t0 = time.perf_counter()
+            data = enc(rgb)
+            t_enc.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            out = dec(data)
+            t_dec.append(time.perf_counter() - t0)
+        err = float(np.abs(out.astype(np.int32) - rgb).mean())
+        if name == "tiff_lzw" and err != 0.0:
+            fail("codecs: the LZW TIFF does not decode to its image")
+        if err > CODEC_JPEG_MAE:
+            fail(f"codecs: the JPEG decodes {err} levels from its image")
+        rows[name] = (len(data), t_enc, t_dec, err)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip().splitlines()[:1]
+    for name, (size, t_enc, t_dec, err) in rows.items():
+        print(f"codecs: (d) {name} {CODEC_BIG}^2 of wall_pattern ({size} "
+              f"bytes, {size / rgb.nbytes:.3f} x its pixels; mean |error| "
+              f"{err:.4f} levels) on the host of {smi}: encode ms "
+              f"{[round(t * 1e3, 3) for t in t_enc]} (best "
+              f"{mp / min(t_enc):.3f} MP/s), decode ms "
+              f"{[round(t * 1e3, 3) for t in t_dec]} (best "
+              f"{mp / min(t_dec):.3f} MP/s)")
+
+
+def phase_codecs(cornell_counts):
+    """Phase 26 (see the header).  cornell_counts: phase 3's launches over
+    its two requests of AA_SAMPLES chunks.  Returns
+    xml_cornell256_tex_pt's launches of each kernel a chunk."""
+    t0 = time.perf_counter()
+    _codec_fixtures()
+    t1 = time.perf_counter()
+    per_chunk = _codec_cornell(_per_chunk(
+        cornell_counts, 2 * AA_SAMPLES, ("closest_hit", "any_hit_nee"),
+        "phase 3"))
+    t2 = time.perf_counter()
+    _codec_times()
+    t3 = time.perf_counter()
+    print(f"codecs: phase 26 {t3 - t0:.3f} s: (a) {t1 - t0:.3f} s, (b) and "
+          f"(c) {t2 - t1:.3f} s, (d) {t3 - t2:.3f} s")
+    if t3 - t0 > CODECS_LIMIT_S:
+        fail(f"phase 26 took {t3 - t0:.1f} s, over {CODECS_LIMIT_S} s")
+    return {"xml_cornell256_tex_pt": {k: per_chunk.get(k, 0)
+                                      for k in all_launches()}}
+
+
 def main():
     import torch
     if len(sys.argv) == 5 and sys.argv[1] == "--rank":
@@ -5169,6 +5401,7 @@ def main():
     frontend = timed("frontend", phase_frontend, cornell_counts, mesh_counts)
     multi = timed("multi", phase_multi)
     grad = timed("grad families", phase_grad_families)
+    codec = timed("image codecs", phase_codecs, cornell_counts)
 
     replaces = {     # kernels 1 to 8
         "closest_hit": ("core_tpu/geometry/pallas_intersect.py:55",
@@ -5201,7 +5434,8 @@ def main():
     # per rank and chunk (step, pass) of each two-rank gloo configuration,
     # and per chunk of the BVH (none: its traversal is plain PyTorch);
     # fold_launches: per step of each fold table row; grad_launches: per
-    # fwd+bwd step of each phase-25 configuration
+    # fwd+bwd step of each phase-25 configuration; codec_launches: per
+    # chunk of phase 26's textured scene file
     table = [{"name": name, "route": "cuda", "source": src,
               "replaces": rep, "launches": counts[name], **kt[name],
               "fwdbwd_launches": fwdbwd[name],
@@ -5216,7 +5450,8 @@ def main():
               "volume_launches": {c: volume[c][name] for c in volume},
               "frontend_launches": {c: frontend[c][name] for c in frontend},
               "multi_launches": {c: multi[c][name] for c in multi},
-              "grad_launches": {c: grad[c][name] for c in grad}}
+              "grad_launches": {c: grad[c][name] for c in grad},
+              "codec_launches": {c: codec[c][name] for c in codec}}
              for name, (rep, src) in replaces.items()]
     print(json.dumps({"kernels": table}))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -139,12 +139,11 @@ class SceneBuilder:
         """Parse a material's shader-node list and record which of its
         slots are node-mapped (nodematerial.cc loadNodes, and the material
         factories reading their '<slot>_shader' parameters).  A node type
-        core_tpu does not know raises (core_tpu substitutes white)."""
+        core_tpu does not know evaluates to white, as there."""
         ndefs = tuple(nd for nd in (nodes.parse_node(pm) for pm in extra)
                       if nd is not None)
         if not ndefs:
             return
-        nodes.check_supported(ndefs)
         names = {nd.name for nd in ndefs}
         for slot in self.NODE_SLOTS:
             ref = p.get_str(slot, "")

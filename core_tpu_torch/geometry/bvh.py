@@ -53,7 +53,7 @@ def to_device(arrays, device) -> BVHData:
 
 
 def build_bvh(verts, tri_vidx, max_leaf: int = MAX_LEAF, n_bins: int = 16,
-              force_native: bool = False, device="cpu") -> BVHData:
+              force_native: bool = False, device="cuda") -> BVHData:
     """Binned-SAH top-down build (core_tpu/geometry/bvh.py:47-161), with
     an explicit stack so children are allocated in pairs (right = left +
     1).  At NATIVE_THRESHOLD triangles and above, or with force_native, the

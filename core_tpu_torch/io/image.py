@@ -1,29 +1,46 @@
 """Image input and output (counterpart of core_tpu/io/image.py).
 
+The card's machine has no image library, so every format core_tpu reads
+or writes, itself or through PIL, is decoded and encoded here: with numpy
+and zlib, and for JPEG and TIFF with the port's C++ codecs
+(csrc/image_codecs.cpp, built by g++ at first use; a failed build raises
+with g++'s output).
+
 read_image(path) -> float32 [H, W, C], row 0 the top of the picture, by
-extension, with numpy and zlib only (the card's machine has no image
-library):
+extension:
 - .png: core_tpu's read_png (8-bit grey, grey + alpha, RGB or RGBA, no
   interlace; every scanline filter) -> values / 255, C = 1, 2, 3 or 4;
 - .hdr / .pic: core_tpu's read_hdr (Radiance RGBE, flat or RLE
   scanlines) -> linear RGB;
 - .exr: core_tpu's read_exr (uncompressed FLOAT scanlines, core_tpu's
   write_exr subset) -> RGB, and A where the file has it;
-- .tga: decoded here: uncompressed (type 2) and run-length encoded (type
-  10) true-colour files of 24 or 32 bits per pixel, either origin
-  (descriptor bits 4 and 5).  Like core_tpu's PIL path
-  (Image.open(path).convert("RGB")) it drops a 32-bit file's alpha and
-  scales the 8-bit values by `astype(float32) / 255.0`, so the two give
-  the same bits;
-- .npy: the array it holds.
-Other TGA variants raise NotImplementedError, as do other extensions,
-which core_tpu reads through PIL.
+- .npy: the array it holds;
+- and, as core_tpu's PIL path gives them (Image.open(path).convert("RGB"),
+  then astype(float32) / 255, so the two give the same bits), C = 3:
+  - .jpg / .jpeg / .jpe / .jfif: io/jpeg.py (baseline and progressive
+    Huffman, 8-bit, grey or YCbCr / RGB, 4:4:4, 4:2:2 or 4:2:0);
+  - .tif / .tiff: io/tiff.py (strips or tiles, either byte order; none,
+    LZW, PackBits or Deflate; 8-bit RGB / RGBA / grey / palette, bilevel,
+    16-bit grey and RGB);
+  - .tga: types 1 and 9 (8-bit indices into a 16- or 24-bit colour map),
+    2 and 10 (16-bit A1R5G5B5, 24 and 32 bits), 3 and 11 (8-bit grey,
+    16-bit grey + alpha, and 1-bit uncompressed), either origin
+    (descriptor bits 4 and 5), the alpha dropped and 5-bit channels
+    expanded as c * 255 // 31.
+The variants PIL cannot read either (15-bit or 32-bit-mapped TGA), and
+those io/jpeg.py and io/tiff.py refuse by name (arithmetic-coded,
+lossless, 12-bit and CMYK JPEG; JPEG-in-TIFF and CCITT TIFF; ...), raise
+NotImplementedError, as do the other extensions PIL reads (BMP, GIF,
+WebP, ...), which are still to port.
 
 The writers are core_tpu's, and write the same bytes for the same array:
 write_png (8-bit RGB or RGBA, zlib level 6), write_hdr (flat RGBE),
 write_tga (uncompressed, top-left origin), write_exr (uncompressed FLOAT
-scanlines), and write_image by extension (those four and .npy).  Other
-extensions, which core_tpu writes through PIL, raise NotImplementedError.
+scanlines), and write_image by extension (those four, .npy, and what
+core_tpu writes through PIL at its defaults: .jpg / .jpeg / .jpe / .jfif
+as a quality-75 4:2:0 baseline JPEG, .tif / .tiff as one uncompressed RGB
+strip, both of to_uint8(img[..., :3])).  Other extensions raise
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -33,16 +50,23 @@ import zlib
 
 import numpy as np
 
+from core_tpu_torch.io import jpeg, tiff
+
+_JPEG_EXTS = ("jpg", "jpeg", "jpe", "jfif")
+_TIFF_EXTS = ("tif", "tiff")
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
 _EXR_MAGIC = b"\x76\x2f\x31\x01"
 
-_TGA_TYPES = {2: "uncompressed true-colour", 10: "RLE true-colour"}
+_TGA_TYPES = {1: "colour-mapped", 2: "true-colour", 3: "grey",
+              9: "RLE colour-mapped", 10: "RLE true-colour", 11: "RLE grey"}
+# the depths PIL reads for each type (without the RLE bit)
+_TGA_DEPTHS = {1: (8,), 2: (16, 24, 32), 3: (1, 8, 16)}
 
 
 def _rle_decode(data: bytes, pos: int, n_pixels: int, bpp: int):
-    """The pixel bytes of a type-10 image: packets of a header byte (bit 7
-    set: one pixel repeated (h & 0x7f) + 1 times; clear: that many raw
-    pixels follow)."""
+    """The pixel bytes of a run-length encoded image (types 9, 10, 11):
+    packets of a header byte (bit 7 set: one pixel repeated (h & 0x7f) + 1
+    times; clear: that many raw pixels follow), running on across rows."""
     out = bytearray()
     need = n_pixels * bpp
     while len(out) < need:
@@ -60,36 +84,80 @@ def _rle_decode(data: bytes, pos: int, n_pixels: int, bpp: int):
     return bytes(out[:need])
 
 
+def _expand5(v: np.ndarray) -> np.ndarray:
+    """16-bit A1R5G5B5 pixels -> uint8 RGB, each 5-bit channel c as
+    c * 255 // 31 (PIL's BGRA;15Z unpacker)."""
+    v = v.astype(np.uint32)
+    return np.stack([((v >> s) & 31) * 255 // 31 for s in (10, 5, 0)],
+                    -1).astype(np.uint8)
+
+
 def read_tga(path: str) -> np.ndarray:
-    """A 24- or 32-bit true-colour TGA as float32 [H, W, 3] in [0, 1]."""
+    """A TGA file as float32 [H, W, 3] in [0, 1] (module docstring)."""
     with open(path, "rb") as f:
         data = f.read()
     if len(data) < 18:
         raise ValueError(f"{path}: too short for a TGA header")
     id_len, cmap_type, itype = data[0], data[1], data[2]
+    cmap_first = data[3] | (data[4] << 8)
     cmap_len = data[5] | (data[6] << 8)
     cmap_bits = data[7]
     w = data[12] | (data[13] << 8)
     h = data[14] | (data[15] << 8)
     depth, desc = data[16], data[17]
+    base = itype & 7
     if itype not in _TGA_TYPES:
-        raise NotImplementedError(f"{path}: TGA image type {itype} (only "
-                                  "types 2 and 10, true-colour, are read)")
-    if depth not in (24, 32):
-        raise NotImplementedError(f"{path}: TGA with {depth} bits per pixel "
-                                  "(only 24 and 32 are read)")
-    bpp = depth // 8
+        raise NotImplementedError(f"{path}: TGA image type {itype} (read: "
+                                  "types 1, 2, 3, 9, 10 and 11)")
+    if depth not in _TGA_DEPTHS[base]:
+        raise NotImplementedError(
+            f"{path}: {_TGA_TYPES[itype]} TGA with {depth} bits per pixel "
+            f"(read: {', '.join(map(str, _TGA_DEPTHS[base]))})")
+    if base == 1 and (cmap_type != 1 or cmap_bits not in (16, 24)):
+        raise NotImplementedError(
+            f"{path}: colour-mapped TGA with a map of type {cmap_type} and "
+            f"{cmap_bits}-bit entries (read: 16- and 24-bit maps)")
+    if depth == 1 and itype != 3:
+        raise NotImplementedError(f"{path}: RLE TGA of 1-bit pixels")
     pos = 18 + id_len
-    if cmap_type == 1:        # a true-colour file may still carry a map
-        pos += cmap_len * ((cmap_bits + 7) // 8)
-    if itype == 2:
-        raw = data[pos:pos + w * h * bpp]
-        if len(raw) < w * h * bpp:
+    palette = None
+    if cmap_type == 1:
+        size = cmap_len * ((cmap_bits + 7) // 8)
+        entries = data[pos:pos + size]
+        pos += size
+        if base == 1:
+            pal = _expand5(np.frombuffer(entries, "<u2")) \
+                if cmap_bits == 16 else \
+                np.frombuffer(entries, np.uint8).reshape(-1, 3)[:, ::-1]
+            # indices below the map's first entry, or past its end, are black
+            palette = np.zeros((256, 3), np.uint8)
+            n = max(0, min(len(pal), 256 - cmap_first))
+            palette[cmap_first:cmap_first + n] = pal[:n]
+    if depth == 1:
+        stride = (w + 7) // 8
+        raw = data[pos:pos + h * stride]
+        if len(raw) < h * stride:
             raise ValueError(f"{path}: TGA pixel data is truncated")
+        bits = np.unpackbits(np.frombuffer(raw, np.uint8).reshape(h, stride),
+                             axis=1)[:, :w]
+        rgb = np.repeat((bits * 255)[..., None], 3, -1)
     else:
-        raw = _rle_decode(data, pos, w * h, bpp)
-    px = np.frombuffer(raw, np.uint8).reshape(h, w, bpp)
-    rgb = px[..., 2::-1]                      # BGR(A) -> RGB, alpha dropped
+        bpp = depth // 8
+        if itype & 8:
+            raw = _rle_decode(data, pos, w * h, bpp)
+        else:
+            raw = data[pos:pos + w * h * bpp]
+            if len(raw) < w * h * bpp:
+                raise ValueError(f"{path}: TGA pixel data is truncated")
+        px = np.frombuffer(raw, np.uint8).reshape(h, w, bpp)
+        if base == 1:
+            rgb = palette[px[..., 0]]
+        elif base == 3:                       # grey (and alpha) -> RGB
+            rgb = np.repeat(px[..., :1], 3, -1)
+        elif depth == 16:
+            rgb = _expand5(px.view("<u2")[..., 0])
+        else:
+            rgb = px[..., 2::-1]              # BGR(A) -> RGB, alpha dropped
     if not desc & 0x20:                       # bottom-left origin
         rgb = rgb[::-1]
     if desc & 0x10:                           # right-to-left
@@ -262,9 +330,14 @@ def read_image(path: str) -> np.ndarray:
         return read_exr(path)
     if ext == "npy":
         return np.asarray(np.load(path), np.float32)
+    if ext in _JPEG_EXTS:
+        return jpeg.read_jpeg(path).astype(np.float32) / 255.0
+    if ext in _TIFF_EXTS:
+        return tiff.read_tiff(path).astype(np.float32) / 255.0
     raise NotImplementedError(f"reading .{ext} images is not ported to "
                               "core_tpu_torch (read: .tga, .png, .hdr, "
-                              ".pic, .exr, .npy)")
+                              ".pic, .exr, .npy, .jpg, .jpeg, .jpe, .jfif, "
+                              ".tif, .tiff)")
 
 
 # ---- writers (core_tpu/io/image.py:16-43, 97-115, 152-211, 259-277) ----
@@ -378,7 +451,8 @@ def write_exr(path: str, img: np.ndarray, alpha: bool = False):
 
 
 def write_image(path: str, img: np.ndarray, alpha: bool = False):
-    """Write by extension: .png, .hdr, .tga, .exr or .npy."""
+    """Write by extension: .png, .hdr, .tga, .exr, .npy, and the JPEG and
+    TIFF extensions (module docstring)."""
     ext = path.rsplit(".", 1)[-1].lower()
     if ext == "png":
         return write_png(path, img, alpha)
@@ -390,6 +464,11 @@ def write_image(path: str, img: np.ndarray, alpha: bool = False):
         return write_exr(path, img, alpha)
     if ext == "npy":
         return np.save(path, np.asarray(img))
+    if ext in _JPEG_EXTS:
+        return jpeg.write_jpeg(path, to_uint8(np.asarray(img)[..., :3]))
+    if ext in _TIFF_EXTS:
+        return tiff.write_tiff(path, to_uint8(np.asarray(img)[..., :3]))
     raise NotImplementedError(f"writing .{ext} images is not ported to "
                               "core_tpu_torch (written: .png, .hdr, .tga, "
-                              ".exr, .npy)")
+                              ".exr, .npy, .jpg, .jpeg, .jpe, .jfif, .tif, "
+                              ".tiff)")

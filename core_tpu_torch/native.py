@@ -1,10 +1,10 @@
-"""ctypes binding of the native BVH builder (counterpart of
-core_tpu/native/__init__.py).
+"""The port's host C++ libraries, and the ctypes binding of the native BVH
+builder (counterpart of core_tpu/native/__init__.py).
 
-csrc/bvh_builder.cpp is compiled with g++ at first use into
-build/core_tpu_torch/ beside the package (like the kernels, _build.py),
-under a name that carries a hash of the source and flags, so an edit
-rebuilds.  A failed build raises with g++'s output.
+build(src) compiles one source of csrc/ (bvh_builder.cpp, image_codecs.cpp)
+with g++ at first use into build/core_tpu_torch/ beside the package (like
+the kernels, _build.py), under a name that carries a hash of the source and
+flags, so an edit rebuilds.  A failed build raises with g++'s output.
 """
 from __future__ import annotations
 
@@ -23,15 +23,15 @@ SRC = SRC_DIR / "bvh_builder.cpp"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 
-def library_path():
+def library_path(src=SRC):
     h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    h.update(SRC.read_bytes())
-    return BUILD_DIR / f"libcore_tpu_torch_bvh_{h.hexdigest()[:16]}.so"
+    h.update(src.read_bytes())
+    return BUILD_DIR / f"libcore_tpu_torch_{src.stem}_{h.hexdigest()[:16]}.so"
 
 
-def build():
-    """Compile the builder if its library is missing; returns its path."""
-    lib = library_path()
+def build(src=SRC):
+    """Compile the source if its library is missing; returns its path."""
+    lib = library_path(src)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -39,7 +39,7 @@ def build():
     # builders never load a half-written library
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         out = os.path.join(tmp, "lib.so")
-        run = subprocess.run(["g++", *GXX_FLAGS, "-o", out, str(SRC)],
+        run = subprocess.run(["g++", *GXX_FLAGS, "-o", out, str(src)],
                              capture_output=True, text=True)
         if run.returncode != 0:
             raise RuntimeError(f"g++ failed (exit {run.returncode}):\n"
@@ -89,3 +89,26 @@ def build_bvh_native(verts: np.ndarray, tri_vidx: np.ndarray,
         raise RuntimeError("native BVH build failed (no triangles, a vertex "
                            "index out of range, or too many nodes)")
     return node_min[:n], node_max[:n], left[:n], count[:n], order
+
+
+CODECS_SRC = SRC_DIR / "image_codecs.cpp"
+
+
+@functools.lru_cache(maxsize=None)
+def load_codecs() -> ctypes.CDLL:
+    """csrc/image_codecs.cpp, built at first use (io/jpeg.py, io/tiff.py)."""
+    lib = ctypes.CDLL(str(build(CODECS_SRC)))
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int32, ctypes.c_int64
+    for name, args, res in (
+            ("ctc_jpeg_dec_new", [i32, i32, i32, p], p),
+            ("ctc_jpeg_dec_free", [p], None),
+            ("ctc_jpeg_dec_scan", [p, p, i64, i64, i32, p, i32, i32, i32,
+                                   i32, i32, i32, p, p, p], i32),
+            ("ctc_jpeg_dec_finish", [p, p, i32, p], i32),
+            ("ctc_jpeg_encode", [p, i32, i32, p, p, p, i64], i64),
+            ("ctc_lzw_decode", [p, i64, p, i64], i64),
+            ("ctc_lzw_encode", [p, i64, p, i64], i64),
+            ("ctc_packbits_decode", [p, i64, p, i64], i64)):
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, res
+    return lib

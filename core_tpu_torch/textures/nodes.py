@@ -21,10 +21,12 @@ whole wavefront, each node to (rgb V3 [N], alpha [N], scalar [N]):
   constant) by colfac / valfac in one of nine modes, with the stencil,
   negative, noRGB and use_alpha flags; do_color and do_scalar pick the
   outputs it blends.
-Any other node type raises NotImplementedError by name.  A mapper naming
-no texture of the scene, and a node input naming no node of the list,
-raise ValueError (core_tpu substitutes white there; the reference fails to
-create the node).
+Where core_tpu substitutes ones (white, alpha 1, scalar 1), this copy
+does too: a node of any other type, a texture_mapper naming no texture of
+the scene, and an output name naming no node of the list.  A mix input
+naming no node takes the node's own constant (color1 / value1, color2 /
+value2, the factor's value); a layer input naming no node takes white (or
+the upper_color / upper_value constant).  A node cycle raises ValueError.
 """
 from __future__ import annotations
 
@@ -45,7 +47,6 @@ _MODE_NAMES = {0: "mix", 1: "add", 2: "multiply", 3: "subtract", 4: "screen",
                5: "divide", 6: "difference", 7: "darken", 8: "lighten",
                9: "overlay"}
 _MIX_TYPES = {"mix"} | set(_MODE_NAMES.values())
-SUPPORTED = ("texture_mapper", "value", "layer", *sorted(_MIX_TYPES))
 
 
 @dataclass(frozen=True)
@@ -77,14 +78,6 @@ def parse_node(pm) -> Optional[NodeDef]:
     return NodeDef(name=name, ntype=ntype,
                    params=tuple(sorted(items.items(),
                                        key=lambda kv: kv[0])))
-
-
-def check_supported(ndefs):
-    for nd in ndefs:
-        if nd.ntype not in SUPPORTED:
-            raise NotImplementedError(
-                f"shader node {nd.name!r} of type {nd.ntype!r}: core_tpu "
-                f"has no such node (known: {', '.join(SUPPORTED)})")
 
 
 def _deps(nd: NodeDef):
@@ -175,11 +168,9 @@ def _mapper_coords(nd: NodeDef, ctx) -> V3:
 
 
 def _mapper_eval(nd: NodeDef, ctx, ctex):
-    texname = nd.get("texture", "")
-    tex_idx = ctx["texture_names"].get(texname, -1)
+    tex_idx = ctx["texture_names"].get(nd.get("texture", ""), -1)
     if tex_idx < 0 or ctex is None:
-        raise ValueError(f"texture_mapper {nd.name!r}: the scene has no "
-                         f"texture named {texname!r}")
+        return _white(torch.ones_like(ctx["p"].x))
     tp = _mapper_coords(nd, ctx)
     # axis swizzle proj_x/y/z in {0: none, 1: x, 2: y, 3: z}
     comps = (torch.zeros_like(tp.x), tp.x, tp.y, tp.z)
@@ -301,14 +292,13 @@ def _value_blend(mode: int, tex, out, fact, facg, flip: bool):
 
 def _input(nd: NodeDef, key: str, results):
     """The result of the node that parameter `key` names; None when the
-    parameter is absent or empty."""
-    ref = nd.get(key, "")
-    if not ref:
-        return None
-    if ref not in results:
-        raise ValueError(f"{nd.ntype} node {nd.name!r}: {key} names no "
-                         f"shader node of the list ({ref!r})")
-    return results[ref]
+    parameter is absent, empty or names no node of the list."""
+    return results.get(nd.get(key, "") or None)
+
+
+def _white(one):
+    """core_tpu's substitute for a node it cannot evaluate: ones."""
+    return V3(one, one, one), one, one
 
 
 def _const(one, color, value):
@@ -328,8 +318,7 @@ def _layer_eval(nd: NodeDef, one, results):
         one, nd.get("upper_color", (0, 0, 0)), nd.get("upper_value", 0.0))
     rcol, ralpha, rval = upper
     stencil_tin = ralpha
-    icol, ialpha, ival = _input(nd, "input", results) or (
-        V3(one, one, one), one, one)
+    icol, ialpha, ival = _input(nd, "input", results) or _white(one)
     color_input = bool(nd.get("color_input", True))
     mode = int(nd.get("mode", 0))
     tex_rgb = color_input
@@ -390,10 +379,9 @@ def eval_graph(node_defs: list, out_name: str, ctx, ctex):
     wo (V3 [N]) and texture_names (name -> index in ctex).  Returns (rgb
     V3, alpha, scalar), [N] each."""
     nodes = {nd.name: nd for nd in node_defs if nd is not None}
-    if out_name not in nodes:
-        raise ValueError(f"no shader node named {out_name!r}")
-    check_supported(nodes.values())
     one = torch.ones_like(ctx["p"].x)
+    if out_name not in nodes:
+        return _white(one)
     results = {}
     for nd in toposort(nodes):
         if nd.ntype == "texture_mapper":
@@ -402,7 +390,9 @@ def eval_graph(node_defs: list, out_name: str, ctx, ctex):
             results[nd.name] = _layer_eval(nd, one, results)
         elif nd.ntype in _MIX_TYPES:
             results[nd.name] = _mix_eval(nd, one, results)
-        else:   # value
+        elif nd.ntype != "value":
+            results[nd.name] = _white(one)
+        else:
             col, _, sval = _const(one, nd.get("color", (1.0, 1.0, 1.0)),
                                   nd.get("scalar", 1.0))
             results[nd.name] = (

@@ -61,7 +61,8 @@ def test_numpy_build_equals_core_tpu(cornell):
     js, ts = cornell
     g = js.geom
     want = j_bvh.build_bvh(np.asarray(g.verts), np.asarray(g.tri_vidx))
-    got = bvh.build_bvh(ts.geom.verts.numpy(), ts.geom.tri_vidx.numpy())
+    got = bvh.build_bvh(ts.geom.verts.numpy(), ts.geom.tri_vidx.numpy(),
+                        device="cpu")
     _assert_same(got, want)
     # convert.py carries a BVH accel of either package across
     for acc in (got, want):
@@ -89,7 +90,8 @@ def test_native_build_equals_core_tpu_native():
                  j_native.build_bvh_native(verts, tris))
     # build_bvh takes the native builder at NATIVE_THRESHOLD triangles
     assert T >= bvh.NATIVE_THRESHOLD
-    _assert_same(bvh.build_bvh(verts, tris), bvh.to_device(got, "cpu"))
+    _assert_same(bvh.build_bvh(verts, tris, device="cpu"),
+                 bvh.to_device(got, "cpu"))
 
 
 def test_closest_and_any_hit_equal_core_tpu(cornell):

@@ -160,31 +160,69 @@ def test_read_tga_matches_pil(tmp_path, bits, rle, desc):
     assert np.array_equal(np.round(got * 255).astype(np.uint8), rgb8)
 
 
+# core_tpu's five substitutes of ones (core_tpu/textures/nodes.py): an
+# unknown node type, a mapper naming no texture, an output naming no node,
+# a mix and a layer whose inputs name no node (their constants then)
+WHITE_CASES = {
+    "unknown_type": ([("u", "musgrave_node", (("scale", 2.0),))], "u"),
+    "mapper_no_texture": ([("m", "texture_mapper",
+                            (("texco", "uv"), ("texture", "nope")))], "m"),
+    "no_output": ([("v", "value", (("color", (0.2, 0.4, 0.6)),))], "nope"),
+    "mix_no_input": ([("v", "value", (("color", (0.9, 0.1, 0.3)),
+                                      ("scalar", 0.7))),
+                      ("x", "mix", (("color1", (0.2, 0.4, 0.6)),
+                                    ("factor", "ghost2"),
+                                    ("input1", "ghost"), ("input2", "v"),
+                                    ("mode", 2), ("value1", 0.3)))], "x"),
+    "layer_no_input": ([("l", "layer", (("do_scalar", True),
+                                        ("input", "ghost"),
+                                        ("mode", 1), ("upper_color",
+                                                      (0.1, 0.2, 0.3)),
+                                        ("upper_layer", "ghost2"),
+                                        ("upper_value", 0.4)))], "l"),
+}
+
+
 def test_image_and_node_errors_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"\.jpg"):
-        read_image(str(tmp_path / "sky.jpg"))
-    # .png, .hdr, .pic and .exr are read now: a missing file is the error
-    for ext in ("png", "hdr", "pic", "exr"):
+    """What still raises, and where core_tpu substitutes white the port
+    now does too (each of WHITE_CASES by both eval_graphs, exactly)."""
+    for ext in ("png", "hdr", "pic", "exr", "jpg", "tif", "tga"):
         with pytest.raises(FileNotFoundError):
             read_image(str(tmp_path / f"sky.{ext}"))
-    with pytest.raises(FileNotFoundError):
-        read_image(str(tmp_path / "missing.tga"))
+    with pytest.raises(NotImplementedError, match=r"\.bmp"):
+        read_image(str(tmp_path / "sky.bmp"))
     grey = tmp_path / "grey.tga"
-    grey.write_bytes(bytes([0, 0, 3] + [0] * 9 + [1, 0, 1, 0, 8, 0]) + b"\0")
-    with pytest.raises(NotImplementedError, match="type 3"):
+    grey.write_bytes(bytes([0, 0, 3] + [0] * 9 + [1, 0, 1, 0, 8, 0]) + b"\7")
+    got = read_image(str(grey))
+    assert np.array_equal(got.view(np.uint32),
+                          j_read_image(str(grey)).view(np.uint32))
+    grey.write_bytes(bytes([0, 0, 2] + [0] * 9 + [1, 0, 1, 0, 15, 0])
+                     + b"\7\0")
+    with pytest.raises(NotImplementedError, match="15 bits"):
         read_image(str(grey))
     with pytest.raises(FileNotFoundError):
         golden_mesh_scene(8, 8, asset_dir=str(tmp_path), device="cpu")
     cyc = [NodeDef("a", "value", (("input", "b"),)),
            NodeDef("b", "value", (("input", "a"),))]
-    one = torch.ones(4)
-    ctx = {"p": V3(one, one, one), "uv": (one, one), "n": V3(one, one, one),
+    rng = np.random.default_rng(5)
+    p, n = rng.normal(size=(2, 4, 3)).astype(np.float32)
+    uv = rng.random((4, 2)).astype(np.float32)
+    ctx = {"p": v3(torch.from_numpy(p)), "n": v3(torch.from_numpy(n)),
+           "uv": (torch.from_numpy(uv[:, 0]), torch.from_numpy(uv[:, 1])),
            "texture_names": {}}
+    jctx = {"p": jnp.asarray(p), "n": jnp.asarray(n), "uv": jnp.asarray(uv),
+            "texture_names": {}}
     with pytest.raises(ValueError, match="cycle"):
         eval_graph(cyc, "a", ctx, None)
-    with pytest.raises(ValueError, match="no texture named 'nope'"):
-        eval_graph([NodeDef("m", "texture_mapper", (("texture", "nope"),))],
-                   "m", ctx, None)
+    for case, (nodes, out) in WHITE_CASES.items():
+        rgba, sval = j_eval_graph([JNodeDef(*nd) for nd in nodes], out,
+                                  jctx, None)
+        rgb, alpha, tval = eval_graph([NodeDef(*nd) for nd in nodes], out,
+                                      ctx, None)
+        got = torch.stack([rgb.x, rgb.y, rgb.z, alpha, tval], -1).numpy()
+        want = np.concatenate([np.asarray(rgba),
+                               np.asarray(sval)[:, None]], -1)
+        assert np.array_equal(got, want), case
 
 
 # ---- the image texture and the nodes on a small texture set ----

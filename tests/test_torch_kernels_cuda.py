@@ -274,26 +274,36 @@ def test_flat_closest_and_any_kernels_match_plain(device):
     assert 0.05 < float(got.float().mean()) < 0.95
 
 
-@pytest.mark.parametrize("K", ck.NEE_K)
-def test_flat_nee_kernel_matches_plain(device, K):
+def test_flat_nee_kernel_matches_plain(device):
+    """Kernel 6 against the plain version at each bundle width K of
+    ck.NEE_K (one item; a failing K is reported by name)."""
     from core_tpu_torch.geometry import cluster_intersect as ci
     from core_tpu_torch.geometry import cuda_cluster as cc
     acc = _flat_scene(device).accel
     n = 3000
-    rays, ex, g = _mesh_rays(device, n, seed=20 + K)
-    dirs = [vec.v3(_unit(torch.randn((n, 3), generator=g, device=device)))
-            for _ in range(K)]
-    caps = [torch.full((n,), (-1.0, 3.0, 0.5, 2.5e-4)[k % 4], device=device)
-            for k in range(K)]
-    launches = cc.any_hit_nee_flat_cuda.launches
-    got = cc.any_hit_nee_flat_cuda(acc, rays.o, rays.tmin, dirs, caps, ex)
-    want = ci.any_hit_nee_flat_torch(acc, rays.o, rays.tmin, dirs, caps, ex)
-    torch.cuda.synchronize()
-    assert cc.any_hit_nee_flat_cuda.launches == launches + 1
-    assert torch.equal(got, want)
-    bits = got.view(K, n)
-    assert not bool(bits[3::4].any()) and 0.05 < float(
-        bits[0].float().mean()) < 0.95
+    failed = []
+    for K in ck.NEE_K:
+        rays, ex, g = _mesh_rays(device, n, seed=20 + K)
+        dirs = [vec.v3(_unit(torch.randn((n, 3), generator=g,
+                                         device=device)))
+                for _ in range(K)]
+        caps = [torch.full((n,), (-1.0, 3.0, 0.5, 2.5e-4)[k % 4],
+                           device=device) for k in range(K)]
+        launches = cc.any_hit_nee_flat_cuda.launches
+        got = cc.any_hit_nee_flat_cuda(acc, rays.o, rays.tmin, dirs, caps,
+                                       ex)
+        want = ci.any_hit_nee_flat_torch(acc, rays.o, rays.tmin, dirs, caps,
+                                         ex)
+        torch.cuda.synchronize()
+        try:
+            assert cc.any_hit_nee_flat_cuda.launches == launches + 1
+            assert torch.equal(got, want)
+            bits = got.view(K, n)
+            assert not bool(bits[3::4].any()) and 0.05 < float(
+                bits[0].float().mean()) < 0.95
+        except AssertionError as e:
+            failed.append(f"K={K}: {e!r}")
+    assert not failed, "\n".join(failed)
 
 
 @pytest.mark.parametrize("dirac", [False, True])
@@ -369,17 +379,24 @@ def _expect(case, bits, caps, ex):
         assert float((bits[1:] == capped).float().mean()) > 0.9
 
 
-@pytest.mark.parametrize("case", EDGE_CASES)
-def test_flat_nee_kernel_edge_cases(device, case):
+def test_flat_nee_kernel_edge_cases(device):
+    """Kernel 6 against the plain version on each of EDGE_CASES (one item;
+    a failing case is reported by name)."""
     from core_tpu_torch.geometry import cluster_intersect as ci
     from core_tpu_torch.geometry import cuda_cluster as cc
     acc = _flat_scene(device).accel
-    o3, tmin, dirs, caps, ex = _bundle(device, acc, case)
-    got = cc.any_hit_nee_flat_cuda(acc, o3, tmin, dirs, caps, ex)
-    want = ci.any_hit_nee_flat_torch(acc, o3, tmin, dirs, caps, ex)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    _expect(case, got.view(len(dirs), -1), caps, ex)
+    failed = []
+    for case in EDGE_CASES:
+        o3, tmin, dirs, caps, ex = _bundle(device, acc, case)
+        got = cc.any_hit_nee_flat_cuda(acc, o3, tmin, dirs, caps, ex)
+        want = ci.any_hit_nee_flat_torch(acc, o3, tmin, dirs, caps, ex)
+        torch.cuda.synchronize()
+        try:
+            assert torch.equal(got, want)
+            _expect(case, got.view(len(dirs), -1), caps, ex)
+        except AssertionError as e:
+            failed.append(f"case={case}: {e!r}")
+    assert not failed, "\n".join(failed)
 
 
 @pytest.mark.parametrize("case", EDGE_CASES)

@@ -444,14 +444,26 @@ def test_mix_mode_5_is_the_lerp(core):
 
 
 def test_node_input_naming_no_node_raises(ctex):
+    """A mix, layer or add input naming no node of the list no longer
+    raises: core_tpu takes the node's own constants there, and so does
+    the port (equal values)."""
     one = torch.ones(4)
     ctx = {"p": tvec.V3(one, one, one), "uv": (one, one),
            "n": tvec.V3(one, one, one), "texture_names": TEX_NAMES}
+    jctx = {"p": jnp.ones((4, 3)), "uv": jnp.ones((4, 2)),
+            "n": jnp.ones((4, 3)), "texture_names": TEX_NAMES}
     for ntype, key in (("mix", "input1"), ("layer", "upper_layer"),
                        ("add", "factor")):
-        with pytest.raises(ValueError, match=f"{key} names no shader node"):
-            eval_graph([NodeDef("m", ntype, ((key, "nope"),))], "m", ctx,
-                       ctex)
+        params = ((key, "nope"),)
+        rgb, alpha, sval = eval_graph([NodeDef("m", ntype, params)], "m",
+                                      ctx, ctex)
+        rgba, jval = j_eval_graph([JNodeDef("m", ntype, params)], "m", jctx,
+                                  None)
+        got = np.stack([rgb.x.numpy(), rgb.y.numpy(), rgb.z.numpy(),
+                        alpha.numpy(), sval.numpy()], -1)
+        want = np.concatenate([np.asarray(rgba), np.asarray(jval)[:, None]],
+                              -1)
+        assert np.array_equal(got, want), ntype
 
 
 # ---- bump mapping ----

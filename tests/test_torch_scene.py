@@ -238,25 +238,26 @@ def test_unported_features_raise_by_name(scenes):
         render_image(ts, RenderOptions(integrator="SkyIntegrator",
                                        integrator_opts=DirectOptions()))
     # mix and layer nodes and bump mapping are ported: each is recorded as
-    # its material's program; a node type core_tpu does not know raises
+    # its material's program; a node type core_tpu does not know is
+    # recorded too, as core_tpu records it (it evaluates to white)
+    from core_tpu.environment import SceneBuilder as JSceneBuilder
+    from core_tpu.params import ParamMap as JParamMap
     from core_tpu_torch.environment import SceneBuilder
     from core_tpu_torch.params import ParamMap
     for ntype, slot in (("mix", "diffuse_shader"),
                         ("layer", "diffuse_shader"),
                         ("texture_mapper", "bump_shader"),
                         ("curve", "diffuse_shader")):
-        b = SceneBuilder("cpu")
-        b.create("texture", "tex", ParamMap({"type": "clouds"}))
-        b.create("material", "m0", ParamMap({"type": "shinydiffusemat"}))
-
-        def make():
-            b.create("material", "m", ParamMap({
+        programs = []
+        for builder, pmap in ((SceneBuilder("cpu"), ParamMap),
+                              (JSceneBuilder(), JParamMap)):
+            builder.create("texture", "tex", pmap({"type": "clouds"}))
+            builder.create("material", "m0",
+                           pmap({"type": "shinydiffusemat"}))
+            builder.create("material", "m", pmap({
                 "type": "shinydiffusemat", slot: "node"}),
-                extra=[ParamMap({"name": "node", "type": ntype,
-                                 "texture": "tex"})])
-        if ntype == "curve":
-            with pytest.raises(NotImplementedError, match="curve"):
-                make()
-        else:
-            make()
-            assert [(m, s) for m, s, _, _ in b.node_programs] == [(1, slot)]
+                extra=[pmap({"name": "node", "type": ntype,
+                             "texture": "tex"})])
+            programs.append([(m, s) for m, s, _, _ in
+                             builder.node_programs])
+        assert programs[0] == programs[1] == [(1, slot)], ntype
